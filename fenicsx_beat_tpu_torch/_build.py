@@ -1,0 +1,148 @@
+"""Build the port's CUDA kernels from ``csrc/`` at first use and load them.
+
+``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``) into
+one shared library with a plain C interface, bound with :mod:`ctypes`
+(no PyTorch headers in the build, so it takes seconds, not minutes).  The
+library goes to ``build/torch_kernels/libfbt_kernels-<hash>.so`` beside
+the package, keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one is loaded as it is.  Nothing here runs at
+import time; a build failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32", "stream_ptr",
+    "num_blocks",
+]
+
+_CSRC = Path(__file__).with_name("csrc")
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
+]
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # name: (restype, argtypes) -- pointers and the stream as c_void_p
+    "tp06_grl_step_v": (
+        ctypes.c_int,
+        [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, _P],
+    ),
+    "stencil_spmv_sym": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],
+    ),
+    "cg_update": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P],
+    ),
+    "axpy": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
+}
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an existing build was loaded
+    compiler_output: str  # nvcc's -Xptxas -v report ("" when loaded)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _source_tag(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Compile (if needed) and load the kernel library; raises on failure."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    headers = sorted(_CSRC.glob("*.cuh"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+    out = _BUILD_DIR / f"libfbt_kernels-{_source_tag(sources + headers)}.so"
+    seconds, log = 0.0, ""
+    if not out.is_file():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
+            tmp = Path(td) / out.name
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            tic = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - tic
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return KernelLibrary(lib=lib, path=out, build_seconds=seconds, compiler_output=log)
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def require_cuda_f32(**tensors) -> None:
+    """The kernels take contiguous float32 tensors on one CUDA device."""
+    dev = None
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, the kernel needs a CUDA tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the other operands on {dev}")
+        dev = t.device
+
+
+def num_blocks(n: int) -> int:
+    """Blocks of a one-element-per-thread launch (``fbt::num_blocks`` in
+    ``csrc/common.cuh``, 256 threads): the length of a partial-sum buffer."""
+    return -(-n // 256)
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

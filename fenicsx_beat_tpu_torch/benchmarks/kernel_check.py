@@ -1,0 +1,157 @@
+"""Kernel-vs-twin regression checks.
+
+:func:`kernel_check` is the port of
+``fenicsx_beat_tpu/benchmarks/kernel_check.py``: the same dx=0.5 Niederer
+simulation runs twice on one device, once through the four CUDA kernels
+and once through their plain PyTorch twins, and the max voltage deviation
+is recorded.  float32 accumulation-order noise is of order 1e-4..1e-3 over
+40 steps; anything above 1e-2 is a real fault.
+
+The voltage alone does not see the ionic step's slow concentrations (K_i,
+Na_i, Ca_SR), whose effect on V over 40 steps is below that noise.
+:func:`ionic_step_errors` and :func:`ionic_beat_errors` hold every state
+row of the ionic step against its twin: one step by increment, and one
+paced beat by excursion.  At physiological values one step moves K_i by
+less than a float32 ulp of 137 mM, so the one-step check also runs on
+:func:`step_check_states`, where the same formulas move those rows by
+thousands of ulps.
+
+Usage, on a machine with a CUDA card::
+
+    python -m fenicsx_beat_tpu_torch.benchmarks.kernel_check
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from typing import Callable
+
+import torch
+
+from ..models import tentusscher_panfilov_2006 as tp06
+
+THRESHOLD = 1e-2
+# One ionic step, per state row: the kernel-vs-twin difference beyond one
+# float32 ulp of the value, over the row's largest increment.  Kernel vs
+# twin on an H100 reads at most 2.5e-3 (row Xs).  Mutated kernels read:
+# K_i never updated 0.93, the NaCa term of dNa_i doubled 0.54, K_i's or
+# Na_i's rate 5% low 0.05 with that row scaled (0 at physiological
+# values).  A term small against its row's largest increment (i_NaK in
+# dK_i, 6e-4 of it) is left to the beat check.
+IONIC_STEP_TOL = 2e-2
+# The rows whose one-step increment float32 resolves only coarsely at
+# physiological values (ulp over increment: K_i 0.3, Na_i 0.17, Ca_SR
+# 0.05), and the factor that brings that to 2.4e-3 or less.
+SLOW_ROWS = ("Ca_SR", "Na_i", "K_i")
+SLOW_ROW_SCALE = 1e-2
+# One paced beat, per state row: max |kernel - twin| over the run, over
+# the row's largest excursion from the start in the twin.  Kernel vs twin
+# over 16,384 cells on an H100 reads at most 4.6e-2 (rows K_i and j: the
+# upstroke moves by a fraction of a step); a frozen Na_i or Ca_SR reads
+# 1.0, the NaK term of dK_i halved 0.38, the NaCa term of dNa_i doubled
+# 0.74.
+IONIC_BEAT_TOL = 1e-1
+# The beat: the model's own pacing (stimulus at 10-11 ms), 400 ms at the
+# main path's step.
+BEAT_DT = 0.05
+BEAT_STEPS = 8000
+
+IonicStep = Callable[[torch.Tensor, torch.Tensor, float, float, object], torch.Tensor]
+
+
+def _ulp32(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of float32 numbers at ``|x|``, in ``x``'s dtype."""
+    a = x.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).to(x.dtype)
+
+
+def step_check_states(states: torch.Tensor) -> list[tuple[str, torch.Tensor]]:
+    """The states the one-step check runs from: ``states`` itself, then one
+    copy for each row of :data:`SLOW_ROWS` with that row alone scaled by
+    :data:`SLOW_ROW_SCALE`.  Those values are far from physiological, but
+    kernel and twin evaluate the same formulas on them, and one step's
+    increment of the scaled row is then large against a float32 ulp of its
+    value.  One row at a time, because a small Na_i also silences i_NaK,
+    which K_i's and V's rates carry."""
+    sets = [("physiological", states)]
+    for name in SLOW_ROWS:
+        out = states.clone()
+        out[tp06.state_index(name)] *= SLOW_ROW_SCALE
+        sets.append((f"{name} scaled", out))
+    return sets
+
+
+def ionic_step_errors(
+    step: IonicStep, twin: IonicStep, states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters
+) -> tuple[float, torch.Tensor]:
+    """One ionic step from the same ``states`` and ``v`` through ``step``
+    and ``twin``.  Returns the max absolute difference and, per state row,
+    ``max(|k - w| - ulp(max(|k|, |w|)), 0) / max|w - s|`` over the nodes,
+    where ``s`` is the input with row V replaced by ``v``.  Where float32
+    cannot resolve a step's change of a value, kernel and twin may round
+    to neighbouring numbers; anything beyond that one ulp is held against
+    the step's own increment, so a row left unchanged or moved by a wrong
+    rate shows at O(1) however small its value's change."""
+    s_in = states.clone()
+    s_in[tp06.state_index("V")] = v
+    k, w = states.clone(), states.clone()
+    step(k, v, t, dt, parameters)
+    twin(w, v, t, dt, parameters)
+    k, w, s_in = k.double(), w.double(), s_in.double()
+    diff = (k - w).abs()
+    excess = (diff - _ulp32(torch.maximum(k.abs(), w.abs()))).clamp_min(0.0)
+    scale = (w - s_in).abs().amax(dim=1).clamp_min(1e-300)
+    return float(diff.max()), excess.amax(dim=1) / scale
+
+
+def ionic_beat_errors(
+    step: IonicStep, twin: IonicStep, states: torch.Tensor, parameters,
+    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0,
+) -> tuple[float, torch.Tensor]:
+    """Run ``step`` and ``twin`` side by side from ``states`` for
+    ``n_steps``, each cell driven by its own voltage row (no PDE) and the
+    model's pacing stimulus in ``parameters``.  Returns the max absolute
+    difference and, per state row, max over steps and nodes of
+    ``|k - w|`` over the row's largest excursion ``max |w - s0|``."""
+    iv = tp06.state_index("V")
+    k, w = states.clone(), states.clone()
+    err = torch.zeros(states.shape[0], dtype=states.dtype, device=states.device)
+    exc = torch.zeros_like(err)
+    t = float(t0)
+    for _ in range(n_steps):
+        step(k, k[iv], t, dt, parameters)
+        twin(w, w[iv], t, dt, parameters)
+        torch.maximum(err, (k - w).abs().amax(dim=1), out=err)
+        torch.maximum(exc, (w - states).abs().amax(dim=1), out=exc)
+        t += dt
+    return float(err.max()), err.double() / exc.double().clamp_min(1e-300)
+
+
+def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="cuda") -> dict:
+    from .niederer import _build_solver
+
+    v = {}
+    for use_kernels in (True, False):
+        solver = _build_solver(dx=dx, device=device, use_kernels=use_kernels)
+        solver.solve((0.0, n_steps * dt), dt=dt)
+        v[use_kernels] = solver.v.double().cpu()
+    dev = torch.device(device)
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "dx": dx,
+        "dt": dt,
+        "n_steps": n_steps,
+        "max_abs_dev": float((v[True] - v[False]).abs().max()),
+        "threshold": THRESHOLD,
+    }
+
+
+def main() -> int:
+    out = kernel_check()
+    print(json.dumps(out))
+    return 0 if out["max_abs_dev"] < out["threshold"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

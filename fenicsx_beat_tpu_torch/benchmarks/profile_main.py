@@ -1,0 +1,213 @@
+"""Where the main path's time goes, on a CUDA card.
+
+    python -m fenicsx_beat_tpu_torch.benchmarks.profile_main [--repeats 5]
+
+Builds the Niederer dx=0.1 Strang solver (dt=0.05) and prints:
+
+1. the card's name and power limit (nvidia-smi);
+2. one window of 100 steps from t=20 ms (the wave well under way), run
+   twice from the same saved state: first unprofiled, timed on the host
+   clock with a device synchronize at each end, then under
+   ``torch.profiler``.  Both runs do the same work (their CG iteration
+   counts must be equal).  The device's busy time is the union of the
+   kernel, copy and memset intervals of the profiled run; the busy share
+   is that time over the unprofiled wall of the same window, and also over
+   the profiled run's own device span (first device event to last), which
+   the profiler's host overhead stretches;
+3. the device time of each kernel in that window, largest first;
+4. the timed 40 ms horizon of ``run_niederer_benchmark`` (800 steps in
+   chunks of 400, from the initial state, one synchronize at the end),
+   ``--repeats`` times on the same solver, each with the host's 1-minute
+   load average, the share of the machine's CPU time that was busy during
+   the run (``/proc/stat``), and this process's CPU time over its wall.
+
+The profiler's trace is written under ``build/profile/`` in the checkout
+and deleted after it is read unless ``--keep-trace`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .niederer import _build_solver, benchmark_points
+
+ROOT = Path(__file__).resolve().parents[2]
+DT = 0.05
+WINDOW_START_STEPS = 400  # t = 20 ms
+WINDOW_STEPS = 100
+CHUNK_STEPS = 400
+HORIZON_STEPS = 800  # 40 ms
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _cpu_busy_jiffies() -> tuple[int, int]:
+    """(busy, total) jiffies of the whole machine from /proc/stat."""
+    fields = [int(x) for x in Path("/proc/stat").read_text().splitlines()[0].split()[1:]]
+    idle = fields[3] + (fields[4] if len(fields) > 4 else 0)  # idle + iowait
+    return sum(fields) - idle, sum(fields)
+
+
+def _device_intervals(trace_path: Path) -> list[tuple[float, float, str]]:
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    return [
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e.get("name", ""))
+        for e in events
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+    ]
+
+
+def _union_length(intervals) -> float:
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def _reset(solver, init) -> None:
+    solver.states.copy_(init[0])
+    solver.activation_time = init[1].clone()
+    torch.cuda.synchronize()
+
+
+def profile_window(solver, amps, init, keep_trace: bool) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    t_start = WINDOW_START_STEPS * DT
+    _reset(solver, init)
+    solver.run_chunk(0.0, DT, WINDOW_START_STEPS, amps, probed=True)
+    torch.cuda.synchronize()
+    saved = (solver.states.clone(), solver.activation_time.clone())
+    solver.host_syncs = 0
+    tic = time.perf_counter()
+    plain = solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - tic) * 1e3
+    syncs = solver.host_syncs
+
+    _reset(solver, saved)
+    trace_dir = ROOT / "build" / "profile"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    trace = trace_dir / f"window-{os.getpid()}.json"
+    tic = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True)
+        torch.cuda.synchronize()
+    wall_prof_ms = (time.perf_counter() - tic) * 1e3
+    if profiled.iters_sum != plain.iters_sum:
+        raise RuntimeError(f"the two runs of the window differ: {plain.iters_sum} vs {profiled.iters_sum} CG iterations")
+    prof.export_chrome_trace(str(trace))
+    iv = _device_intervals(trace)
+    if not keep_trace:
+        trace.unlink()
+    if not iv:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_ms = _union_length(iv) / 1e3
+    span_ms = (max(e for _, e, _ in iv) - min(s for s, _, _ in iv)) / 1e3
+    by_name: dict[str, list[float]] = {}
+    for s, e, name in iv:
+        by_name.setdefault(name, []).append(e - s)
+    kernels = sorted(
+        ((sum(d) / 1e3, len(d), name) for name, d in by_name.items()), reverse=True
+    )
+    return {
+        "t_start_ms": t_start,
+        "steps": WINDOW_STEPS,
+        "cg_iters": plain.iters_sum,
+        "host_syncs": syncs,
+        "wall_ms": wall_ms,
+        "wall_profiled_ms": wall_prof_ms,
+        "device_busy_ms": busy_ms,
+        "device_span_profiled_ms": span_ms,
+        "busy_share_of_wall": busy_ms / wall_ms,
+        "busy_share_of_profiled_span": busy_ms / span_ms,
+        "kernels": [
+            {"name": name, "ms": ms, "calls": calls, "us_per_call": ms * 1e3 / calls}
+            for ms, calls, name in kernels
+        ],
+        "trace": str(trace.relative_to(ROOT)) if keep_trace else None,
+    }
+
+
+def time_horizons(solver, amps, init, repeats: int) -> list[dict]:
+    """The timed horizon, after one discarded warm-up chunk."""
+    _reset(solver, init)
+    solver.run_chunk(0.0, DT, CHUNK_STEPS, amps, probed=True)
+    runs = []
+    for _ in range(repeats):
+        _reset(solver, init)
+        iters = 0
+        busy0, total0 = _cpu_busy_jiffies()
+        cpu0, tic = time.process_time(), time.perf_counter()
+        t = 0.0
+        for _ in range(HORIZON_STEPS // CHUNK_STEPS):
+            res = solver.run_chunk(t, DT, CHUNK_STEPS, amps, probed=True)
+            iters += res.iters_sum
+            t += CHUNK_STEPS * DT
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        cpu = time.process_time() - cpu0
+        busy1, total1 = _cpu_busy_jiffies()
+        runs.append({
+            "wall_s": wall,
+            "ms_per_s": HORIZON_STEPS * DT / wall,
+            "cg_iters_per_step": iters / HORIZON_STEPS,
+            "loadavg_1min": os.getloadavg()[0],
+            "machine_cpu_busy_share": (busy1 - busy0) / max(total1 - total0, 1),
+            "process_cpu_over_wall": cpu / wall,
+        })
+    return runs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--keep-trace", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_main: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {os.cpu_count()} host CPUs")
+    solver = _build_solver(
+        dx=0.1, theta=0.5, device="cuda", probe_points=np.array(list(benchmark_points().values()))
+    )
+    amps = solver.stimulus_amplitudes()
+    init = (solver.states.clone(), solver.activation_time.clone())
+    horizons = time_horizons(solver, amps, init, args.repeats)
+    for i, h in enumerate(horizons):
+        print(f"[horizon {i}] " + json.dumps(h))
+    w = profile_window(solver, amps, init, args.keep_trace)
+    print(f"[window] t={w['t_start_ms']} ms, {w['steps']} steps, {w['cg_iters']} CG iterations, "
+          f"{w['host_syncs']} host syncs: wall {w['wall_ms']:.3f} ms unprofiled, "
+          f"{w['wall_profiled_ms']:.3f} ms profiled; device busy {w['device_busy_ms']:.3f} ms = "
+          f"{w['busy_share_of_wall']:.4f} of the unprofiled wall, "
+          f"{w['busy_share_of_profiled_span']:.4f} of the profiled device span "
+          f"({w['device_span_profiled_ms']:.3f} ms)")
+    for k in w["kernels"][:20]:
+        print(f"[window] {k['ms']:9.4f} ms {k['calls']:6d} calls {k['us_per_call']:8.3f} us/call  {k['name'][:100]}")
+    print(json.dumps({"horizons": horizons, "window": w}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

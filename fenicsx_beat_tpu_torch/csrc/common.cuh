@@ -1,0 +1,57 @@
+// Shared pieces of the port's kernels: launch shape and the deterministic
+// two-pass reduction.
+//
+// On the TPU the Pallas kernels summed their dot products in SMEM across
+// a grid that runs in order on one core.  On the H100 blocks run in
+// parallel and in no order, so each block writes its partial sum to its
+// own slot and a second one-block kernel adds the slots in a fixed order.
+// No float atomics: a kernel and its plain PyTorch twin can then be
+// compared run after run without the sum order changing under them.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fbt {
+
+constexpr int kThreads = 256;          // threads per block of every kernel
+constexpr int kFinalizeThreads = 1024;
+
+inline int num_blocks(long long n) {
+    return static_cast<int>((n + kThreads - 1) / kThreads);
+}
+
+// Sum of one value per thread over the block, in a fixed order (warp
+// shuffles, then the warp sums in lane order).  Every thread of the block
+// must call it; the result is valid in thread 0.
+template <int kBlock>
+__device__ __forceinline__ double block_sum(double v) {
+    static_assert(kBlock % 32 == 0 && kBlock <= 1024, "block must be whole warps");
+    __shared__ double warp_sums[kBlock / 32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp] = v;
+    __syncthreads();
+    double s = 0.0;
+    if (warp == 0) {
+        s = lane < kBlock / 32 ? warp_sums[lane] : 0.0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    }
+    __syncthreads();  // warp_sums may be reused by a second call
+    return s;
+}
+
+// Second pass: block b adds partials[b * nparts : (b+1) * nparts] in a
+// fixed order and writes the float result to out[b].
+static __global__ void finalize_sums(const double* __restrict__ partials, int nparts,
+                                     float* __restrict__ out) {
+    const double* p = partials + static_cast<long long>(blockIdx.x) * nparts;
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < nparts; i += kFinalizeThreads) acc += p[i];
+    acc = block_sum<kFinalizeThreads>(acc);
+    if (threadIdx.x == 0) out[blockIdx.x] = static_cast<float>(acc);
+}
+
+}  // namespace fbt

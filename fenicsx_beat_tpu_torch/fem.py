@@ -1,0 +1,399 @@
+"""Finite-element layer, P1 subset: spaces, cell geometry, stencil assembly,
+stimulus quadrature and probe tables.
+
+Host-side (numpy) port of the parts of ``fenicsx_beat_tpu/fem.py`` that the
+fused monodomain solver runs at setup time.  Every array here is built once
+on the host; the solver moves the results to its device.  Where the JAX
+package calls its native C++ kit, the port takes the kit's numpy branch:
+the slot loop of ``assemble_mass_stiffness_stencil`` and the barycentric
+sweep of ``_locate_cells``.  Higher-degree, discontinuous and blocked
+spaces, facet quadrature and the ELL assembly are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+
+from .convert import stencil_from_numpy
+from .mesh import Mesh
+from .ops.quadrature import simplex_rule
+
+__all__ = [
+    "Element",
+    "FunctionSpace",
+    "functionspace",
+    "Constant",
+    "CellGeometry",
+    "cell_geometry",
+    "assemble_mass_stiffness_stencil",
+    "CellQuadData",
+    "cell_quadrature",
+    "point_evaluation_tables",
+]
+
+
+# ---------------------------------------------------------------------------
+# Elements
+
+
+def _bary(pts: np.ndarray) -> np.ndarray:
+    """Barycentric coords [np, tdim+1] of reference-simplex points [np, tdim]."""
+    lam0 = 1.0 - pts.sum(axis=1, keepdims=True)
+    return np.concatenate([lam0, pts], axis=1)
+
+
+_FAMILY_ALIASES = {"P": "P", "CG": "P", "Lagrange": "P"}
+
+
+@dataclass(frozen=True)
+class Element:
+    family: str  # "P"
+    degree: int
+
+    def __post_init__(self):
+        if self.family != "P" or self.degree != 1:
+            raise NotImplementedError(
+                f"element ({self.family}, {self.degree}): the port supports P1 only"
+            )
+
+    def tabulate(self, tdim: int, pts: np.ndarray) -> np.ndarray:
+        """Basis values [np, tdim+1] at reference points [np, tdim]."""
+        return _bary(pts)
+
+
+# ---------------------------------------------------------------------------
+# Function space
+
+
+@dataclass
+class FunctionSpace:
+    mesh: Mesh
+    element: Element
+    cell_dofs: np.ndarray  # [nc, tdim+1] int32
+    ndofs: int
+
+    @property
+    def ndofs_per_cell(self) -> int:
+        return self.cell_dofs.shape[1]
+
+
+def functionspace(mesh: Mesh, element) -> FunctionSpace:
+    """P1 function space; ``element`` is an Element or a ("P", 1) tuple."""
+    if isinstance(element, tuple):
+        if len(element) != 2:
+            raise NotImplementedError("blocked (vector) spaces are not ported yet")
+        family, degree = element
+        if family not in _FAMILY_ALIASES:
+            raise NotImplementedError(f"element family {family!r} is not ported yet")
+        element = Element(_FAMILY_ALIASES[family], int(degree))
+    return FunctionSpace(
+        mesh=mesh,
+        element=element,
+        cell_dofs=np.ascontiguousarray(mesh.cells, dtype=np.int32),
+        ndofs=mesh.num_vertices,
+    )
+
+
+class Constant:
+    """Mutable scalar/vector constant (mirrors ``dolfinx.fem.Constant``)."""
+
+    def __init__(self, mesh_or_value, value=None):
+        if value is None:
+            value = mesh_or_value
+        self._value = np.asarray(value, dtype=np.float64)
+
+    @property
+    def value(self):
+        return self._value if self._value.ndim else float(self._value)
+
+    @value.setter
+    def value(self, v):
+        self._value = np.asarray(v, dtype=np.float64)
+
+    def __float__(self) -> float:
+        return float(self._value)
+
+    def __len__(self) -> int:
+        return self._value.shape[0] if self._value.ndim else 0
+
+    def __array__(self, dtype=None):
+        return np.asarray(self._value, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cell geometry
+
+
+@dataclass
+class CellGeometry:
+    edges: np.ndarray  # [nc, tdim, gdim] edge vectors from vertex 0
+    volume: np.ndarray  # [nc]
+    grads: np.ndarray  # [nc, tdim+1, gdim]  physical gradients of P1 basis
+    inv_edges: np.ndarray  # [nc, tdim, gdim] rows = grad of ref coord xi_i
+
+
+def _batched_det_inv(E: np.ndarray):
+    """Determinant and inverse of [nc, d, d] batches via cofactors (the
+    closed form is pure vectorized arithmetic; ``np.linalg`` would send
+    each tiny matrix through LAPACK)."""
+
+    def _check(det):
+        if np.any(det == 0):
+            raise np.linalg.LinAlgError(
+                "singular cell Jacobian: mesh contains degenerate "
+                "(zero-volume) cells"
+            )
+
+    d = E.shape[-1]
+    if d == 1:
+        det = E[:, 0, 0]
+        _check(det)
+        inv = (1.0 / det)[:, None, None]
+        return det, inv
+    if d == 2:
+        a, b = E[:, 0, 0], E[:, 0, 1]
+        c, dd = E[:, 1, 0], E[:, 1, 1]
+        det = a * dd - b * c
+        _check(det)
+        inv = np.empty_like(E)
+        r = 1.0 / det
+        inv[:, 0, 0] = dd * r
+        inv[:, 0, 1] = -b * r
+        inv[:, 1, 0] = -c * r
+        inv[:, 1, 1] = a * r
+        return det, inv
+    if d == 3:
+        a = E[:, 0, 0]; b = E[:, 0, 1]; c = E[:, 0, 2]  # noqa: E702
+        p = E[:, 1, 0]; q = E[:, 1, 1]; r = E[:, 1, 2]  # noqa: E702
+        u = E[:, 2, 0]; v = E[:, 2, 1]; w = E[:, 2, 2]  # noqa: E702
+        A = q * w - r * v
+        B = r * u - p * w
+        C = p * v - q * u
+        det = a * A + b * B + c * C
+        _check(det)
+        inv = np.empty_like(E)
+        s = 1.0 / det
+        inv[:, 0, 0] = A * s
+        inv[:, 1, 0] = B * s
+        inv[:, 2, 0] = C * s
+        inv[:, 0, 1] = (c * v - b * w) * s
+        inv[:, 1, 1] = (a * w - c * u) * s
+        inv[:, 2, 1] = (b * u - a * v) * s
+        inv[:, 0, 2] = (b * r - c * q) * s
+        inv[:, 1, 2] = (c * p - a * r) * s
+        inv[:, 2, 2] = (a * q - b * p) * s
+        return det, inv
+    return np.linalg.det(E), np.linalg.inv(E)
+
+
+def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
+    """Per-cell affine geometry (edges, volume, basis gradients) of a
+    ``tdim == gdim`` simplex mesh.  The full-mesh result is cached on the
+    mesh; with ``cells`` only that subset is computed (a small stimulus or
+    probe region must not force the whole mesh's geometry)."""
+    cached = getattr(mesh, "_cell_geometry", None)
+    if cached is not None:
+        if cells is None:
+            return cached
+        cells = np.asarray(cells)
+        return CellGeometry(
+            edges=cached.edges[cells],
+            volume=cached.volume[cells],
+            grads=cached.grads[cells],
+            inv_edges=cached.inv_edges[cells],
+        )
+    tdim, gdim = mesh.tdim, mesh.gdim
+    if tdim != gdim:
+        raise NotImplementedError("embedded (tdim < gdim) meshes are not ported yet")
+    cell_verts = mesh.cells if cells is None else mesh.cells[np.asarray(cells)]
+    X = mesh.coords[cell_verts]  # [nc, tdim+1, gdim]
+    E = X[:, 1:, :] - X[:, :1, :]  # [nc, tdim, gdim]
+    detJ, invE = _batched_det_inv(E)
+    vol = np.abs(detJ) / math.factorial(tdim)
+    # xi = (x - x0) @ invE, so grad xi_i = invE[:, i]
+    Gi = np.transpose(invE, (0, 2, 1))  # [nc, tdim(i), gdim]
+    g0 = -Gi.sum(axis=1, keepdims=True)
+    grads = np.concatenate([g0, Gi], axis=1)  # [nc, tdim+1, gdim]
+    geom = CellGeometry(edges=E, volume=vol, grads=grads, inv_edges=Gi)
+    if cells is None:
+        mesh._cell_geometry = geom
+    return geom
+
+
+# ---------------------------------------------------------------------------
+# Matrix assembly (P1, stencil form)
+
+
+def _broadcast_cell_tensor(M_cells, nc: int, g: int) -> np.ndarray:
+    """Conductivity spec -> per-cell [nc, g, g] tensor (scalar/constant
+    specs stay a stride-0 broadcast)."""
+    Mc = np.asarray(M_cells, dtype=np.float64)
+    if Mc.ndim == 0:
+        Mc = np.broadcast_to(np.eye(g) * Mc, (nc, g, g))
+    elif Mc.ndim == 2:
+        Mc = np.broadcast_to(Mc, (nc, g, g))
+    return Mc
+
+
+def _p1_mass_base(d: int) -> np.ndarray:
+    """Closed-form P1 simplex mass matrix / volume:
+    ``(1 + delta_ij) / ((d+1)(d+2))``."""
+    return (np.ones((d + 1, d + 1)) + np.eye(d + 1)) / ((d + 1) * (d + 2))
+
+
+def assemble_mass_stiffness_stencil(
+    V: FunctionSpace,
+    M_cells: np.ndarray | float,
+    max_offsets: int = 64,
+):
+    """Direct stencil-form assembly of the consistent mass and anisotropic
+    stiffness for a P1 space whose operator has a small global column-offset
+    set (lexicographically ordered structured meshes).  Returns ``(mass,
+    stiff)`` as float64 CPU :class:`~.ops.sparse.StencilMatrix`, or
+    ``None`` when the offset set exceeds ``max_offsets``.
+
+    Each of the 16 element-matrix (i, j) slots scatters straight into the
+    ``[n, K]`` stencil table with ``np.bincount``: no COO sort and no
+    ``[nc, 4, 4]`` element tensor (the numpy branch of the JAX package's
+    ``fem.py:1042-1066``)."""
+    mesh = V.mesh
+    nd = V.ndofs_per_cell
+    n = V.ndofs
+    d, g = mesh.tdim, mesh.gdim
+    Mc = _broadcast_cell_tensor(M_cells, mesh.num_cells, g)
+    base = _p1_mass_base(d)
+    geom = cell_geometry(mesh)
+    vol = geom.volume
+    cd = V.cell_dofs.astype(np.int64)
+
+    # global offset set from per-pair unique diffs; the size check runs
+    # before any Python-set materialization so unstructured meshes decline
+    # after one vectorized unique
+    offsets: set[int] = set()
+    for i in range(nd):
+        for j in range(nd):
+            u = np.unique(cd[:, j] - cd[:, i])
+            if u.size > max_offsets:
+                return None
+            offsets.update(int(v) for v in u)
+            if len(offsets) > max_offsets:
+                return None
+    offs = np.array(sorted(offsets), dtype=np.int64)
+    K = offs.size
+
+    mst = np.zeros(n * K)
+    kst = np.zeros(n * K)
+    for j in range(nd):
+        # M . grad(phi_j), one [nc, g] vector at a time
+        MGj = np.einsum("cgh,ch->cg", Mc, geom.grads[:, j, :])
+        for i in range(nd):
+            dij = cd[:, j] - cd[:, i]
+            kk = np.searchsorted(offs, dij)
+            lin = cd[:, i] * K + kk
+            mst += np.bincount(lin, weights=vol * base[i, j], minlength=n * K)
+            ke_ij = vol * np.einsum("cg,cg->c", geom.grads[:, i, :], MGj)
+            kst += np.bincount(lin, weights=ke_ij, minlength=n * K)
+
+    offsets_t = tuple(int(v) for v in offs)
+    mass = stencil_from_numpy(offsets_t, mst.reshape(n, K))
+    stiff = stencil_from_numpy(offsets_t, kst.reshape(n, K))
+    return mass, stiff
+
+
+# ---------------------------------------------------------------------------
+# Quadrature data for load vectors
+
+
+@dataclass
+class CellQuadData:
+    """Quadrature tables for a (sub)domain integral (host numpy).
+
+    X: [ne, nq, gdim] physical quad points; W: [ne, nq] physical weights
+    (already include |detJ|); N: [nq, nd] basis at quad points;
+    dofs: [ne, nd] global dofs."""
+
+    X: np.ndarray
+    W: np.ndarray
+    N: np.ndarray
+    dofs: np.ndarray
+    ndofs: int
+
+    def assemble_load_host(self, fn=None, t=0.0) -> np.ndarray:
+        """b_i = sum_q W_q phi_i(x_q) fn(x_q, t); ``fn=None`` means the unit
+        function (the separable TimeWindow load)."""
+        x = np.moveaxis(self.X, -1, 0)
+        vals = (np.ones(self.X.shape[:2]) if fn is None else np.asarray(fn(x, t))) * self.W
+        cellvals = np.einsum("eq,qd->ed", vals, self.N)
+        b = np.zeros(self.ndofs, dtype=vals.dtype)
+        np.add.at(b, self.dofs.ravel(), cellvals.ravel())
+        return b
+
+
+def cell_quadrature(
+    V: FunctionSpace, cells: np.ndarray | None = None, degree: int = 4, dtype=np.float64
+) -> CellQuadData:
+    """Quadrature tables over (a subset of) cells for the space ``V``."""
+    mesh = V.mesh
+    if cells is None:
+        cells = np.arange(mesh.num_cells)
+        geom = cell_geometry(mesh)
+    else:
+        cells = np.asarray(cells, dtype=np.int64)
+        geom = cell_geometry(mesh, cells)
+    pts, wts = simplex_rule(mesh.tdim, degree)
+    N = V.element.tabulate(mesh.tdim, pts)  # [nq, nd]
+    x0 = mesh.coords[mesh.cells[cells, 0]]
+    X = x0[:, None, :] + np.einsum("qd,cdg->cqg", pts, geom.edges)
+    W = (geom.volume * math.factorial(mesh.tdim))[:, None] * wts[None, :]
+    return CellQuadData(
+        X=np.asarray(X, dtype=dtype),
+        W=np.asarray(W, dtype=dtype),
+        N=np.asarray(N, dtype=dtype),
+        dofs=np.asarray(V.cell_dofs[cells], dtype=np.int32),
+        ndofs=V.ndofs,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Point evaluation
+
+
+def _locate_cells(mesh: Mesh, points: np.ndarray, tol: float = 1e-10) -> np.ndarray:
+    """Lowest-index cell containing each point (vectorized barycentric
+    test over all cells, one point at a time); -1 when outside."""
+    pts = np.asarray(points, dtype=np.float64)
+    if pts.ndim == 1:
+        pts = pts[None, :]
+    pts = pts[:, : mesh.gdim]
+    geom = cell_geometry(mesh)
+    x0 = mesh.coords[mesh.cells[:, 0]]  # [nc, gdim]
+    out = np.full(pts.shape[0], -1, dtype=np.int64)
+    for pi, p in enumerate(pts):
+        d = p[None, :] - x0  # [nc, gdim]
+        xi = np.einsum("cg,cig->ci", d, geom.inv_edges)  # [nc, tdim]
+        lam0 = 1.0 - xi.sum(axis=1)
+        ok = (xi >= -tol).all(axis=1) & (lam0 >= -tol)
+        hits = np.nonzero(ok)[0]
+        if hits.size:
+            out[pi] = hits[0]
+    return out
+
+
+def point_evaluation_tables(
+    V: FunctionSpace, points: np.ndarray, tol: float = 1e-8
+) -> tuple[np.ndarray, np.ndarray]:
+    """(dofs [np, ndpc], weights [np, ndpc]) such that
+    ``u(points) = (u_dofs[dofs] * weights).sum(axis=1)``."""
+    mesh = V.mesh
+    pts = np.asarray(points, dtype=np.float64)
+    cells = _locate_cells(mesh, pts, tol=tol)
+    if (cells < 0).any():
+        raise ValueError(f"Points outside mesh: {pts[cells < 0]}")
+    sub = cell_geometry(mesh, cells)
+    x0 = mesh.coords[mesh.cells[cells, 0]]
+    xi = np.einsum("pg,pig->pi", pts[:, : mesh.gdim] - x0, sub.inv_edges)
+    N = V.element.tabulate(mesh.tdim, xi)
+    return V.cell_dofs[cells], N

@@ -1,0 +1,396 @@
+"""Fused monodomain splitting solver — the port's main path.
+
+Port of ``fenicsx_beat_tpu/fused.py``: the whole time loop — ionic
+Rush-Larsen step, voltage exchange, theta-rule PCG solve, activation
+tracking and probe readout — over device-resident state.  Where JAX
+compiles a chunk into one ``lax.scan`` with a ``lax.while_loop`` PCG, the
+port runs a Python loop over eager kernel launches: the PCG's exit test
+``rr > tol2`` is the only value that comes back to the host, once per
+iteration (``iterations + 1`` host syncs per step, counted in
+:attr:`FusedMonodomainSolver.host_syncs`).
+
+Every step goes through four kernels (:mod:`.ops.cuda_ode`,
+:mod:`.ops.cuda_spmv`, :mod:`.ops.cuda_cg`).  On the CPU the same code path
+runs on their plain PyTorch twins, which is how the port is held against
+the JAX solver.  ``use_kernels=False`` selects the twins on any device
+(the kernel check's reference on the card); there is no silent switch
+between the two.
+
+Scope of this port: TP06 with its generalized Rush-Larsen step, P1 on a
+structured mesh with a symmetric stencil operator, separable TimeWindow
+stimuli on cell measures, Godunov (theta=1) and Strang (theta=0.5)
+splitting.  Everything else the JAX solver offers raises
+``NotImplementedError``.  The node axis is not padded.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from . import fem
+from .base_model import Status, _transform_I_s
+from .conductivities import as_cell_tensors
+from .config import default_dtype, resolve_device
+from .convert import states_from_numpy
+from .mesh import Mesh
+from .models import tentusscher_panfilov_2006 as tp06
+from .ops import cuda_cg, cuda_ode, cuda_spmv
+from .ops.cg import CGInfo
+from .ops.sparse import pack_sym_values, stencil_is_symmetric
+from .stimulation import TimeWindow, separable_stimulus_terms
+from .stimulation import dx as dx_measure
+
+__all__ = ["FusedMonodomainSolver", "ChunkResult"]
+
+logger = logging.getLogger(__name__)
+
+
+class ChunkResult(NamedTuple):
+    t: float  # time at the chunk's end, accumulated in the working dtype
+    iters_max: int
+    iters_sum: int
+    residual_norm: torch.Tensor  # 0-d, last step's final ||r||
+    converged: bool
+    probes: torch.Tensor | None  # activation times at the probe points
+
+
+@dataclass
+class FusedMonodomainSolver:
+    """Monodomain operator-splitting solver on device-resident state.
+
+    Parameters
+    ----------
+    mesh : Mesh
+    M : conductivity spec (scalar / tensor / ConductivityTensor)
+    ode_fun : the ionic step; ``models.tentusscher_panfilov_2006.generalized_rush_larsen``
+    init_states : (19,) or (19, n_nodes)
+    parameters : the 54-entry TP06 parameter vector
+    v_index : voltage row in the state array (TP06: 0)
+    I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell measures)
+    theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
+    device, dtype : where the state lives; float32 on CUDA, float64 on CPU
+        by default (:mod:`.config`)
+    use_kernels : False runs the plain PyTorch twins of the kernels
+    """
+
+    mesh: Mesh
+    M: Any
+    ode_fun: Callable
+    init_states: np.ndarray
+    parameters: np.ndarray | None
+    v_index: int = 0
+    I_s: Any = None
+    theta: float = 1.0  # splitting scheme (Godunov 1.0 / Strang 0.5)
+    pde_theta: float = 0.5  # PDE time discretization (Crank-Nicolson)
+    C_m: float = 1.0
+    params: dict | None = None
+    activation_threshold: float = 0.0
+    probe_points: Any = None  # [np, gdim] physical probe coordinates
+    device: Any = None
+    dtype: Any = None
+    use_kernels: bool = True
+    ode_markers: Any = None
+    merge_strang_halves: bool = False
+
+    def __post_init__(self):
+        self._check_scope()
+        self.device = resolve_device(self.device)
+        self.dtype = self.dtype or default_dtype(self.device)
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise TypeError(f"the CUDA path runs in float32, got {self.dtype}")
+        self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        f64 = self.dtype == torch.float64
+        p = {
+            "quadrature_degree": 4,
+            "ksp_rtol": 1e-8 if f64 else 1e-6,
+            "ksp_atol": 1e-10 if f64 else 1e-7,
+            "ksp_max_it": 1000,
+        }
+        p.update(self.params or {})
+        self._opts = p
+        dev, dt_ = self.device, self.dtype
+
+        self.V = fem.functionspace(self.mesh, ("P", 1))
+        n = self.V.ndofs
+        self._n = n
+
+        # operators: assembled in float64 on the host, symmetric stencil form
+        M_cells = as_cell_tensors(self.M, self.mesh)
+        pair = fem.assemble_mass_stiffness_stencil(self.V, M_cells)
+        if pair is None:
+            raise NotImplementedError(
+                "unstructured meshes (ELL / lane-gather SpMV) are not ported yet"
+            )
+        mass, stiff = pair
+        for A in pair:
+            if not stencil_is_symmetric(A.offsets, A.vals.numpy()):
+                raise NotImplementedError(
+                    "non-symmetric stencil operators (general stencil SpMV) are not ported yet"
+                )
+        self._pos, mT = pack_sym_values(mass)
+        _, kT = pack_sym_values(stiff)
+        self._mT = mT.to(device=dev, dtype=dt_)
+        self._kT = kT.to(device=dev, dtype=dt_)
+        self._k0 = self._pos.index(0)
+        self._ops_cache: tuple | None = None
+
+        # stimuli: separable TimeWindow loads, assembled once on the host
+        stim_quads = []
+        for s in _transform_I_s(self.I_s, dZ=dx_measure(self.mesh)):
+            ents = s.dz.entities()
+            if len(ents) == 0:
+                continue
+            if s.dz.integral_type() != "cell":
+                raise NotImplementedError("facet stimuli are not ported yet")
+            if not isinstance(s.expr, TimeWindow):
+                raise NotImplementedError(
+                    "only TimeWindow stimuli are ported (general expressions are not)"
+                )
+            quad = fem.cell_quadrature(self.V, ents, degree=p["quadrature_degree"])
+            stim_quads.append((quad, s.expr.indicator, s))
+        self._stim_quads = stim_quads
+        self._stim_terms, b_units = separable_stimulus_terms(stim_quads)
+        self._b_units = (
+            torch.as_tensor(np.stack(b_units), device=dev).to(dt_) if b_units else None
+        )
+
+        init = np.asarray(self.init_states, dtype=np.float64)
+        states = np.tile(init[:, None], (1, n)) if init.ndim == 1 else init
+        self.states = states_from_numpy(states, dev, dt_)
+        self.activation_time = torch.full((n,), -1.0, dtype=dt_, device=dev)
+        self._params = np.asarray(self.parameters, dtype=np.float64)
+
+        if self.probe_points is not None:
+            pdofs, pw = fem.point_evaluation_tables(self.V, np.asarray(self.probe_points))
+            self._probe_dofs = torch.as_tensor(pdofs.astype(np.int64), device=dev)
+            self._probe_w = torch.as_tensor(pw, device=dev).to(dt_)
+        else:
+            self._probe_dofs = self._probe_w = None
+
+        if self.use_kernels:
+            self._ode_step = cuda_ode.tp06_grl_step_v
+            self._spmv = cuda_spmv.stencil_spmv_sym
+            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot
+            self._cg_update = cuda_cg.cg_update
+            self._axpy = cuda_cg.axpy
+        else:
+            self._ode_step = cuda_ode.tp06_grl_step_v_twin
+            self._spmv = cuda_spmv.stencil_spmv_sym_twin
+            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot_twin
+            self._cg_update = cuda_cg.cg_update_twin
+            self._axpy = cuda_cg.axpy_twin
+        self.host_syncs = 0  # PCG exit tests read back to the host
+        self.last_solve_converged = True
+        self.last_cg: CGInfo | None = None  # the last chunk's CG statistics
+
+    def _check_scope(self):
+        if isinstance(self.ode_fun, dict) or self.ode_markers is not None:
+            raise NotImplementedError("multi-marker ionic models are not ported yet")
+        if self.merge_strang_halves:
+            raise NotImplementedError("merged Strang splitting is not ported yet")
+        if self.ode_fun is not tp06.generalized_rush_larsen:
+            raise NotImplementedError(
+                "the port's ionic step is TP06 generalized Rush-Larsen "
+                "(models.tentusscher_panfilov_2006.generalized_rush_larsen); "
+                "other models are not ported yet"
+            )
+        if self.v_index != cuda_ode.V_INDEX:
+            raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}")
+        if self.parameters is None or np.ndim(self.parameters) != 1:
+            raise NotImplementedError(
+                "TP06 needs its parameter vector; per-node parameter fields are not ported yet"
+            )
+        if not (np.isclose(self.theta, 1.0) or np.isclose(self.theta, 0.5)):
+            raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")
+
+    # ------------------------------------------------------------------
+    def _operators(self, dt: float):
+        """``(A, B, minv)``: the theta-system operators ``C_m M + theta dt K``
+        and ``C_m M - (1 - theta) dt K`` in packed ``[Kp, n]`` form and the
+        Jacobi preconditioner; built once per dt."""
+        if self._ops_cache is not None and self._ops_cache[0] == dt:
+            return self._ops_cache[1]
+        C_m, th = float(self.C_m), float(self.pde_theta)
+        A = C_m * self._mT + (th * dt) * self._kT
+        B = C_m * self._mT - ((1.0 - th) * dt) * self._kT
+        ops = (A, B, 1.0 / A[self._k0])
+        self._ops_cache = (dt, ops)
+        return ops
+
+    def _assemble_rhs(self, B, v_prev, t_stim, dt, amps):
+        """b = B v_prev + the stimulus loads whose window holds ``t_stim``
+        (inclusive at both ends, compared in the working dtype)."""
+        b = self._spmv(B, v_prev, self._pos)
+        w = self._np_dtype
+        for i, _, _, b_idx, (start, dur) in self._stim_terms:
+            if w(start) <= t_stim <= w(start + dur):
+                b = b + float(w(dt) * amps[i]) * self._b_units[b_idx]
+        return b
+
+    def _pde_solve(self, ops, v_prev, x0, t_stim, dt, amps):
+        """Jacobi-PCG for ``A x = b`` from ``x0`` (``fused.py:530-556``):
+        B2, B3, B4 per iteration, the scalars kept on the device."""
+        A, B, minv = ops
+        rtol, atol = float(self._opts["ksp_rtol"]), float(self._opts["ksp_atol"])
+        maxiter = int(self._opts["ksp_max_it"])
+        pos = self._pos
+        b = self._assemble_rhs(B, v_prev, t_stim, dt, amps)
+        r = b - self._spmv(A, x0, pos)
+        z = r * minv
+        rz = torch.dot(r, z)
+        rr = torch.dot(r, r)
+        tol2 = torch.clamp(rtol * torch.sqrt(torch.dot(b, b)), min=atol) ** 2
+        x, p = x0, z
+        k = 0
+        while k < maxiter:
+            self.host_syncs += 1
+            if not bool(rr > tol2):
+                break
+            Ap, pAp = self._spmv_dot(A, p, pos)
+            alpha = rz / pAp
+            x, r, z, rz_new, rr = self._cg_update(x, r, p, Ap, minv, alpha)
+            p = self._axpy(z, p, rz_new / rz)
+            rz = rz_new
+            k += 1
+        converged = k < maxiter or bool(rr <= tol2)
+        return x, k, rr, converged
+
+    def run_chunk(self, t0, dt: float, n_steps: int, amps=None, probed: bool = False) -> ChunkResult:
+        """Advance ``n_steps`` steps of ``dt`` from time ``t0``, updating
+        :attr:`states` and :attr:`activation_time` (``fused.py:604-693``)."""
+        w = self._np_dtype
+        amps = self.stimulus_amplitudes() if amps is None else amps
+        dtw = w(dt)
+        dt_f = float(dtw)
+        theta = float(self.theta)
+        strang = not np.isclose(theta, 1.0)
+        tent_dt = float(w(theta) * dtw)
+        corr_dt = float(w(1.0 - theta) * dtw)
+        ops = self._operators(dt_f)
+        thr = float(self.activation_threshold)
+        vi = self.v_index
+        states, act = self.states, self.activation_time
+        t = w(t0)
+        v_cur = states[vi]
+        dv = torch.zeros_like(v_cur)  # solve increment, reset every chunk
+        it_max = it_sum = 0
+        all_conv = True
+        rr = None
+        for _ in range(n_steps):
+            # tentative ODE step (monodomain_solver.py:68), PDE voltage injected
+            self._ode_step(states, v_cur, float(t), tent_dt, self._params)
+            v = states[vi]
+            # PDE theta-step; stimulus at the PDE theta point; CG warm-started
+            # from the previous step's increment
+            t_stim = t + w(self.pde_theta) * dtw
+            v_new, iters, rr, conv = self._pde_solve(ops, v, v + dv, t_stim, dt_f, amps)
+            dv = v_new - v
+            if strang:
+                # corrective ODE step (Strang, monodomain_solver.py:99-113)
+                self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt, self._params)
+                v_new = states[vi]
+            act = torch.where((v_new > thr) & (act < 0), float(t), act)
+            t = t + dtw
+            v_cur = v_new
+            it_max = max(it_max, iters)
+            it_sum += iters
+            all_conv &= conv
+        # one voltage-row write-back per chunk (Godunov: v_cur is the PDE result)
+        states[vi].copy_(v_cur)
+        self.activation_time = act
+        probes = None
+        if probed:
+            probes = (act[self._probe_dofs] * self._probe_w).sum(dim=1)
+        rnorm = torch.sqrt(rr) if rr is not None else torch.zeros((), dtype=self.dtype, device=self.device)
+        return ChunkResult(float(t), it_max, it_sum, rnorm, all_conv, probes)
+
+    # ------------------------------------------------------------------
+    def stimulus_amplitudes(self) -> np.ndarray:
+        """Live amplitude vector, read each chunk (``Stimulus.assign`` takes
+        effect at the next chunk)."""
+        amps = [float(stim.expr.amplitude) for _, _, stim in self._stim_quads]
+        return np.asarray(amps or [0.0], dtype=self._np_dtype)
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.states[self.v_index]
+
+    def solve(
+        self,
+        interval: tuple[float, float],
+        dt: float,
+        save_freq: int | None = None,
+        save_callback: Callable[[float, np.ndarray], None] | None = None,
+    ) -> Status:
+        """Run the time loop on (T0, T] in chunks of ``save_freq`` steps;
+        ``save_callback(t, v_host)`` fires after each chunk.  Returns
+        ``Status.NOT_CONVERGING`` if any step's CG stopped at ``ksp_max_it``
+        without meeting its tolerance."""
+        T0, T = interval
+        n_total = int(round((T - T0) / dt))
+        chunk = save_freq or n_total
+        t = self._np_dtype(T0)
+        done = 0
+        all_converged = True
+        while done < n_total:
+            n = min(chunk, n_total - done)
+            res = self.run_chunk(t, dt, n)
+            t = self._np_dtype(res.t)
+            done += n
+            all_converged &= res.converged
+            rnorm = float(res.residual_norm)
+            if not res.converged:
+                logger.warning(
+                    "CG did not converge within ksp_max_it during chunk ending "
+                    "t=%g (last residual norm %.3e)", res.t, rnorm,
+                )
+            self.last_cg = CGInfo(res.iters_max, rnorm, res.converged)
+            if save_callback is not None:
+                save_callback(res.t, self.v.cpu().numpy())
+        self.last_solve_converged = all_converged
+        return Status.OK if all_converged else Status.NOT_CONVERGING
+
+    def activation_times(self) -> np.ndarray:
+        return self.activation_time.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # full-state checkpoint / resume, in the JAX fused solver's npz format
+    # (fenicsx_beat_tpu/fused.py:831-890)
+    def save_state(self, path, t: float = 0.0) -> Path:
+        """Write all ionic states, activation times and the time to one npz."""
+        out = Path(path).with_suffix(".npz")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            out,
+            states=self.states.cpu().numpy(),
+            activation_time=self.activation_time.cpu().numpy(),
+            t=float(t),
+            v_index=self.v_index,
+        )
+        return out
+
+    def load_state(self, path) -> float:
+        """Restore a :meth:`save_state` checkpoint (from either package);
+        returns its time."""
+        with np.load(Path(path).with_suffix(".npz")) as f:
+            states = f["states"]
+            act = f["activation_time"]
+            if states.shape != tuple(self.states.shape) or act.shape != (self._n,):
+                raise ValueError(
+                    f"checkpoint shape {states.shape} incompatible with solver "
+                    f"({self.states.shape[0]} states, {self._n} nodes)"
+                )
+            if int(f["v_index"]) != int(self.v_index):
+                raise ValueError(
+                    f"checkpoint v_index {int(f['v_index'])} != solver "
+                    f"{self.v_index} (different ionic model?)"
+                )
+            self.states = states_from_numpy(states, self.device, self.dtype)
+            self.activation_time = torch.as_tensor(act, device=self.device).to(self.dtype)
+            return float(f["t"])
