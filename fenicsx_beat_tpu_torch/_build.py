@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``) into
-one shared library with a plain C interface, bound with :mod:`ctypes`
-(no PyTorch headers in the build, so it takes seconds, not minutes).  The
+``nvcc`` compiles every ``csrc/*.cu`` file for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, bound with :mod:`ctypes` (no
+PyTorch headers in the build, so it takes seconds, not minutes).  The
 library goes to ``build/torch_kernels/libfbt_kernels-<hash>.so`` beside
 the package, keyed by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one is loaded as it is.  Nothing here runs at
@@ -25,8 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32", "stream_ptr",
-    "num_blocks",
+    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32", "require_cuda_i32",
+    "stream_ptr", "num_blocks",
 ]
 
 _CSRC = Path(__file__).with_name("csrc")
@@ -36,7 +37,6 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
 ]
@@ -57,6 +57,11 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P],
     ),
     "axpy": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "tp06_grl_multi_step_v": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P],
+    ),
+    "csr_spmv": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
 }
 
 
@@ -98,15 +103,41 @@ def load_library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not out.is_file():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
-            tmp = Path(td) / out.name
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
             tic = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            objs, procs = [], []
+            for src in sources:
+                obj = Path(td) / f"{src.stem}.o"
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ))
+            logs, failed = [], []
+            try:
+                for src, proc in zip(sources, procs):
+                    text, _ = proc.communicate(timeout=600)
+                    logs.append(f"== {src.name}\n{text}")
+                    if proc.returncode != 0:
+                        failed.append(f"{src.name} ({proc.returncode})")
+            finally:
+                for proc in procs:  # none outlives a failed or timed-out build
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            log = "".join(logs)
+            if failed:
+                raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+            tmp = Path(td) / out.name
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, timeout=600,
+            )
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
             seconds = time.perf_counter() - tic
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
             os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, (restype, argtypes) in _SIGNATURES.items():
@@ -122,19 +153,28 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
 
 
-def require_cuda_f32(**tensors) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+def _require_cuda(dtype: torch.dtype, tensors: dict) -> None:
     dev = None
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}, the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the other operands on {dev}")
         dev = t.device
+
+
+def require_cuda_f32(**tensors) -> None:
+    """The kernels take contiguous float32 tensors on one CUDA device."""
+    _require_cuda(torch.float32, tensors)
+
+
+def require_cuda_i32(**tensors) -> None:
+    """Index operands: contiguous int32 tensors on a CUDA device."""
+    _require_cuda(torch.int32, tensors)
 
 
 def num_blocks(n: int) -> int:

@@ -5,7 +5,9 @@
 simulation runs twice on one device, once through the four CUDA kernels
 and once through their plain PyTorch twins, and the max voltage deviation
 is recorded.  float32 accumulation-order noise is of order 1e-4..1e-3 over
-40 steps; anything above 1e-2 is a real fault.
+40 steps; anything above 1e-2 is a real fault.  :func:`lv_kernel_check`
+does the same on the LV of ``benchmarks/lv.py`` (B7 and B8), both solvers
+on one layer labelling.
 
 The voltage alone does not see the ionic step's slow concentrations (K_i,
 Na_i, Ca_SR), whose effect on V over 40 steps is below that noise.
@@ -57,6 +59,12 @@ IONIC_BEAT_TOL = 1e-1
 BEAT_DT = 0.05
 BEAT_STEPS = 8000
 
+# Start (ms) of the LV kernel check's window: after the stimulated
+# layer's upstroke (1.1-1.9 ms at psize 0.3), see lv_kernel_check
+LV_CHECK_START = 5.0
+# TP06 celltypes every ionic check runs: endo, epi, mid
+CELLTYPES = (0.0, 1.0, 2.0)
+
 IonicStep = Callable[[torch.Tensor, torch.Tensor, float, float, object], torch.Tensor]
 
 
@@ -93,16 +101,30 @@ def ionic_step_errors(
     to neighbouring numbers; anything beyond that one ulp is held against
     the step's own increment, so a row left unchanged or moved by a wrong
     rate shows at O(1) however small its value's change."""
+    return ionic_step_errors_by_group(step, twin, states, v, t, dt, parameters, {"all": None})["all"]
+
+
+def ionic_step_errors_by_group(
+    step: IonicStep, twin: IonicStep, states: torch.Tensor, v: torch.Tensor, t: float, dt: float,
+    parameters, groups: dict,
+) -> dict:
+    """:func:`ionic_step_errors` from one step, with the max and the per-row
+    error taken over each group of nodes (``name -> node index tensor``,
+    None for all nodes); returns ``name -> (max abs, per-row error)``."""
     s_in = states.clone()
     s_in[tp06.state_index("V")] = v
     k, w = states.clone(), states.clone()
     step(k, v, t, dt, parameters)
     twin(w, v, t, dt, parameters)
     k, w, s_in = k.double(), w.double(), s_in.double()
-    diff = (k - w).abs()
-    excess = (diff - _ulp32(torch.maximum(k.abs(), w.abs()))).clamp_min(0.0)
-    scale = (w - s_in).abs().amax(dim=1).clamp_min(1e-300)
-    return float(diff.max()), excess.amax(dim=1) / scale
+    out = {}
+    for name, nodes in groups.items():
+        kg, wg, sg = (a if nodes is None else a[:, nodes] for a in (k, w, s_in))
+        diff = (kg - wg).abs()
+        excess = (diff - _ulp32(torch.maximum(kg.abs(), wg.abs()))).clamp_min(0.0)
+        scale = (wg - sg).abs().amax(dim=1).clamp_min(1e-300)
+        out[name] = (float(diff.max()), excess.amax(dim=1) / scale)
+    return out
 
 
 def ionic_beat_errors(
@@ -114,18 +136,37 @@ def ionic_beat_errors(
     model's pacing stimulus in ``parameters``.  Returns the max absolute
     difference and, per state row, max over steps and nodes of
     ``|k - w|`` over the row's largest excursion ``max |w - s0|``."""
+    return ionic_beat_errors_by_group(
+        step, twin, states, parameters, {"all": None}, dt=dt, n_steps=n_steps, t0=t0
+    )["all"]
+
+
+def ionic_beat_errors_by_group(
+    step: IonicStep, twin: IonicStep, states: torch.Tensor, parameters, groups: dict,
+    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0,
+) -> dict:
+    """:func:`ionic_beat_errors` from one run, the max and the per-row error
+    taken over each group of nodes (``name -> node index tensor``, None for
+    all nodes); returns ``name -> (max abs, per-row error)``."""
     iv = tp06.state_index("V")
     k, w = states.clone(), states.clone()
-    err = torch.zeros(states.shape[0], dtype=states.dtype, device=states.device)
-    exc = torch.zeros_like(err)
+    acc = {name: (torch.zeros(states.shape[0], dtype=states.dtype, device=states.device),
+                  torch.zeros(states.shape[0], dtype=states.dtype, device=states.device))
+           for name in groups}
     t = float(t0)
     for _ in range(n_steps):
         step(k, k[iv], t, dt, parameters)
         twin(w, w[iv], t, dt, parameters)
-        torch.maximum(err, (k - w).abs().amax(dim=1), out=err)
-        torch.maximum(exc, (w - states).abs().amax(dim=1), out=exc)
+        d, e = (k - w).abs(), (w - states).abs()
+        for name, nodes in groups.items():
+            err, exc = acc[name]
+            torch.maximum(err, (d if nodes is None else d[:, nodes]).amax(dim=1), out=err)
+            torch.maximum(exc, (e if nodes is None else e[:, nodes]).amax(dim=1), out=exc)
         t += dt
-    return float(err.max()), err.double() / exc.double().clamp_min(1e-300)
+    return {
+        name: (float(err.max()), err.double() / exc.double().clamp_min(1e-300))
+        for name, (err, exc) in acc.items()
+    }
 
 
 def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="cuda") -> dict:
@@ -147,10 +188,73 @@ def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="c
     }
 
 
+def _spmv_other_order(A, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` through torch's sparse CSR product: the CSR twin's
+    arithmetic in another summation order (a reference for rounding)."""
+    return torch.mv(torch.sparse_csr_tensor(A.indptr, A.cols, A.vals.to(x.dtype), A.shape), x)
+
+
+def lv_kernel_check(psize: float = 0.3, dt: float = 0.05, n_steps: int = 40, device="cuda",
+                    t_start: float = LV_CHECK_START) -> dict:
+    """The LV of ``benchmarks/lv.py`` for ``n_steps`` through the kernels
+    and through the twins on one device, both on one layer labelling and
+    both from the state the twins reach at ``t_start``; max voltage
+    deviation against the same threshold.
+
+    The window starts after the stimulated layer's upstroke, which falls on
+    step 40 from t = 0 and amplifies float32 rounding there.  The deviation
+    from t = 0 is reported as ``max_abs_dev_from_0``, and beside it
+    ``max_abs_dev_from_0_twin_orders``: the same from-zero run on the twins
+    twice, the second with the SpMV summed in another order (torch's CSR
+    product) -- what rounding alone puts between two correct runs."""
+    from .. import fem
+    from ..geometry import get_lv_ellipsoid_geometry
+    from .lv import build_lv_solver, lv_layers
+
+    geo = get_lv_ellipsoid_geometry(psize_ref=psize)
+    layers = lv_layers(geo, fem.functionspace(geo.mesh, ("P", 1)), precond="jacobi", device=device)
+
+    def build(use_kernels):
+        return build_lv_solver(psize=psize, device=device, layers=layers, use_kernels=use_kernels)
+
+    solvers = {k: build(k) for k in (True, False)}
+    other = build(False)
+    other._csr_spmv = _spmv_other_order
+    v0 = {}
+    for k, solver in [*solvers.items(), ("other", other)]:
+        solver.solve((0.0, n_steps * dt), dt=dt)
+        v0[k] = solver.v.double().cpu()
+    # the checked window: both from the twins' state at t_start
+    ref = build(False)
+    ref.solve((0.0, t_start), dt=dt)
+    v = {}
+    for k, solver in solvers.items():
+        solver.states = ref.states.clone()
+        solver.activation_time = ref.activation_time.clone()
+        solver.solve((t_start, t_start + n_steps * dt), dt=dt)
+        v[k] = solver.v.double().cpu()
+    dev = torch.device(device)
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "psize": psize,
+        "n_nodes": int(v[True].shape[0]),
+        "dt": dt,
+        "n_steps": n_steps,
+        "t_start": t_start,
+        "max_abs_dev": float((v[True] - v[False]).abs().max()),
+        "max_abs_dev_from_0": float((v0[True] - v0[False]).abs().max()),
+        "max_abs_dev_from_0_twin_orders": float((v0["other"] - v0[False]).abs().max()),
+        "threshold": THRESHOLD,
+    }
+
+
 def main() -> int:
     out = kernel_check()
     print(json.dumps(out))
-    return 0 if out["max_abs_dev"] < out["threshold"] else 1
+    out_lv = lv_kernel_check()
+    print(json.dumps(out_lv))
+    ok = out["max_abs_dev"] < out["threshold"] and out_lv["max_abs_dev"] < out_lv["threshold"]
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

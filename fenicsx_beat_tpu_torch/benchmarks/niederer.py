@@ -133,7 +133,8 @@ def _build_solver(
     probe_points: np.ndarray | None = None,
     **solver_kwargs,
 ) -> FusedMonodomainSolver:
-    """Niederer-configuration solver (slab, S1 corner cube, TP06 GRL)."""
+    """Niederer-configuration solver (slab, S1 corner cube, TP06 GRL) on
+    ``device``: the card when None (:func:`~..config.resolve_device`)."""
     mesh_unit = "mm"
     geo = get_3D_slab_geometry(None, dx=dx, Lx=LX, Ly=LY, Lz=LZ)
     mesh = geo.mesh
@@ -196,7 +197,8 @@ def run_niederer_benchmark(
     check_interval_ms: float = 20.0,
     **solver_kwargs,
 ) -> NiedererResult:
-    """Run the benchmark on the port's fused solver.
+    """Run the benchmark on the port's fused solver, on the card unless
+    ``device`` names the CPU.
 
     Chunks of ``check_interval_ms`` run back to back with the probe readout
     fused into each chunk; the timed horizon is the full ``T`` and ends with

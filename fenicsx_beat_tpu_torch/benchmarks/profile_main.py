@@ -1,8 +1,10 @@
-"""Where the main path's time goes, on a CUDA card.
+"""Where a path's time goes, on a CUDA card.
 
-    python -m fenicsx_beat_tpu_torch.benchmarks.profile_main [--repeats 5]
+    python -m fenicsx_beat_tpu_torch.benchmarks.profile_main [--repeats 5] [--config lv]
 
-Builds the Niederer dx=0.1 Strang solver (dt=0.05) and prints:
+Builds the Niederer dx=0.1 Strang solver (dt=0.05), or with ``--config
+lv`` the psize 0.1 LV of ``benchmarks/lv.py`` (Strang, dt=0.05), and
+prints:
 
 1. the card's name and power limit (nvidia-smi);
 2. one window of 100 steps from t=20 ms (the wave well under way), run
@@ -15,14 +17,16 @@ Builds the Niederer dx=0.1 Strang solver (dt=0.05) and prints:
    the profiled run's own device span (first device event to last), which
    the profiler's host overhead stretches;
 3. the device time of each kernel in that window, largest first;
-4. the timed 40 ms horizon of ``run_niederer_benchmark`` (800 steps in
-   chunks of 400, from the initial state, one synchronize at the end),
+4. the timed 40 ms horizon (800 steps in chunks of 400, from the initial
+   state, one synchronize at the end, as ``run_niederer_benchmark`` times it),
    ``--repeats`` times on the same solver, each with the host's 1-minute
    load average, the share of the machine's CPU time that was busy during
    the run (``/proc/stat``), and this process's CPU time over its wall.
 
 The profiler's trace is written under ``build/profile/`` in the checkout
 and deleted after it is read unless ``--keep-trace`` is given.
+:func:`device_us_per_call` gives the device time of one call of any
+function that launches kernels, from the same kind of trace.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .lv import build_lv_solver, lv_probe_points
 from .niederer import _build_solver, benchmark_points
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -79,6 +84,35 @@ def _union_length(intervals) -> float:
     return total
 
 
+def _trace_path(tag: str) -> Path:
+    trace_dir = ROOT / "build" / "profile"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    return trace_dir / f"{tag}-{os.getpid()}.json"
+
+
+def device_us_per_call(fn, calls: int = 50) -> float:
+    """Device time (us) of one call of ``fn``: the kernel, copy and memset
+    time of ``calls`` calls under ``torch.profiler`` (after a warm-up),
+    summed, over ``calls``.  Unlike a back-to-back wall time it leaves out
+    the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    trace = _trace_path("calls")
+    prof.export_chrome_trace(str(trace))
+    iv = _device_intervals(trace)
+    trace.unlink()
+    if not iv:
+        raise RuntimeError("the profiler recorded no device activity")
+    return sum(e - s for s, e, _ in iv) / calls
+
+
 def _reset(solver, init) -> None:
     solver.states.copy_(init[0])
     solver.activation_time = init[1].clone()
@@ -101,9 +135,7 @@ def profile_window(solver, amps, init, keep_trace: bool) -> dict:
     syncs = solver.host_syncs
 
     _reset(solver, saved)
-    trace_dir = ROOT / "build" / "profile"
-    trace_dir.mkdir(parents=True, exist_ok=True)
-    trace = trace_dir / f"window-{os.getpid()}.json"
+    trace = _trace_path("window")
     tic = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True)
@@ -178,6 +210,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--keep-trace", action="store_true")
+    ap.add_argument("--config", choices=("niederer", "lv"), default="niederer")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -188,9 +221,16 @@ def main(argv=None) -> int:
     )
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {os.cpu_count()} host CPUs")
-    solver = _build_solver(
-        dx=0.1, theta=0.5, device="cuda", probe_points=np.array(list(benchmark_points().values()))
-    )
+    if args.config == "lv":
+        solver = build_lv_solver(
+            psize=0.1, theta=0.5, device="cuda", precond="jacobi",
+            probe_points=np.array(list(lv_probe_points(0.1).values())),
+        )
+    else:
+        solver = _build_solver(
+            dx=0.1, theta=0.5, device="cuda", probe_points=np.array(list(benchmark_points().values()))
+        )
+    print(f"[config] {args.config}: {solver.V.ndofs} nodes")
     amps = solver.stimulus_amplitudes()
     init = (solver.states.clone(), solver.activation_time.clone())
     horizons = time_horizons(solver, amps, init, args.repeats)

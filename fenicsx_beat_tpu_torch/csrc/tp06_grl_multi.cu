@@ -1,0 +1,63 @@
+// B7: the multi-marker ionic step -- one TP06 generalized Rush-Larsen step
+// per node with that node's own parameter set (endo / mid / epi layers),
+// the PDE voltage injected into row V of every node first.
+//
+// Replaces fenicsx_beat_tpu/ops/pallas_ode.py:build_pallas_multi_ode_step.
+// Semantics kept from it (pallas_ode.py:389-416): the voltage v is written
+// into row V of every node; a node of model i gets model i's step over its
+// states; a node in no mask (model index outside [0, nm)) keeps its states,
+// with V injected; states are updated in place.
+//
+// The TPU kernel gates each model per grid block with a host table
+// active[model, block] and overlays each model's result through its mask,
+// so a block that holds two layers pays for two models.  Here one thread
+// per node reads its model index (int32, built on the host from the masks)
+// and runs its own model alone: the same result, with no table.  A warp
+// that straddles a layer boundary diverges on the celltype branches only
+// (the formulas are one copy, tp06.cuh).  The parameter table [nm, 54] is
+// read from device memory by reference; every thread of a warp reads the
+// same few rows, which L1 broadcasts.
+//
+// What bounds it on the H100: device memory, as for B1.  At the LV of
+// psize 0.1 (n = 243,518, f32) a step reads 19 state rows, v and the model
+// index and writes 19 rows: about 39 MB, a floor of about 12 us at the
+// H100 SXM data sheet's 3.35 TB/s.
+#include "tp06.cuh"
+
+namespace {
+
+__global__ void tp06_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row V
+                                             const int* __restrict__ model, int n, float t,
+                                             float dt, const Tp06Params* __restrict__ table,
+                                             int nm) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float V = vin[i];
+    const int mi = model[i];
+    if (mi < 0 || mi >= nm) {
+        states[i] = V;  // row V (S_V = 0); the other rows stay
+        return;
+    }
+    fbt::tp06_grl_node(states + i, n, V, t, dt, table[mi]);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One multi-marker GRL step over the (19, n) states, in place, with v
+// replacing row V first (v may alias row V).  `model` holds n int32 model
+// indices; `table` points to nm parameter sets of 54 floats each, on the
+// device, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
+int tp06_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
+                          float dt, const float* table, int nm, void* stream) {
+    if (n < 1 || n > 0x7fffffffLL || nm < 1) return cudaErrorInvalidValue;
+    static_assert(S_V == 0, "row V is row 0");
+    tp06_grl_multi_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const Tp06Params*>(table),
+        nm);
+    return cudaGetLastError();
+}
+
+}  // extern "C"

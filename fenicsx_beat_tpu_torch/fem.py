@@ -1,13 +1,16 @@
-"""Finite-element layer, P1 subset: spaces, cell geometry, stencil assembly,
-stimulus quadrature and probe tables.
+"""Finite-element layer, P1 subset: spaces, cell geometry, stencil and ELL
+assembly, cell and facet quadrature, Dirichlet dofs and probe tables.
 
 Host-side (numpy) port of the parts of ``fenicsx_beat_tpu/fem.py`` that the
-fused monodomain solver runs at setup time.  Every array here is built once
-on the host; the solver moves the results to its device.  Where the JAX
-package calls its native C++ kit, the port takes the kit's numpy branch:
-the slot loop of ``assemble_mass_stiffness_stencil`` and the barycentric
-sweep of ``_locate_cells``.  Higher-degree, discontinuous and blocked
-spaces, facet quadrature and the ELL assembly are not ported yet.
+fused monodomain solver and the transmural layer labelling run at setup
+time.  Every array here is built once on the host; the solver moves the
+results to its device.  Where the JAX package calls its native C++ kit,
+the port takes the kit's numpy branch: the slot loop of
+``assemble_mass_stiffness_stencil``, the COO pipeline of
+``assemble_mass_stiffness`` (not the one-pass native ELL assembly, which
+gives the same operator in another ELL layout) and the barycentric sweep
+of ``_locate_cells``.  Higher-degree, discontinuous and blocked spaces and
+the operator disk cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 from .convert import stencil_from_numpy
 from .mesh import Mesh
 from .ops.quadrature import simplex_rule
+from .ops.sparse import coo_to_ell_group, ell_to_stencil
 
 __all__ = [
     "Element",
@@ -29,8 +33,15 @@ __all__ = [
     "CellGeometry",
     "cell_geometry",
     "assemble_mass_stiffness_stencil",
+    "assemble_mass_stiffness_coo",
+    "assemble_mass_stiffness",
+    "assemble_mass_stiffness_auto",
     "CellQuadData",
     "cell_quadrature",
+    "facet_quadrature",
+    "locate_dofs_topological",
+    "DirichletBC",
+    "dirichletbc",
     "point_evaluation_tables",
 ]
 
@@ -303,6 +314,54 @@ def assemble_mass_stiffness_stencil(
     return mass, stiff
 
 
+def assemble_mass_stiffness_coo(V: FunctionSpace, M_cells: np.ndarray | float):
+    """Raw COO triplets ``(rows, cols, mass_vals, stiff_vals, shape)`` of the
+    consistent mass and anisotropic stiffness (duplicates unsummed, shared
+    pattern): the P1 closed-form branch of the JAX package's
+    ``assemble_mass_stiffness_coo``."""
+    mesh = V.mesh
+    geom = cell_geometry(mesh)
+    nc, d, g = mesh.num_cells, mesh.tdim, mesh.gdim
+    Mc = _broadcast_cell_tensor(M_cells, nc, g)
+    Me = geom.volume[:, None, None] * _p1_mass_base(d)[None]
+    # stiffness: vol * G_i . M . G_j
+    MG = np.einsum("cgh,cjh->cjg", Mc, geom.grads)
+    Ke = geom.volume[:, None, None] * np.einsum("cig,cjg->cij", geom.grads, MG)
+    nd = V.ndofs_per_cell
+    rows = np.repeat(V.cell_dofs, nd, axis=1).ravel()
+    cols = np.tile(V.cell_dofs, (1, nd)).ravel()
+    return rows, cols, Me.reshape(-1), Ke.reshape(-1), (V.ndofs, V.ndofs)
+
+
+def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float):
+    """Consistent mass and anisotropic stiffness as two host
+    :class:`~.ops.sparse.ELLMatrix` of one shared layout, so
+    ``a*Mass + b*Stiff`` is a value-level combination.  ``M_cells``: scalar,
+    [gdim, gdim] or per-cell [nc, gdim, gdim].  Goes through the COO
+    pipeline (one sort of the shared pattern for both value sets)."""
+    rows, cols, mvals, kvals, shape = assemble_mass_stiffness_coo(V, M_cells)
+    mass, stiff = coo_to_ell_group(rows, cols, [mvals, kvals], shape)
+    return mass, stiff
+
+
+def assemble_mass_stiffness_auto(V: FunctionSpace, M_cells: np.ndarray | float):
+    """Stencil-first operator assembly: the direct stencil where the mesh
+    structure allows, generic ELL otherwise, upgraded to stencil form when
+    the ELL pattern turns out to be a global stencil.  Returns two
+    :class:`~.ops.sparse.StencilMatrix` (float64 CPU) or two host float64
+    :class:`~.ops.sparse.ELLMatrix`."""
+    pair = assemble_mass_stiffness_stencil(V, M_cells)
+    if pair is not None:
+        return pair
+    mass, stiff = assemble_mass_stiffness(V, M_cells)
+    mst = ell_to_stencil(mass)
+    if mst is not None:
+        kst = ell_to_stencil(stiff)
+        if kst is not None and kst.offsets == mst.offsets:
+            return mst, kst
+    return mass, stiff
+
+
 # ---------------------------------------------------------------------------
 # Quadrature data for load vectors
 
@@ -355,6 +414,69 @@ def cell_quadrature(
         dofs=np.asarray(V.cell_dofs[cells], dtype=np.int32),
         ndofs=V.ndofs,
     )
+
+
+def facet_quadrature(
+    V: FunctionSpace, facets: np.ndarray, degree: int = 4, dtype=None
+) -> CellQuadData:
+    """Quadrature tables over boundary facets (for ``ds`` stimuli) of the P1
+    space; the JAX package's ``facet_quadrature`` for degree 1."""
+    dtype = dtype or np.float64
+    mesh = V.mesh
+    fdim = mesh.tdim - 1
+    fverts = mesh.entities(fdim)[np.asarray(facets, dtype=np.int64)]  # [nf, fdim+1]
+    F = mesh.coords[fverts]  # [nf, fdim+1, gdim]
+    E = F[:, 1:, :] - F[:, :1, :]
+    if fdim == 0:
+        area = np.ones(F.shape[0])
+        wts = np.ones(1)
+        N = np.ones((1, 1))
+        X = F[:, :1, :]
+    else:
+        G = np.einsum("cik,cjk->cij", E, E)
+        area = np.sqrt(np.abs(np.linalg.det(G))) / math.factorial(fdim)
+        pts, wts = simplex_rule(fdim, degree)
+        N = Element("P", 1).tabulate(fdim, pts)
+        X = F[:, :1, :] + np.einsum("qd,cdg->cqg", pts, E)
+    scale = math.factorial(fdim) if fdim > 0 else 1.0
+    W = (area * scale)[:, None] * wts[None, :]
+    return CellQuadData(
+        X=np.asarray(X, dtype=dtype),
+        W=np.asarray(W, dtype=dtype),
+        N=np.asarray(N, dtype=dtype),
+        dofs=np.asarray(_facet_dofs(V, fverts), dtype=np.int32),
+        ndofs=V.ndofs,
+    )
+
+
+def _facet_dofs(V: FunctionSpace, fverts: np.ndarray) -> np.ndarray:
+    """Global dofs [nf, ndofs_per_facet] of the space on the given facets:
+    for P1, the facet's vertices (higher degrees are not ported)."""
+    if V.element.degree != 1:
+        raise NotImplementedError("facet dofs of degree > 1 are not ported yet")
+    return fverts
+
+
+# ---------------------------------------------------------------------------
+# Dirichlet BCs and dof location
+
+
+def locate_dofs_topological(V: FunctionSpace, dim: int, entities: np.ndarray) -> np.ndarray:
+    """Dofs attached to the given mesh entities (P1: their vertices)."""
+    if V.element.degree != 1:
+        raise NotImplementedError("dof location on degree > 1 spaces is not ported yet")
+    ents = V.mesh.entities(dim)[np.asarray(entities, dtype=np.int64)]
+    return np.unique(ents.ravel()).astype(np.int32)
+
+
+@dataclass
+class DirichletBC:
+    value: float
+    dofs: np.ndarray
+
+
+def dirichletbc(value: float, dofs: np.ndarray, V: FunctionSpace | None = None) -> DirichletBC:
+    return DirichletBC(value=float(value), dofs=np.asarray(dofs, dtype=np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -5,21 +5,35 @@ Rush-Larsen step, voltage exchange, theta-rule PCG solve, activation
 tracking and probe readout — over device-resident state.  Where JAX
 compiles a chunk into one ``lax.scan`` with a ``lax.while_loop`` PCG, the
 port runs a Python loop over eager kernel launches: the PCG's exit test
-``rr > tol2`` is the only value that comes back to the host, once per
-iteration (``iterations + 1`` host syncs per step, counted in
+is the only value that comes back to the host, once per iteration
+(``iterations + 1`` host syncs per step, counted in
 :attr:`FusedMonodomainSolver.host_syncs`).
 
-Every step goes through four kernels (:mod:`.ops.cuda_ode`,
-:mod:`.ops.cuda_spmv`, :mod:`.ops.cuda_cg`).  On the CPU the same code path
-runs on their plain PyTorch twins, which is how the port is held against
-the JAX solver.  ``use_kernels=False`` selects the twins on any device
-(the kernel check's reference on the card); there is no silent switch
-between the two.
+Two operator paths, chosen by the assembly as in JAX
+(``fem.assemble_mass_stiffness_auto``):
 
-Scope of this port: TP06 with its generalized Rush-Larsen step, P1 on a
-structured mesh with a symmetric stencil operator, separable TimeWindow
-stimuli on cell measures, Godunov (theta=1) and Strang (theta=0.5)
-splitting.  Everything else the JAX solver offers raises
+- structured meshes (the Niederer slab): a symmetric stencil operator and
+  the fused-kernel PCG, B2 + B3 + B4 per iteration (``fused.py:520-556``);
+- unstructured meshes (the LV ellipsoid): the ELL pair packed into one
+  shared CSR layout (:class:`~.ops.cuda_ell.CSRMatrix`), the theta-system
+  operators built by value-level ``combine``, and the generic Jacobi-PCG
+  of :mod:`.ops.cg` around the CSR SpMV kernel B8 (``fused.py:558-572``).
+  Its exit test is ``sqrt(rr) > tol``, as JAX's ``cg``, so the iteration
+  counts match the JAX solver's.
+
+The ionic step is B1 for one TP06 parameter set, or B7 for marker-
+partitioned layers: a dict ``ode_fun`` with ``ode_markers`` composes
+through :func:`~.odesolver.make_multi_ode`, whose masks become B7's
+per-node model index.  Stimuli are separable TimeWindow loads on cell or
+exterior-facet measures.  On the CPU every kernel runs as its plain
+PyTorch twin, which is how the port is held against the JAX solver;
+``use_kernels=False`` selects the twins on any device (the kernel check's
+reference on the card); there is no silent switch between the two.
+
+Scope of this port: TP06 generalized Rush-Larsen (one parameter set or
+one per marker), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
+Everything else the JAX solver offers (merged Strang, per-node parameter
+fields, other models, non-TimeWindow stimuli) raises
 ``NotImplementedError``.  The node axis is not padded.
 """
 
@@ -40,9 +54,10 @@ from .config import default_dtype, resolve_device
 from .convert import states_from_numpy
 from .mesh import Mesh
 from .models import tentusscher_panfilov_2006 as tp06
-from .ops import cuda_cg, cuda_ode, cuda_spmv
-from .ops.cg import CGInfo
-from .ops.sparse import pack_sym_values, stencil_is_symmetric
+from .odesolver import check_multi_models, make_multi_ode
+from .ops import cuda_cg, cuda_ell, cuda_ode, cuda_spmv
+from .ops.cg import CGInfo, cg_solve
+from .ops.sparse import StencilMatrix, pack_sym_values, stencil_is_symmetric
 from .stimulation import TimeWindow, separable_stimulus_terms
 from .stimulation import dx as dx_measure
 
@@ -68,15 +83,19 @@ class FusedMonodomainSolver:
     ----------
     mesh : Mesh
     M : conductivity spec (scalar / tensor / ConductivityTensor)
-    ode_fun : the ionic step; ``models.tentusscher_panfilov_2006.generalized_rush_larsen``
-    init_states : (19,) or (19, n_nodes)
-    parameters : the 54-entry TP06 parameter vector
-    v_index : voltage row in the state array (TP06: 0)
-    I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell measures)
+    ode_fun : the ionic step, ``models.tentusscher_panfilov_2006.generalized_rush_larsen``,
+        or a dict marker -> that step (multi-marker layers, with ``ode_markers``)
+    init_states : (19,) or (19, n_nodes); a dict marker -> those with a dict ``ode_fun``
+    parameters : the 54-entry TP06 parameter vector; a dict marker -> vector
+        with a dict ``ode_fun``
+    v_index : voltage row in the state array (TP06: 0); a dict with a dict ``ode_fun``
+    I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell or
+        exterior-facet measures)
     theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
-    device, dtype : where the state lives; float32 on CUDA, float64 on CPU
-        by default (:mod:`.config`)
+    device, dtype : where the state lives: the card unless the CPU is
+        named; float32 on CUDA, float64 on CPU by default (:mod:`.config`)
     use_kernels : False runs the plain PyTorch twins of the kernels
+    ode_markers : per-node marker array (or an object with ``.x.array``)
     """
 
     mesh: Mesh
@@ -120,24 +139,50 @@ class FusedMonodomainSolver:
         n = self.V.ndofs
         self._n = n
 
-        # operators: assembled in float64 on the host, symmetric stencil form
-        M_cells = as_cell_tensors(self.M, self.mesh)
-        pair = fem.assemble_mass_stiffness_stencil(self.V, M_cells)
-        if pair is None:
-            raise NotImplementedError(
-                "unstructured meshes (ELL / lane-gather SpMV) are not ported yet"
+        # multi-marker ionic models (fused.py:104-136): the dicts compose
+        # through make_multi_ode; its masks become B7's per-node model index
+        self._multi = None
+        if isinstance(self.ode_fun, dict):
+            markers = self.ode_markers.x.array if hasattr(self.ode_markers, "x") else self.ode_markers
+            markers = np.asarray(markers).astype(np.int64)
+            if markers.shape[0] != n:
+                raise ValueError(f"ode_markers has {markers.shape[0]} entries, expected {n}")
+            multi_fun, self.init_states, masks, self.v_index = make_multi_ode(
+                markers, self.ode_fun, self.init_states, self.parameters, self.v_index
             )
-        mass, stiff = pair
-        for A in pair:
-            if not stencil_is_symmetric(A.offsets, A.vals.numpy()):
-                raise NotImplementedError(
-                    "non-symmetric stencil operators (general stencil SpMV) are not ported yet"
-                )
-        self._pos, mT = pack_sym_values(mass)
-        _, kT = pack_sym_values(stiff)
-        self._mT = mT.to(device=dev, dtype=dt_)
-        self._kT = kT.to(device=dev, dtype=dt_)
-        self._k0 = self._pos.index(0)
+            if not all(multi_fun.multi["trivial_swap"]):
+                raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX} for every marker")
+            self.ode_fun = multi_fun
+            table = np.stack([np.asarray(q, dtype=np.float64) for q in multi_fun.multi["params"]])
+            self._multi = (
+                torch.as_tensor(cuda_ode.model_index_from_masks(masks), device=dev),
+                torch.as_tensor(table, device=dev).to(dt_),
+            )
+            self.parameters = None  # per-marker vectors travel in the table
+
+        # operators: assembled in float64 on the host (stencil first, ELL
+        # otherwise, fem.assemble_mass_stiffness_auto)
+        M_cells = as_cell_tensors(self.M, self.mesh)
+        mass, stiff = fem.assemble_mass_stiffness_auto(self.V, M_cells)
+        self._structured = isinstance(mass, StencilMatrix)
+        if self._structured:
+            for A in (mass, stiff):
+                if not stencil_is_symmetric(A.offsets, A.vals.numpy()):
+                    raise NotImplementedError(
+                        "non-symmetric stencil operators (general stencil SpMV) are not ported yet"
+                    )
+            self._pos, mT = pack_sym_values(mass)
+            _, kT = pack_sym_values(stiff)
+            self._mT = mT.to(device=dev, dtype=dt_)
+            self._kT = kT.to(device=dev, dtype=dt_)
+            self._k0 = self._pos.index(0)
+        else:
+            # one shared CSR layout for the pair (fused.py:446-464), so the
+            # theta-system operators combine by value
+            self._pos = None
+            self._mass, self._stiff = (
+                A.to(dev, dt_) for A in cuda_ell.CSRMatrix.from_operator_pair(mass, stiff)
+            )
         self._ops_cache: tuple | None = None
 
         # stimuli: separable TimeWindow loads, assembled once on the host
@@ -146,13 +191,14 @@ class FusedMonodomainSolver:
             ents = s.dz.entities()
             if len(ents) == 0:
                 continue
-            if s.dz.integral_type() != "cell":
-                raise NotImplementedError("facet stimuli are not ported yet")
             if not isinstance(s.expr, TimeWindow):
                 raise NotImplementedError(
                     "only TimeWindow stimuli are ported (general expressions are not)"
                 )
-            quad = fem.cell_quadrature(self.V, ents, degree=p["quadrature_degree"])
+            if s.dz.integral_type() == "cell":
+                quad = fem.cell_quadrature(self.V, ents, degree=p["quadrature_degree"])
+            else:
+                quad = fem.facet_quadrature(self.V, ents, degree=p["quadrature_degree"])
             stim_quads.append((quad, s.expr.indicator, s))
         self._stim_quads = stim_quads
         self._stim_terms, b_units = separable_stimulus_terms(stim_quads)
@@ -164,7 +210,7 @@ class FusedMonodomainSolver:
         states = np.tile(init[:, None], (1, n)) if init.ndim == 1 else init
         self.states = states_from_numpy(states, dev, dt_)
         self.activation_time = torch.full((n,), -1.0, dtype=dt_, device=dev)
-        self._params = np.asarray(self.parameters, dtype=np.float64)
+        self._params = None if self.parameters is None else np.asarray(self.parameters, dtype=np.float64)
 
         if self.probe_points is not None:
             pdofs, pw = fem.point_evaluation_tables(self.V, np.asarray(self.probe_points))
@@ -173,60 +219,81 @@ class FusedMonodomainSolver:
         else:
             self._probe_dofs = self._probe_w = None
 
-        if self.use_kernels:
-            self._ode_step = cuda_ode.tp06_grl_step_v
-            self._spmv = cuda_spmv.stencil_spmv_sym
-            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot
-            self._cg_update = cuda_cg.cg_update
-            self._axpy = cuda_cg.axpy
+        k = self.use_kernels
+        if self._multi is not None:
+            step = cuda_ode.tp06_grl_multi_step_v if k else cuda_ode.tp06_grl_multi_step_v_twin
+            model, table = self._multi
+            self._ode_step = lambda states, v, t, dt: step(states, v, model, t, dt, table)
         else:
-            self._ode_step = cuda_ode.tp06_grl_step_v_twin
-            self._spmv = cuda_spmv.stencil_spmv_sym_twin
-            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot_twin
-            self._cg_update = cuda_cg.cg_update_twin
-            self._axpy = cuda_cg.axpy_twin
+            step = cuda_ode.tp06_grl_step_v if k else cuda_ode.tp06_grl_step_v_twin
+            self._ode_step = lambda states, v, t, dt: step(states, v, t, dt, self._params)
+        if self._structured:
+            self._spmv = cuda_spmv.stencil_spmv_sym if k else cuda_spmv.stencil_spmv_sym_twin
+            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot if k else cuda_spmv.stencil_spmv_sym_dot_twin
+            self._cg_update = cuda_cg.cg_update if k else cuda_cg.cg_update_twin
+            self._axpy = cuda_cg.axpy if k else cuda_cg.axpy_twin
+        else:
+            self._csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
         self.host_syncs = 0  # PCG exit tests read back to the host
         self.last_solve_converged = True
         self.last_cg: CGInfo | None = None  # the last chunk's CG statistics
 
     def _check_scope(self):
-        if isinstance(self.ode_fun, dict) or self.ode_markers is not None:
-            raise NotImplementedError("multi-marker ionic models are not ported yet")
         if self.merge_strang_halves:
             raise NotImplementedError("merged Strang splitting is not ported yet")
-        if self.ode_fun is not tp06.generalized_rush_larsen:
-            raise NotImplementedError(
-                "the port's ionic step is TP06 generalized Rush-Larsen "
-                "(models.tentusscher_panfilov_2006.generalized_rush_larsen); "
-                "other models are not ported yet"
-            )
-        if self.v_index != cuda_ode.V_INDEX:
-            raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}")
-        if self.parameters is None or np.ndim(self.parameters) != 1:
-            raise NotImplementedError(
-                "TP06 needs its parameter vector; per-node parameter fields are not ported yet"
-            )
+        if isinstance(self.ode_fun, dict):
+            check_multi_models(self.ode_fun)
+            if self.ode_markers is None:
+                raise ValueError("dict-valued ode_fun requires ode_markers")
+            for name in ("init_states", "parameters", "v_index"):
+                if not isinstance(getattr(self, name), dict):
+                    raise ValueError(f"a dict ode_fun takes {name} as a dict keyed by marker")
+            if any(q is None or np.ndim(q) != 1 for q in self.parameters.values()):
+                raise NotImplementedError(
+                    "each marker's TP06 model needs its parameter vector; per-node parameter "
+                    "fields are not ported yet"
+                )
+        else:
+            if self.ode_fun is not tp06.generalized_rush_larsen:
+                raise NotImplementedError(
+                    "the port's ionic step is TP06 generalized Rush-Larsen "
+                    "(models.tentusscher_panfilov_2006.generalized_rush_larsen); "
+                    "other models are not ported yet"
+                )
+            if self.v_index != cuda_ode.V_INDEX:
+                raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}")
+            if self.parameters is None or np.ndim(self.parameters) != 1:
+                raise NotImplementedError(
+                    "TP06 needs its parameter vector; per-node parameter fields are not ported yet"
+                )
         if not (np.isclose(self.theta, 1.0) or np.isclose(self.theta, 0.5)):
             raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")
 
     # ------------------------------------------------------------------
     def _operators(self, dt: float):
-        """``(A, B, minv)``: the theta-system operators ``C_m M + theta dt K``
-        and ``C_m M - (1 - theta) dt K`` in packed ``[Kp, n]`` form and the
-        Jacobi preconditioner; built once per dt."""
+        """``(A, B, diag)``: the theta-system operators ``C_m M + theta dt K``
+        and ``C_m M - (1 - theta) dt K`` and the Jacobi preconditioner, built
+        once per dt.  Structured: packed ``[Kp, n]`` stencil values and the
+        inverse diagonal; unstructured: :class:`~.ops.cuda_ell.CSRMatrix`
+        combinations and the diagonal (``fused.py:466-469``)."""
         if self._ops_cache is not None and self._ops_cache[0] == dt:
             return self._ops_cache[1]
         C_m, th = float(self.C_m), float(self.pde_theta)
-        A = C_m * self._mT + (th * dt) * self._kT
-        B = C_m * self._mT - ((1.0 - th) * dt) * self._kT
-        ops = (A, B, 1.0 / A[self._k0])
+        if self._structured:
+            A = C_m * self._mT + (th * dt) * self._kT
+            B = C_m * self._mT - ((1.0 - th) * dt) * self._kT
+            ops = (A, B, 1.0 / A[self._k0])
+        else:
+            A = self._mass.combine(C_m, self._stiff, th * dt)
+            B = self._mass.combine(C_m, self._stiff, -(1.0 - th) * dt)
+            ops = (A, B, A.diagonal())
         self._ops_cache = (dt, ops)
         return ops
 
     def _assemble_rhs(self, B, v_prev, t_stim, dt, amps):
         """b = B v_prev + the stimulus loads whose window holds ``t_stim``
         (inclusive at both ends, compared in the working dtype)."""
-        b = self._spmv(B, v_prev, self._pos)
+        b = self._spmv(B, v_prev, self._pos) if self._structured else self._csr_spmv(B, v_prev)
         w = self._np_dtype
         for i, _, _, b_idx, (start, dur) in self._stim_terms:
             if w(start) <= t_stim <= w(start + dur):
@@ -234,13 +301,24 @@ class FusedMonodomainSolver:
         return b
 
     def _pde_solve(self, ops, v_prev, x0, t_stim, dt, amps):
-        """Jacobi-PCG for ``A x = b`` from ``x0`` (``fused.py:530-556``):
-        B2, B3, B4 per iteration, the scalars kept on the device."""
-        A, B, minv = ops
+        """PCG for ``A x = b`` from ``x0``; returns ``(x, iterations, rr,
+        converged)`` with ``rr = <r, r>`` a 0-d tensor.  Structured: the
+        fused-kernel PCG (``fused.py:530-556``), B2, B3, B4 per iteration,
+        the scalars kept on the device.  Unstructured: the generic
+        Jacobi-PCG around B8 (``fused.py:560-572``)."""
+        A, B, prec = ops
         rtol, atol = float(self._opts["ksp_rtol"]), float(self._opts["ksp_atol"])
         maxiter = int(self._opts["ksp_max_it"])
-        pos = self._pos
         b = self._assemble_rhs(B, v_prev, t_stim, dt, amps)
+        if not self._structured:
+            spmv = self._csr_spmv
+            x, k, rr, tol = cg_solve(
+                lambda u: spmv(A, u), b, x0, precond_diag=prec, rtol=rtol, atol=atol, maxiter=maxiter
+            )
+            converged = k < maxiter or bool(torch.sqrt(rr) <= tol)
+            self.host_syncs += k + 1  # k + 1 exit tests, or maxiter and the test above
+            return x, k, rr, converged
+        minv, pos = prec, self._pos
         r = b - self._spmv(A, x0, pos)
         z = r * minv
         rz = torch.dot(r, z)
@@ -284,7 +362,7 @@ class FusedMonodomainSolver:
         rr = None
         for _ in range(n_steps):
             # tentative ODE step (monodomain_solver.py:68), PDE voltage injected
-            self._ode_step(states, v_cur, float(t), tent_dt, self._params)
+            self._ode_step(states, v_cur, float(t), tent_dt)
             v = states[vi]
             # PDE theta-step; stimulus at the PDE theta point; CG warm-started
             # from the previous step's increment
@@ -293,7 +371,7 @@ class FusedMonodomainSolver:
             dv = v_new - v
             if strang:
                 # corrective ODE step (Strang, monodomain_solver.py:99-113)
-                self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt, self._params)
+                self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt)
                 v_new = states[vi]
             act = torch.where((v_new > thr) & (act < 0), float(t), act)
             t = t + dtw

@@ -2,9 +2,12 @@
 
 Port of ``fenicsx_beat_tpu/ops/cg.py``.  JAX runs the loop as a
 ``lax.while_loop`` on the device; here it is a Python loop whose exit
-test reads one scalar back to the host per iteration.  This is the plain
-reference the fused solver's kernel PCG (:mod:`.cuda_cg`) is tested
-against: same recurrences, same tolerance rule.
+test ``sqrt(<r, r>) > tol`` reads one scalar back to the host per
+iteration.  It is the plain reference the fused solver's kernel PCG
+(:mod:`.cuda_cg`) is tested against, and the solver of the unstructured
+paths (the fused solver's ELL branch, ``utils.laplace_solve``) with the
+CSR SpMV kernel as ``matvec``: same recurrences, same tolerance rule, so
+the iteration counts match JAX's.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["CGInfo", "cg"]
+__all__ = ["CGInfo", "cg", "cg_solve"]
 
 
 class CGInfo(NamedTuple):
@@ -24,6 +27,52 @@ class CGInfo(NamedTuple):
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a, b)
+
+
+def cg_solve(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    precond_diag: torch.Tensor | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-12,
+    maxiter: int = 1000,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
+    """Jacobi-PCG for SPD A, keeping the final residual on the device.
+
+    Returns ``(x, iterations, rr, tol)`` with ``rr = <r, r>`` and ``tol``
+    0-d tensors.  The loop reads ``sqrt(rr) > tol`` back to the host once
+    per test: ``iterations + 1`` reads, or ``maxiter`` when it stops
+    there."""
+    dot = dot or _vdot
+    x = torch.zeros_like(b) if x0 is None else x0
+    minv = None if precond_diag is None else 1.0 / precond_diag
+
+    def apply_prec(r):
+        return r if minv is None else r * minv
+
+    r = b - matvec(x)
+    z = apply_prec(r)
+    p = z
+    rz = dot(r, z)
+    tol = torch.clamp(rtol * torch.sqrt(dot(b, b)), min=atol)
+    rr = dot(r, r)
+    k = 0
+    while k < maxiter and bool(torch.sqrt(rr) > tol):
+        Ap = matvec(p)
+        alpha = rz / dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_prec(r)
+        rz_new = dot(r, z)
+        beta = rz_new / rz
+        p = z + beta * p
+        rz = rz_new
+        rr = dot(r, r)
+        k += 1
+    return x, k, rr, tol
 
 
 def cg(
@@ -38,29 +87,8 @@ def cg(
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, CGInfo]:
     """Solve A x = b for SPD A with Jacobi-preconditioned CG."""
-    dot = dot or _vdot
-    x = torch.zeros_like(b) if x0 is None else x0
-    minv = None if precond_diag is None else 1.0 / precond_diag
-
-    def apply_prec(r):
-        return r if minv is None else r * minv
-
-    r = b - matvec(x)
-    z = apply_prec(r)
-    p = z
-    rz = dot(r, z)
-    tol = torch.clamp(rtol * torch.sqrt(dot(b, b)), min=atol)
-    k = 0
-    while k < maxiter and bool(torch.sqrt(dot(r, r)) > tol):
-        Ap = matvec(p)
-        alpha = rz / dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = apply_prec(r)
-        rz_new = dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    rnorm = torch.sqrt(dot(r, r))
+    x, k, rr, tol = cg_solve(
+        matvec, b, x0, precond_diag=precond_diag, rtol=rtol, atol=atol, maxiter=maxiter, dot=dot
+    )
+    rnorm = torch.sqrt(rr)
     return x, CGInfo(iterations=k, residual_norm=float(rnorm), converged=bool(rnorm <= tol))

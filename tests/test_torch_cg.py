@@ -59,7 +59,7 @@ def theta_system():
     """One Crank-Nicolson system of the Niederer slab (dx=1.0, dt=0.05)
     with the S1 stimulus on, from both packages' solvers."""
     js = jnied._build_solver(dx=1.0, theta=0.5, operator_cache_key=None)
-    ts = tnied._build_solver(dx=1.0, theta=0.5)
+    ts = tnied._build_solver(dx=1.0, theta=0.5, device="cpu")
     dt = 0.05
     mass, stiff = js._mass, js._stiff
     A = mass.combine(js.C_m, stiff, 0.5 * dt)

@@ -9,6 +9,7 @@ checkpoint read by JAX, the device policy, the unported options, and the
 import boundary (the port never loads jax or the JAX package).
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ import torch
 from fenicsx_beat_tpu.benchmarks import niederer as jnied
 from fenicsx_beat_tpu_torch import fused as tfused
 from fenicsx_beat_tpu_torch.base_model import Status
+from fenicsx_beat_tpu_torch.config import resolve_device
 from fenicsx_beat_tpu_torch.benchmarks import niederer as tnied
 from fenicsx_beat_tpu_torch.benchmarks.kernel_check import kernel_check
 from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as ttp
@@ -49,7 +51,7 @@ def assert_same_run(port, jax_solver_):
 def test_slice_matches_jax_plain_path(theta):
     js = jax_solver(theta)
     assert js.solve((0.0, N_STEPS * DT), dt=DT).name == "OK"
-    ts = tnied._build_solver(dx=DX, theta=theta)
+    ts = tnied._build_solver(dx=DX, theta=theta, device="cpu")
     assert ts.solve((0.0, N_STEPS * DT), dt=DT) == Status.OK
     assert (ts.activation_times() >= 0).sum() > 0  # the S1 region fired
     assert_same_run(ts, js)
@@ -63,7 +65,7 @@ def test_slice_matches_jax_pallas_interpret_path():
     js = jax_solver(0.5, use_pallas_ode=True, pallas_spmv_min_nodes=1)
     assert js._n_pad > js._n
     js.solve((0.0, N_STEPS * DT), dt=DT)
-    ts = tnied._build_solver(dx=DX, theta=0.5)
+    ts = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
     ts.solve((0.0, N_STEPS * DT), dt=DT)
     assert_same_run(ts, js)
 
@@ -75,7 +77,7 @@ def test_jax_checkpoint_continued_by_port(tmp_path):
     first = jax_solver(0.5)
     first.solve((0.0, half * DT), dt=DT)
     path = first.save_state(tmp_path / "ckpt", t=half * DT)
-    ts = tnied._build_solver(dx=DX, theta=0.5)
+    ts = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
     t0 = ts.load_state(path)
     assert t0 == half * DT
     ts.solve((t0, N_STEPS * DT), dt=DT)
@@ -85,14 +87,14 @@ def test_jax_checkpoint_continued_by_port(tmp_path):
 
 
 def test_port_checkpoint_read_by_jax(tmp_path):
-    ts = tnied._build_solver(dx=DX, theta=1.0)
+    ts = tnied._build_solver(dx=DX, theta=1.0, device="cpu")
     ts.solve((0.0, 5 * DT), dt=DT)
     path = ts.save_state(tmp_path / "port", t=5 * DT)
     js = jax_solver(1.0)
     assert js.load_state(path) == 5 * DT
     np.testing.assert_array_equal(np.asarray(js.states), ts.states.numpy())
     np.testing.assert_array_equal(np.asarray(js.activation_times()), ts.activation_times())
-    other = tnied._build_solver(dx=DX, theta=1.0)
+    other = tnied._build_solver(dx=DX, theta=1.0, device="cpu")
     other.load_state(path)
     assert torch.equal(other.states, ts.states)
 
@@ -101,10 +103,10 @@ def test_solver_does_not_alias_caller_arrays():
     """The solver updates its states in place; the caller's arrays stay."""
     init = np.tile(ttp.init_state_values()[:, None], (1, 672))
     before = init.copy()
-    ts = tnied._build_solver(dx=DX, theta=0.5)
+    ts = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
     ts2 = tfused.FusedMonodomainSolver(
         mesh=ts.mesh, M=ts.M, ode_fun=ts.ode_fun, init_states=init, parameters=ts.parameters,
-        I_s=ts.I_s, theta=0.5, C_m=ts.C_m,
+        I_s=ts.I_s, theta=0.5, C_m=ts.C_m, device="cpu",
     )
     ts2.solve((0.0, 2 * DT), dt=DT)
     np.testing.assert_array_equal(init, before)
@@ -112,7 +114,9 @@ def test_solver_does_not_alias_caller_arrays():
 
 
 def test_surfaces_cg_non_convergence():
-    ts = tnied._build_solver(dx=DX, theta=1.0, params={"ksp_max_it": 1, "ksp_rtol": 1e-14, "ksp_atol": 1e-16})
+    ts = tnied._build_solver(
+        dx=DX, theta=1.0, device="cpu", params={"ksp_max_it": 1, "ksp_rtol": 1e-14, "ksp_atol": 1e-16}
+    )
     assert ts.solve((0.0, 2 * DT), dt=DT) == Status.NOT_CONVERGING
     assert not ts.last_solve_converged and ts.last_cg.iterations == 1
 
@@ -131,13 +135,30 @@ def test_cuda_device_without_cuda_raises():
         tnied._build_solver(dx=DX, theta=0.5, device="cuda")
 
 
+def test_default_device_is_the_card():
+    """With no device named the entry points take the card; without one
+    they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device(None)
+    ts = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfused.FusedMonodomainSolver(
+            mesh=ts.mesh, M=ts.M, ode_fun=ts.ode_fun, init_states=ts.init_states,
+            parameters=ts.parameters, I_s=ts.I_s, theta=0.5, C_m=ts.C_m, device=None,
+        )
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnied.run_niederer_benchmark(dx=DX, T=1.0)
+
+
 @pytest.mark.parametrize(
     "kw",
     [
         {"merge_strang_halves": True},
         {"ode_fun": ttp.forward_euler},
         {"theta": 0.7},
-        {"ode_markers": np.zeros(672, dtype=int)},
+        {"ode_fun": {0: ttp.forward_euler}, "ode_markers": np.zeros(672, dtype=int)},
         {"parameters": np.tile(ttp.init_parameter_values()[:, None], (1, 672))},
     ],
 )
@@ -155,13 +176,19 @@ def test_port_imports_neither_jax_nor_jax_package():
     code = (
         "import sys; import fenicsx_beat_tpu_torch, fenicsx_beat_tpu_torch.fused, "
         "fenicsx_beat_tpu_torch.benchmarks.niederer, fenicsx_beat_tpu_torch.benchmarks.kernel_check, "
-        "fenicsx_beat_tpu_torch.convert; "
+        "fenicsx_beat_tpu_torch.benchmarks.lv, fenicsx_beat_tpu_torch.convert, "
+        "fenicsx_beat_tpu_torch.odesolver, fenicsx_beat_tpu_torch.utils, fenicsx_beat_tpu_torch.geometry, "
+        "fenicsx_beat_tpu_torch.ops.cuda_ell, fenicsx_beat_tpu_torch.ops.cuda_ode, "
+        "fenicsx_beat_tpu_torch.ops.sparse, fenicsx_beat_tpu_torch.ops.cg; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # chip_smoke.py imports inside its phases: no import line names either
+    bad_import = re.compile(r"^\s*(import|from)\s+(jax|fenicsx_beat_tpu)(\.|\s|$)", re.M)
+    assert not bad_import.findall((ROOT / "chip_smoke.py").read_text())
 
 
 @pytest.mark.cuda

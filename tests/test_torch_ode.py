@@ -20,7 +20,7 @@ from fenicsx_beat_tpu_torch.benchmarks import kernel_check
 from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as ttp
 from fenicsx_beat_tpu_torch.ops import cuda_ode
 
-CU_SOURCE = Path(cuda_ode.__file__).resolve().parent.parent / "csrc" / "tp06_grl.cu"
+CU_SOURCE = Path(cuda_ode.__file__).resolve().parent.parent / "csrc" / "tp06.cuh"
 
 
 @pytest.fixture
@@ -197,28 +197,30 @@ def test_ionic_beat_check_sees_a_wrong_rate(name):
 
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card(cuda_device):
-    """Every state row of the kernel against the twin: one step's
-    increment at n = 100,000 (physiological states and each slow row
-    scaled), and one paced beat of 4,096 cells."""
+    """Every state row of the kernel against the twin, for each celltype:
+    one step's increment at n = 100,000 (physiological states and each
+    slow row scaled), and one paced beat of 4,096 cells."""
     n = 100_000
     s, v = perturbed_states(n=n, seed=4)
-    p = jtp.init_parameter_values(stim_amplitude=0.0)
     sk = torch.tensor(s, dtype=torch.float32, device=cuda_device)
     vk = torch.tensor(v, dtype=torch.float32, device=cuda_device)
     launches = cuda_ode.tp06_grl_step_v.launches
-    cuda_ode.tp06_grl_step_v(sk.clone(), vk, 1.0, 0.025, p)
+    cuda_ode.tp06_grl_step_v(sk.clone(), vk, 1.0, 0.025, jtp.init_parameter_values(stim_amplitude=0.0))
     assert cuda_ode.tp06_grl_step_v.launches == launches + 1
-    for _, S in kernel_check.step_check_states(sk):
-        for dt in (0.025, 0.05):
-            _, err = kernel_check.ionic_step_errors(
-                cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin, S, vk, 1.0, dt, p
-            )
-            assert float(err.max()) <= kernel_check.IONIC_STEP_TOL, err.tolist()
     rng = np.random.default_rng(7)
     init = jtp.init_state_values()
     s0 = np.tile(init[:, None], (1, 4096)) * (1 + 0.01 * rng.standard_normal((19, 4096)))
-    _, err = kernel_check.ionic_beat_errors(
-        cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin,
-        torch.tensor(s0, dtype=torch.float32, device=cuda_device), jtp.init_parameter_values(),
-    )
-    assert float(err.max()) <= kernel_check.IONIC_BEAT_TOL, err.tolist()
+    for ct in kernel_check.CELLTYPES:
+        p = jtp.init_parameter_values(stim_amplitude=0.0, celltype=ct)
+        for _, S in kernel_check.step_check_states(sk):
+            for dt in (0.025, 0.05):
+                _, err = kernel_check.ionic_step_errors(
+                    cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin, S, vk, 1.0, dt, p
+                )
+                assert float(err.max()) <= kernel_check.IONIC_STEP_TOL, (ct, err.tolist())
+        _, err = kernel_check.ionic_beat_errors(
+            cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin,
+            torch.tensor(s0, dtype=torch.float32, device=cuda_device),
+            jtp.init_parameter_values(celltype=ct),
+        )
+        assert float(err.max()) <= kernel_check.IONIC_BEAT_TOL, (ct, err.tolist())
