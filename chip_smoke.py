@@ -40,7 +40,24 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    launch counts; B7 and B8 must be > 0, every state finite, every
    stimulated node activated), then on in 10 ms chunks until more than
    half the nodes fired (150 ms at most; the wave crosses the 1 mm-element
-   wall at about one element per 16 ms, so 30 ms is not enough).
+   wall at about one element per 16 ms, so 30 ms is not enough);
+8. the ECG setup (host seconds by part): the dx=0.1 slab's recovery
+   operators with the Niederer conductivity tensor, and the dx=0.05 slab
+   (3,449,001 nodes, 20,160,000 tets) with its 10 electrodes;
+9. B5 and B6, plain and with the dot, against the twin they share on both
+   slabs' mass and stiffness tables (n = 442,401 and 3,449,001), each timed
+   at both sizes (the plain form five times, for the spread) beside the
+   library's CSR product of the same operator;
+10. ECG Configuration 1: the dx=0.1 Strang slab for 40 ms with a pseudo-ECG
+   frame every 1 ms (B5), through ``benchmarks/ecg_scale.py:run_niederer_ecg``,
+   on the kernels and on the twins, and once more on the twins with the PDE
+   SpMV summed in another order (the float32 noise); CG iterations, host
+   syncs and seconds per frame, the 12-lead extremes, and every lead of the
+   kernel run held to the twin run;
+11. ECG Configuration 2: the JAX package's production run, dx=0.05, 10
+   frames of a moving wavefront (B6), through ``run_ecg_scale``; every
+   frame converged, every potential finite, ``lead_I_sample`` within 1e-2
+   of the JAX package's value.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -86,6 +103,18 @@ JAX_LV_PSIZE03_ACTIVATED = 0.25  # share of nodes activated by 30 ms, same run
 REL_TOL = 1e-4
 BEAT_CELLS = 16_384  # cells of the ionic kernels' one-beat comparison
 LONG_ROW = 64  # B8 rows with more entries than this are timed apart
+N_SCALE = 3_449_001  # nodes of the dx=0.05 slab (the ECG scale run)
+STENCIL_REPEATS = 5  # timings of B5 and B6 at each size, for their spread
+ECG_SCALE_FRAMES = 10
+# lead I of the last frame of the JAX package's dx=0.05 run (ECG_SCALE.json,
+# float32); a value, not a time
+JAX_LEAD_I_SAMPLE = -0.09649090468883514
+LEAD_I_REL_TOL = 1e-2
+# dx=0.1 pseudo-ECG, kernel run vs twin run: per lead max|diff| / max|twin|.
+# Two correct float32 runs differ by up to 1.6e-2 (lead III, the smallest):
+# the twins against the twins with the PDE SpMV summed in another order, on
+# an H100 (PERF.md); the kernel run sat at 1.1e-2.  The limit is 3x that noise.
+ECG_LEAD_TOL = 5e-2
 # H100 SXM data sheet (NVIDIA, dense rates without sparsity): HBM rate and
 # float32 peak outside the tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -107,6 +136,10 @@ SOURCES = {
                               "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
     "csr_spmv": ("fenicsx_beat_tpu_torch/csrc/csr_spmv.cu",
                  "fenicsx_beat_tpu/ops/pallas_ell.py:170"),
+    "stencil_spmv": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv.cu",
+                     "fenicsx_beat_tpu/ops/pallas_spmv.py:38"),
+    "stencil_spmv_window": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_window.cu",
+                            "fenicsx_beat_tpu/ops/pallas_spmv.py:358"),
 }
 
 
@@ -558,7 +591,7 @@ def zero_launches(wrappers: dict) -> None:
 
 
 def kernel_wrappers() -> dict:
-    from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_ell, cuda_ode, cuda_spmv
+    from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_ell, cuda_ode, cuda_spmv, cuda_stencil
 
     return {
         "tp06_grl_step_v": cuda_ode.tp06_grl_step_v,
@@ -567,6 +600,8 @@ def kernel_wrappers() -> dict:
         "axpy": cuda_cg.axpy,
         "tp06_grl_multi_step_v": cuda_ode.tp06_grl_multi_step_v,
         "csr_spmv": cuda_ell.csr_spmv,
+        "stencil_spmv": cuda_stencil.stencil_spmv,
+        "stencil_spmv_window": cuda_stencil.stencil_spmv_window,
     }
 
 
@@ -636,6 +671,251 @@ def phase_lv_path(solver, setup_s: float) -> dict:
     return launches
 
 
+def general_stencil_csr(offsets, vals, n):
+    """The general stencil ``(offsets, [K, n] vals)`` as a torch sparse CSR
+    tensor on the card (B5's and B6's library yardstick)."""
+    import torch
+
+    r = torch.arange(n, device=vals.device)
+    rows, cols, data = [], [], []
+    for k, d in enumerate(offsets):
+        lo, hi = max(0, -d), min(n, n - d)
+        rows.append(r[lo:hi])
+        cols.append(r[lo:hi] + d)
+        data.append(vals[k, lo:hi])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    return torch.sparse_coo_tensor(idx, torch.cat(data), (n, n)).coalesce().to_sparse_csr()
+
+
+def phase_ecg_setup():
+    """The operators of both ECG configurations, host setup timed: the
+    dx=0.1 slab's recovery with the Niederer conductivity tensor (what
+    Configuration 1 builds; B5) and Configuration 2's dx=0.05 slab with its
+    electrodes (B6)."""
+    import resource
+
+    import torch
+
+    from fenicsx_beat_tpu_torch import fem
+    from fenicsx_beat_tpu_torch.benchmarks.ecg_scale import build_ecg_scale
+    from fenicsx_beat_tpu_torch.conductivities import default_conductivities, define_conductivity_tensor
+    from fenicsx_beat_tpu_torch.ecg import ECGRecovery
+    from fenicsx_beat_tpu_torch.geometry import get_3D_slab_geometry
+
+    tic = time.perf_counter()
+    geo = get_3D_slab_geometry(None, dx=0.1, Lx=20.0, Ly=7.0, Lz=3.0)
+    M = define_conductivity_tensor(f0=geo.f0, **default_conductivities("Niederer"))
+    main = ECGRecovery(v=fem.Function(fem.functionspace(geo.mesh, ("P", 1))), M=M, device=DEVICE)
+    print(f"[ecg_setup] dx=0.1: n={main.V.ndofs}, kernel {main.kernel}, offsets {main.offsets}, "
+          f"host setup {time.perf_counter() - tic:.1f} s (assembly {main.setup_s['assembly_s']:.1f} s)")
+    torch.cuda.reset_peak_memory_stats()
+    scale = build_ecg_scale(dx=0.05, device=DEVICE)
+    e = scale.ecg
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[ecg_setup] dx=0.05: n={scale.V.ndofs}, {scale.n_cells} cells, kernel {e.kernel}, "
+          f"clusters {window_spans(e.offsets)}; mesh {scale.mesh_build_s:.1f} s, recovery "
+          f"{scale.recovery_setup_s:.1f} s (assembly {e.setup_s['assembly_s']:.1f} s, operators to the "
+          f"card {e.setup_s['operators_s']:.1f} s), electrode weights {scale.electrode_weights_s:.1f} s; "
+          f"peak device memory {peak:.2f} GiB, peak host memory of the process so far {host_gib:.1f} GiB")
+    require(main.V.ndofs == N_MAIN and main.kernel == "B5", f"dx=0.1 recovery: {N_MAIN} nodes on B5")
+    require(scale.V.ndofs == N_SCALE and e.kernel == "B6", f"dx=0.05 recovery: {N_SCALE} nodes on B6")
+    return main, scale
+
+
+def window_spans(offsets):
+    """B6's offset clusters, as (smallest, largest) offset pairs."""
+    from fenicsx_beat_tpu_torch.ops.cuda_stencil import WINDOW_TILE
+    from fenicsx_beat_tpu_torch.ops.sparse import offset_clusters
+
+    cl = offset_clusters(offsets, WINDOW_TILE)
+    return [(lo, lo + s) for lo, s in zip(cl.lo, cl.span)]
+
+
+def phase_stencil_kernels(main, scale, seed: int = 2) -> dict:
+    """B5 and B6, plain and dot, against their twin on the mass and
+    stiffness tables of both ECG configurations (n = 442,401 and 3,449,001),
+    each timed at both sizes.  Returns B5's row at 442,401 and B6's at
+    3,449,001 (the sizes their paths give them)."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.ops import cuda_stencil as cs
+
+    rng = np.random.default_rng(seed)
+    kernels = {
+        "stencil_spmv": (cs.stencil_spmv, cs.stencil_spmv_dot, cs.stencil_spmv_twin, cs.stencil_spmv_dot_twin),
+        "stencil_spmv_window": (cs.stencil_spmv_window, cs.stencil_spmv_window_dot,
+                                cs.stencil_spmv_twin, cs.stencil_spmv_dot_twin),
+    }
+    path_size = {"stencil_spmv": N_MAIN, "stencil_spmv_window": N_SCALE}
+    rows = {}
+    for ecg in (main, scale.ecg):
+        n, offs = ecg.V.ndofs, ecg.offsets
+        K = len(offs)
+        x = torch.as_tensor(rng.uniform(-90.0, 40.0, n), device=DEVICE).float()
+        S = general_stencil_csr(offs, ecg._mT, n)
+        lib_ms = library_time(lambda: sparse_mv(S, x))
+        if lib_ms is not None:
+            y_ref = cs.stencil_spmv_twin(ecg._mT, x, offs)
+            require(float((sparse_mv(S, x) - y_ref).abs().max()) <= REL_TOL * float(y_ref.abs().max()),
+                    "the library SpMV of the stencil computes the same y")
+        del S
+        for name, (plain, dot_form, twin, dot_twin) in kernels.items():
+            outk, outt = [], []
+            for vT in (ecg._mT, ecg._kT):
+                yk, dk = dot_form(vT, x, offs)
+                yt, dt_ = dot_twin(vT, x, offs)
+                outk += [yk, plain(vT, x, offs), dk]
+                outt += [yt, yt, dt_]
+            b2b_ms = [time_ms(lambda: plain(ecg._mT, x, offs)) for _ in range(STENCIL_REPEATS)]
+            r = row(
+                compare(outk, outt),
+                statistics.median(b2b_ms),
+                time_ms(lambda: twin(ecg._mT, x, offs)),
+                bound((K + 2) * n * 4, 2 * K * n),
+                lib_ms,
+            )
+            dot_ms = time_ms(lambda: dot_form(ecg._mT, x, offs))
+            dev_us = [device_us_per_call(lambda: plain(ecg._mT, x, offs)) for _ in range(STENCIL_REPEATS)]
+            dev_dot_us = device_us_per_call(lambda: dot_form(ecg._mT, x, offs))
+            print(f"[kernels] {name} at n={n} (K={K}): device time per call (torch.profiler), "
+                  f"{STENCIL_REPEATS} repeats: median {statistics.median(dev_us):.2f} us, "
+                  f"all {[round(u, 2) for u in dev_us]}; {dev_dot_us:.2f} us with the dot; back to back "
+                  f"{STENCIL_REPEATS} repeats {[round(m, 5) for m in b2b_ms]} ms, dot form {dot_ms:.4f} ms")
+            print_rows({f"{name} n={n}": r})
+            require(r["rel_err"] <= REL_TOL,
+                    f"{name} agrees with its twin at n={n} (rel {r['rel_err']:.3e} <= {REL_TOL})")
+            if n == path_size[name]:
+                rows[name] = r
+        torch.cuda.synchronize()
+    return rows
+
+
+def _sym_spmv_other_order(solver) -> None:
+    """Route a twin solver's symmetric SpMV through the general stencil twin
+    on the unpacked full table: the same operator, its products added in
+    another order (what rounding alone puts between two correct runs)."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.ops.cuda_stencil import stencil_spmv_twin
+
+    pos = solver._pos
+    offs = tuple(sorted({-d for d in pos} | set(pos)))
+    tables = {}
+
+    def full(vals):
+        if vals.data_ptr() not in tables:
+            n = vals.shape[1]
+            F = vals.new_zeros(len(offs), n)
+            for k, d in enumerate(pos):
+                F[offs.index(d)] = vals[k]
+                if d > 0:
+                    F[offs.index(-d), d:] = vals[k, : n - d]
+            tables[vals.data_ptr()] = (vals, F)
+        return tables[vals.data_ptr()][1]
+
+    def spmv(vals, x, _pos):
+        return stencil_spmv_twin(full(vals), x, offs)
+
+    def spmv_dot(vals, x, _pos):
+        y = spmv(vals, x, _pos)
+        return y, torch.dot(x, y)
+
+    solver._spmv, solver._spmv_dot = spmv, spmv_dot
+
+
+def _lead_gaps(a: dict, b: dict) -> dict:
+    import numpy as np
+
+    return {k: float(np.abs(np.subtract(a[k], b[k])).max() / max(np.abs(b[k]).max(), 1e-30)) for k in b}
+
+
+def phase_ecg_main() -> dict:
+    """Configuration 1: the dx=0.1 Strang slab, 40 ms, a pseudo-ECG frame
+    every 1 ms, on the kernels (launches counted) and on the twins; a third
+    run on the twins with the PDE SpMV summed in another order measures the
+    float32 noise the kernel run is held to."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import niederer
+    from fenicsx_beat_tpu_torch.benchmarks.ecg_scale import run_niederer_ecg
+
+    kw = dict(dx=0.1, dt=DT, T=40.0, theta=0.5, frame_ms=1.0, device=DEVICE)
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    res = run_niederer_ecg(**kw)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    twin = run_niederer_ecg(**kw, use_kernels=False)
+    build = niederer._build_solver
+
+    def build_other(*args, **kwargs):
+        solver = build(*args, **kwargs)
+        _sym_spmv_other_order(solver)
+        return solver
+
+    niederer._build_solver = build_other
+    try:
+        other = run_niederer_ecg(**kw, use_kernels=False)
+    finally:
+        niederer._build_solver = build
+
+    for tag, r in (("kernels", res), ("twins", twin), ("twins, other order", other)):
+        it = np.array(r["cg_iters_per_frame"])
+        print(f"[ecg_main] {tag}: {r['n_frames']} frames of {r['frame_ms']:g} ms, kernel {r['kernel']}, "
+              f"CG iterations per frame max {it.max()} mean {it.mean():.2f}, all converged "
+              f"{all(r['cg_converged_per_frame'])}; host syncs per frame {r['ecg_host_syncs_per_frame']:.2f}; "
+              f"ECG s per frame {r['ecg_s_per_frame']:.5f} (pull {r['pull_s_per_frame']:.5f}, solve "
+              f"{r['solve_s_per_frame']:.5f} with upload {r['upload_s_per_frame']:.5f}, potentials "
+              f"{r['potentials_s_per_frame']:.5f}); simulation {r['simulation_s']:.2f} s; setup: solver "
+              f"{r['solver_setup_s']:.1f} s, recovery {r['recovery_setup_s']:.1f} s, weights "
+              f"{r['electrode_weights_s']:.2f} s")
+    print(f"[ecg_main] CG iterations per frame (kernels): {res['cg_iters_per_frame']}")
+    print("[ecg_main] 12-lead extremes (kernels, min/max): " + ", ".join(
+        f"{k} {min(v):.4e}/{max(v):.4e}" for k, v in res["leads"].items()))
+    gap = _lead_gaps(res["leads"], twin["leads"])
+    noise = _lead_gaps(other["leads"], twin["leads"])
+    print("[ecg_main] per lead max|kernels - twins| / max|twins|: "
+          + ", ".join(f"{k}={v:.2e}" for k, v in gap.items()))
+    print("[ecg_main] per lead max|twins other order - twins| / max|twins|: "
+          + ", ".join(f"{k}={v:.2e}" for k, v in noise.items()))
+    print(f"[ecg_main] max lead gap {max(gap.values()):.3e} (limit {ECG_LEAD_TOL:g}); float32 noise "
+          f"{max(noise.values()):.3e}; peak device memory {peak:.2f} GiB; launches {json.dumps(launches)}")
+    for r in (res, twin, other):
+        require(all(r["cg_converged_per_frame"]), "the ECG's CG converged in every frame")
+        require(bool(np.isfinite(r["potentials"]).all()), "every electrode potential finite")
+    require(res["kernel"] == "B5", "the dx=0.1 pseudo-ECG runs B5")
+    require(launches["stencil_spmv"] > 0, "stencil_spmv launched on the dx=0.1 ECG path")
+    require(max(gap.values()) <= ECG_LEAD_TOL,
+            f"every lead of the kernel run within {ECG_LEAD_TOL:g} of the twin run (relative)")
+    return launches
+
+
+def phase_ecg_scale(scale) -> dict:
+    """Configuration 2: the JAX package's production ECG run, dx=0.05, 10
+    frames, on B6."""
+    from fenicsx_beat_tpu_torch.benchmarks.ecg_scale import run_ecg_scale
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    out = run_ecg_scale(dx=0.05, n_frames=ECG_SCALE_FRAMES, setup=scale)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"[ecg_scale] {json.dumps(out)}")
+    rel = abs(out["lead_I_sample"] - JAX_LEAD_I_SAMPLE) / abs(JAX_LEAD_I_SAMPLE)
+    print(f"[ecg_scale] lead_I_sample {out['lead_I_sample']!r}, JAX package {JAX_LEAD_I_SAMPLE!r}: "
+          f"relative gap {rel:.3e} (limit {LEAD_I_REL_TOL:g}); launches {json.dumps(launches)}")
+    require(out["kernel"] == "B6" and out["n_nodes"] == N_SCALE, "the dx=0.05 ECG runs B6")
+    require(all(out["cg_converged_per_frame"]), "the ECG's CG converged in every frame")
+    require(out["potentials_finite"], "every electrode potential finite")
+    require(rel <= LEAD_I_REL_TOL, f"lead_I_sample within {LEAD_I_REL_TOL:g} of the JAX value")
+    require(launches["stencil_spmv_window"] > 0, "stencil_spmv_window launched on the dx=0.05 ECG path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -659,6 +939,12 @@ def main() -> int:
     lv_launches = phase_lv_path(lv_solver, lv_setup)
     for name in ("tp06_grl_multi_step_v", "csr_spmv"):
         launches[name] = lv_launches[name]
+    del lv_solver
+    ecg_main, ecg_scale = phase_ecg_setup()
+    rows.update(phase_stencil_kernels(ecg_main, ecg_scale))
+    del ecg_main
+    launches["stencil_spmv"] = phase_ecg_main()["stencil_spmv"]
+    launches["stencil_spmv_window"] = phase_ecg_scale(ecg_scale)["stencil_spmv_window"]
 
     kernels = []
     for name, r in rows.items():

@@ -62,6 +62,14 @@ _SIGNATURES = {
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P],
     ),
     "csr_spmv": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "stencil_spmv": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],
+    ),
+    "stencil_spmv_window": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P, _P, _P],
+    ),
 }
 
 

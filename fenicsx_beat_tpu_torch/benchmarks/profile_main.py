@@ -37,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -90,27 +91,39 @@ def _trace_path(tag: str) -> Path:
     return trace_dir / f"{tag}-{os.getpid()}.json"
 
 
-def device_us_per_call(fn, calls: int = 50) -> float:
+def device_us_per_call(fn, calls: int = 50, attempts: int = 5) -> float:
     """Device time (us) of one call of ``fn``: the kernel, copy and memset
     time of ``calls`` calls under ``torch.profiler`` (after a warm-up),
     summed, over ``calls``.  Unlike a back-to-back wall time it leaves out
-    the host's time between launches."""
+    the host's time between launches.  ``fn`` must launch the same device
+    work at every call, so every event name must occur a whole number of
+    times per call.  A trace that breaks this has lost events (it has been
+    seen to hold only some of the calls): it is discarded and the calls are
+    profiled again, up to ``attempts`` times, then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    trace = _trace_path("calls")
-    prof.export_chrome_trace(str(trace))
-    iv = _device_intervals(trace)
-    trace.unlink()
-    if not iv:
-        raise RuntimeError("the profiler recorded no device activity")
-    return sum(e - s for s, e, _ in iv) / calls
+    counts: Counter = Counter()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        trace = _trace_path("calls")
+        prof.export_chrome_trace(str(trace))
+        iv = _device_intervals(trace)
+        trace.unlink()
+        counts = Counter(name for _, _, name in iv)
+        if counts and all(c % calls == 0 for c in counts.values()):
+            if attempt:
+                print(f"[profile] {attempt} trace(s) discarded before a whole one")
+            return sum(e - s for s, e, _ in iv) / calls
+    raise RuntimeError(
+        f"no trace of {attempts} held a whole number of device events per call "
+        f"({calls} calls): last counts {dict(counts)}"
+    )
 
 
 def _reset(solver, init) -> None:

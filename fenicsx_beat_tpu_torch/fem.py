@@ -1,9 +1,10 @@
-"""Finite-element layer, P1 subset: spaces, cell geometry, stencil and ELL
-assembly, cell and facet quadrature, Dirichlet dofs and probe tables.
+"""Finite-element layer, P1 subset: spaces, functions, cell geometry,
+stencil and ELL assembly, cell and facet quadrature, scalar forms,
+Dirichlet dofs and probe tables.
 
 Host-side (numpy) port of the parts of ``fenicsx_beat_tpu/fem.py`` that the
-fused monodomain solver and the transmural layer labelling run at setup
-time.  Every array here is built once on the host; the solver moves the
+fused monodomain solver, the transmural layer labelling and ECG recovery
+run at setup time (and the lazily assembled forms of ``ECGRecovery.eval``).  Every array here is built once on the host; the solver moves the
 results to its device.  Where the JAX package calls its native C++ kit,
 the port takes the kit's numpy branch: the slot loop of
 ``assemble_mass_stiffness_stencil``, the COO pipeline of
@@ -29,6 +30,7 @@ __all__ = [
     "Element",
     "FunctionSpace",
     "functionspace",
+    "Function",
     "Constant",
     "CellGeometry",
     "cell_geometry",
@@ -39,6 +41,10 @@ __all__ = [
     "CellQuadData",
     "cell_quadrature",
     "facet_quadrature",
+    "ScalarForm",
+    "assemble_scalar",
+    "integral",
+    "function_integral",
     "locate_dofs_topological",
     "DirichletBC",
     "dirichletbc",
@@ -90,6 +96,11 @@ class FunctionSpace:
     def ndofs_per_cell(self) -> int:
         return self.cell_dofs.shape[1]
 
+    @property
+    def dof_coords(self) -> np.ndarray:
+        """[ndofs, gdim] coordinates of the dofs (P1: the vertices)."""
+        return self.mesh.coords
+
 
 def functionspace(mesh: Mesh, element) -> FunctionSpace:
     """P1 function space; ``element`` is an Element or a ("P", 1) tuple."""
@@ -106,6 +117,59 @@ def functionspace(mesh: Mesh, element) -> FunctionSpace:
         cell_dofs=np.ascontiguousarray(mesh.cells, dtype=np.int32),
         ndofs=mesh.num_vertices,
     )
+
+
+class _XView:
+    """Mimics dolfinx's ``Function.x``: mutable host array + scatter no-op."""
+
+    def __init__(self, array: np.ndarray):
+        self._array = array
+
+    @property
+    def array(self) -> np.ndarray:
+        return self._array
+
+    @array.setter
+    def array(self, v) -> None:
+        self._array[...] = v
+
+    def scatter_forward(self) -> None:  # single-process host view
+        pass
+
+
+class Function:
+    """A finite-element function: host dof array + its space (the
+    dolfinx-style mutable ``.x.array``).  Device code takes the array as a
+    tensor; the solvers keep their state on the device."""
+
+    def __init__(self, V: FunctionSpace, name: str | None = None, dtype=np.float64):
+        self._V = V
+        self.name = name or "f"
+        self._array = np.zeros(V.ndofs, dtype=dtype)
+        self.x = _XView(self._array)
+
+    @property
+    def function_space(self) -> FunctionSpace:
+        return self._V
+
+    def ufl_element(self):
+        return self._V.element
+
+    def copy(self) -> "Function":
+        f = Function(self._V, name=self.name)
+        f.x.array[:] = self.x.array
+        return f
+
+    def interpolate(self, source) -> None:
+        """Set the dofs from a callable of the [3, ndofs] dof coordinates
+        (zero rows beyond gdim); interpolation between spaces is not
+        ported yet."""
+        if not callable(source):
+            raise TypeError(f"Cannot interpolate from {type(source)}")
+        V = self._V
+        x = np.zeros((3, V.ndofs))
+        x[: V.mesh.gdim, :] = V.dof_coords.T
+        self.x.array[:] = np.broadcast_to(np.asarray(source(x)), (V.ndofs,))
 
 
 class Constant:
@@ -390,6 +454,20 @@ class CellQuadData:
         np.add.at(b, self.dofs.ravel(), cellvals.ravel())
         return b
 
+    def interpolate(self, u: np.ndarray) -> np.ndarray:
+        """Values of the FE function u at quad points: [ne, nq]."""
+        return np.einsum("ed,qd->eq", np.asarray(u)[self.dofs], self.N)
+
+    def integrate(self, integrand, u: np.ndarray | None = None, t=None) -> float:
+        """∫ integrand(x[, u_q][, t]) over the subdomain (numpy callable;
+        x is [gdim, ne, nq])."""
+        args = [np.moveaxis(self.X, -1, 0)]
+        if u is not None:
+            args.append(self.interpolate(u))
+        if t is not None:
+            args.append(t)
+        return float(np.sum(self.W * integrand(*args)))
+
 
 def cell_quadrature(
     V: FunctionSpace, cells: np.ndarray | None = None, degree: int = 4, dtype=np.float64
@@ -455,6 +533,50 @@ def _facet_dofs(V: FunctionSpace, fverts: np.ndarray) -> np.ndarray:
     if V.element.degree != 1:
         raise NotImplementedError("facet dofs of degree > 1 are not ported yet")
     return fverts
+
+
+# ---------------------------------------------------------------------------
+# Scalar forms
+
+
+@dataclass
+class ScalarForm:
+    """Lazily assembled scalar integral (mirrors ``dolfinx.fem.form`` +
+    ``assemble_scalar``).  Re-reads its coefficient Function at assembly
+    time, so a form built once stays valid as solutions update."""
+
+    quad: CellQuadData
+    integrand: object  # numpy callable (x[, u_q][, t]) -> values
+    coefficient: Function | None = None
+    time: Constant | None = None
+
+    def assemble(self) -> float:
+        u = None if self.coefficient is None else self.coefficient.x.array
+        t = None if self.time is None else float(self.time)
+        return self.quad.integrate(self.integrand, u=u, t=t)
+
+
+def assemble_scalar(form: ScalarForm) -> float:
+    return form.assemble()
+
+
+def integral(mesh_or_space, integrand, degree: int = 4) -> ScalarForm:
+    """Form for ∫ integrand(x) dx over the whole domain."""
+    V = mesh_or_space
+    if isinstance(V, Mesh):
+        V = functionspace(V, ("P", 1))
+    return ScalarForm(quad=cell_quadrature(V, degree=degree), integrand=integrand)
+
+
+def function_integral(u: Function, integrand, degree: int = 4, time: Constant | None = None) -> ScalarForm:
+    """Form for ∫ integrand(x, u(x)[, t]) dx: error norms and the ECG
+    electrode integral."""
+    return ScalarForm(
+        quad=cell_quadrature(u.function_space, degree=degree),
+        integrand=integrand,
+        coefficient=u,
+        time=time,
+    )
 
 
 # ---------------------------------------------------------------------------

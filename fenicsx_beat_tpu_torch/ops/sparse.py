@@ -11,7 +11,9 @@ Mass and stiffness share the offset set, so the theta-system operator is a
 value-level combination (:meth:`StencilMatrix.combine`).  The
 symmetric-stencil helpers feed the fused solver's kernel path
 (:mod:`.cuda_spmv`): a symmetric operator needs only its ``d >= 0`` value
-columns.
+columns.  The general stencil SpMV (:mod:`.cuda_stencil`, ECG recovery)
+streams the full table (:func:`pack_values`); its windowed form stages
+one operand window per cluster of nearby offsets (:func:`offset_clusters`).
 
 Unstructured meshes assemble to :class:`ELLMatrix`: padded rows with a
 COO tail for the few high-degree rows (the LV's welded apex).  It stays
@@ -30,6 +32,9 @@ import torch
 __all__ = [
     "StencilMatrix",
     "stencil_is_symmetric",
+    "pack_values",
+    "OffsetClusters",
+    "offset_clusters",
     "pack_sym_values",
     "ELLMatrix",
     "ell_spmv",
@@ -97,6 +102,50 @@ def stencil_is_symmetric(offsets: Sequence[int], vals: np.ndarray, tol: float = 
         if np.abs(vneg - shifted).max() > tol * scale:
             return False
     return True
+
+
+def pack_values(A: StencilMatrix) -> torch.Tensor:
+    """The full ``[K, n]`` value table of a stencil (row k holds offset
+    ``A.offsets[k]``), contiguous: the layout the general stencil SpMV
+    streams.  The JAX package's ``pack_values`` without its 128-lane
+    padding."""
+    return A.vals.T.contiguous()
+
+
+@dataclass(frozen=True)
+class OffsetClusters:
+    """Offsets grouped so that each group's operand window is narrow:
+    ``offsets[k]`` lies in cluster ``cluster_of[k]``, whose offsets run from
+    ``lo[c]`` to ``lo[c] + span[c]``."""
+
+    cluster_of: tuple[int, ...]
+    lo: tuple[int, ...]
+    span: tuple[int, ...]
+
+
+def offset_clusters(offsets: Sequence[int], tile: int) -> OffsetClusters:
+    """Group a stencil's offsets for the windowed SpMV: sort them and start
+    a new cluster wherever neighbouring offsets are more than ``tile``
+    apart.  A block of ``tile`` rows then stages one window of ``tile +
+    span`` operand entries per cluster (three of at most ``2 (nz + 1)``
+    span on the Kuhn-tet slab) instead of one window over the whole reach."""
+    offsets = [int(d) for d in offsets]
+    groups: list[list[int]] = []
+    prev = None
+    for k in sorted(range(len(offsets)), key=offsets.__getitem__):
+        if prev is None or offsets[k] - prev > tile:
+            groups.append([])
+        groups[-1].append(k)
+        prev = offsets[k]
+    cluster_of = [0] * len(offsets)
+    lo, span = [], []
+    for c, ks in enumerate(groups):
+        ds = [offsets[k] for k in ks]
+        lo.append(min(ds))
+        span.append(max(ds) - min(ds))
+        for k in ks:
+            cluster_of[k] = c
+    return OffsetClusters(cluster_of=tuple(cluster_of), lo=tuple(lo), span=tuple(span))
 
 
 def pack_sym_values(A: StencilMatrix) -> tuple[tuple[int, ...], torch.Tensor]:

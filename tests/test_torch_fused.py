@@ -179,7 +179,9 @@ def test_port_imports_neither_jax_nor_jax_package():
         "fenicsx_beat_tpu_torch.benchmarks.lv, fenicsx_beat_tpu_torch.convert, "
         "fenicsx_beat_tpu_torch.odesolver, fenicsx_beat_tpu_torch.utils, fenicsx_beat_tpu_torch.geometry, "
         "fenicsx_beat_tpu_torch.ops.cuda_ell, fenicsx_beat_tpu_torch.ops.cuda_ode, "
-        "fenicsx_beat_tpu_torch.ops.sparse, fenicsx_beat_tpu_torch.ops.cg; "
+        "fenicsx_beat_tpu_torch.ops.sparse, fenicsx_beat_tpu_torch.ops.cg, "
+        "fenicsx_beat_tpu_torch.ecg, fenicsx_beat_tpu_torch.ops.cuda_stencil, "
+        "fenicsx_beat_tpu_torch.benchmarks.ecg_scale; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
