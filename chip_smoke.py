@@ -17,18 +17,31 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      epi, mid): every state's one-step increment (at physiological values
      and with each slow concentration scaled, see
      ``benchmarks/kernel_check.py``), and every state over one paced beat
-     of 16,384 cells;
+     of 16,384 cells (the twin's step replayed as a CUDA graph).  B1's
+     per-node form for TP06 at the same shapes: a uniform parameter field
+     gives B1's bits exactly, a field of mixed celltypes is held by the
+     same one-step limits;
    - B7 and B8 at the shapes of the psize 0.1 LV (n = 243,518): B7 with
      the LV's own transmural layers, held by the same per-row step and beat
      limits for each celltype (nodes of no layer must keep their states
      exactly), B8 on the LV's theta-system operators A and B, timed also
      with its few very long (apex) rows emptied;
+   - ToR-ORd dynCl, the single-cell steady states first: 2 beats at BCL
+     1000 ms, dt 0.05, for each celltype, through ``get_steady_state`` on
+     the card (B1 with one node), held to the JAX package's float64 states
+     (V within 1 mV, every other state within 2% of its value, or both
+     below float32's normal range); then ToR-ORd's B1, its per-node form
+     and B7 at the psize 0.1 LV's shapes (n = 243,518; B7 with the LV's
+     own layers), held per state row and celltype by the one-step limits
+     (each slow row scaled) and over one paced beat of 4,096 cells; B1's
+     per-node form on a uniform field gives B1's bits;
 4. the kernel checks: the dx=0.5 slab and the psize 0.3 LV, 40 steps each
    through the kernels and through the twins, max |dv| < 1e-2 (the LV's
    window from a shared state at 5 ms, after the stimulated layer's
    upstroke; see ``benchmarks/kernel_check.py:lv_kernel_check``);
 5. the LV parity: psize 0.3, Strang, dt=0.05, 30 ms; the probe activation
-   times against the JAX package's (float64, CPU), each within one dt;
+   times against the JAX package's (float64, CPU), each within one dt, with
+   TP06 layers and with ToR-ORd layers (from ``init_state_values()``);
 6. the main path: Niederer dx=0.1, dt=0.05, Strang, 40 ms, through
    ``run_niederer_benchmark``; P1-P9 against the converged published row
    (<= 5%) and against the JAX package's Strang values (each within one
@@ -40,7 +53,18 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    launch counts; B7 and B8 must be > 0, every state finite, every
    stimulated node activated), then on in 10 ms chunks until more than
    half the nodes fired (150 ms at most; the wave crosses the 1 mm-element
-   wall at about one element per 16 ms, so 30 ms is not enough);
+   wall at about one element per 16 ms, so 30 ms is not enough); once with
+   TP06 layers and once in the demo's own configuration, ToR-ORd layers
+   from the pre-paced steady states (pre-pacing seconds reported beside
+   the host setup);
+   - the slab demo (``demos/slab.py``): the dx=0.05 ToR-ORd bar, 20 ms,
+     through ``benchmarks/slab.py``; both probes within one dt of the JAX
+     package's, the conduction velocity reported;
+   - the per-node parameter paths: the main path's solver for 2 ms with
+     its TP06 parameters as a uniform node-aligned field, and the
+     pre-paced ToR-ORd LV for 10 ms with its layers as a per-node field
+     (each node its layer's parameters), each against the same run on its
+     vector or table: every state and activation time equal;
 8. the ECG setup (host seconds by part): the dx=0.1 slab's recovery
    operators with the Niederer conductivity tensor, and the dx=0.05 slab
    (3,449,001 nodes, 20,160,000 tets) with its 10 electrodes;
@@ -97,11 +121,60 @@ JAX_LV_PSIZE03 = {
     "basal_endo": 1.65, "base_endo": 1.85, "mid_wall": -1.0,
 }
 JAX_LV_PSIZE03_ACTIVATED = 0.25  # share of nodes activated by 30 ms, same run
+# The same with ToR-ORd dynCl layers from init_state_values() (the demo's
+# model, unpaced), from
+#   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --psize 0.3 -T 30 --model torord_dyncl
+JAX_TORORD_LV_PSIZE03 = {
+    "apex_endo": 2.05, "apical_endo": 1.3, "mid_endo": 1.65,
+    "basal_endo": 2.5, "base_endo": 3.75, "mid_wall": -1.0,
+}
+JAX_TORORD_LV_PSIZE03_ACTIVATED = 0.25
+# The slab demo (dx=0.05 bar, 3,636 nodes, 20 ms): activation times (ms) at
+# x = 0.3 and 0.7, float64 on the CPU, from
+#   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --slab 0.05 -T 20
+SLAB_DX, N_SLAB, SLAB_T = 0.05, 3_636, 20.0
+JAX_SLAB_PROBES = (5.85, 13.025)
+# Each ToR-ORd celltype's single-cell state after 2 beats at BCL 1000 ms,
+# dt 0.05, paced from init_state_values() (the LV demo's pre-pacing), the
+# JAX package's get_steady_state in float64 on the CPU, from
+#   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --steady-states
+JAX_STEADY = {
+    0.0: [-89.74885068, 0.01088342482, 7.44625234e-05, 6.491621694e-05, 1.525579339, 1.523324443,
+          29.20684039, 29.20681677, 147.7113584, 147.7113173, 12.39695091, 12.39728929, 0.0006516081008,
+          0.8473406525, 0.7018690246, 0.8471812091, 0.846917467, 0.0001351006897, 0.5565960612,
+          0.3115120545, 0.0008898799527, 0.0004533930986, 0.999671621, 0.5984328311, 0.999671628,
+          0.6613665125, 0.0, 0.9999999943, 0.9399234081, 0.9999999943, 0.9998988499, 0.9999843603,
+          0.9999999943, 0.9999999943, 0.0004883963483, 0.0008297293795, 0.0006499809868, 0.0007892876346,
+          0.9928768341, 0.0002952769926, 9.907866844e-06, 0.244343203, 0.0001586019334, 1.374431654e-76,
+          5.199778872e-62],
+    1.0: [-89.84978293, 0.0111927239, 6.182545605e-05, 5.441954884e-05, 1.639385211, 1.636166312,
+          29.20829056, 29.20827248, 147.6995798, 147.6995448, 12.39134646, 12.39161522, 0.0006375643802,
+          0.8491662916, 0.7049603982, 0.8490927914, 0.8489143056, 0.0001325351933, 0.5611599143,
+          0.3168161468, 0.00088384235, 0.0004503156103, 0.999677418, 0.9996749111, 0.9996774181,
+          0.9996769547, 0.0, 0.9999999945, 0.9344716422, 0.9999999945, 0.9998987954, 0.9999794244,
+          0.9999999945, 0.9999999945, 0.0002461879441, 0.0004041809342, 0.0006442620302, 0.0007833071369,
+          0.9924685637, 0.0002800207403, 9.344220148e-06, 0.2640908022, 0.0001567874497, 2.648264396e-75,
+          6.253816362e-61],
+    2.0: [-89.49461391, 0.01470292944, 7.216724804e-05, 6.050883848e-05, 1.582274637, 1.578769883,
+          29.21493854, 29.21491737, 147.6598203, 147.6598061, 12.44452716, 12.44489813, 0.0006883489267,
+          0.8426668283, 0.6940020149, 0.842407887, 0.8416210338, 0.0001417849322, 0.5354737123,
+          0.2769156377, 0.0009052656481, 0.0004612355816, 0.9996566565, 0.532562925, 0.9996566668,
+          0.5848432131, 0.0, 0.9999999939, 0.8965725678, 0.9999999939, 0.9995015659, 0.9999298801,
+          0.9999999939, 0.9999999939, 0.0003719515007, 0.0007355375436, 0.0007025181036, 0.0008030342444,
+          0.9918523551, 0.0009159263064, 3.124387433e-05, 0.3167656376, 0.000163205505, 2.167477826e-65,
+          5.207580671e-53],
+}
+STEADY_V_TOL = 1.0  # mV
+STEADY_REL_TOL = 0.02  # every other state, relative to the JAX value
+# float32's smallest normal number: d, Jrel_np and Jrel_p rest below it in
+# float64 (0, 1e-76 to 1e-53), where float32 holds a denormal or zero
+F32_MIN_NORMAL = 1.1754944e-38
 # B2-B4 and B8 kernel vs twin on the card, float32: per output vector,
 # max|kernel - twin| / max|twin| (rounding-order noise is ~1e-6).  B1 and
 # B7 are held per state row by the limits of benchmarks/kernel_check.py.
 REL_TOL = 1e-4
-BEAT_CELLS = 16_384  # cells of the ionic kernels' one-beat comparison
+BEAT_CELLS = 16_384  # cells of the TP06 ionic kernels' one-beat comparison
+TORORD_BEAT_CELLS = 4_096  # cells of the ToR-ORd ionic kernels' one-beat comparisons
 LONG_ROW = 64  # B8 rows with more entries than this are timed apart
 N_SCALE = 3_449_001  # nodes of the dx=0.05 slab (the ECG scale run)
 STENCIL_REPEATS = 5  # timings of B5 and B6 at each size, for their spread
@@ -122,10 +195,22 @@ F32_FLOP_PER_S = 67e12
 # TP06 GRL operations per node, counted from csrc/tp06.cuh: about 330
 # add/mul/div and 66 exp/log/sqrt, each counted as one operation.
 TP06_OPS_PER_NODE = 400
+# ToR-ORd GRL operations per node, counted from csrc/torord.cuh with its
+# helpers inlined (each operator and call once): about 1,570
+# add/mul/div/compare and 126 exp/log/sqrt/pow.
+TORORD_OPS_PER_NODE = 1_700
 
 SOURCES = {
     "tp06_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl.cu",
                         "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "tp06_grl_node_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl_node.cu",
+                             "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_grl.cu",
+                          "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_grl_node_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_grl_node.cu",
+                               "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_grl_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_grl_multi.cu",
+                                "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
     "stencil_spmv_sym": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_sym.cu",
                          "fenicsx_beat_tpu/ops/pallas_spmv.py:175"),
     "cg_update": ("fenicsx_beat_tpu_torch/csrc/cg_update.cu",
@@ -355,6 +440,42 @@ def phase_kernels(seed: int = 0) -> dict:
         None,
     )
 
+    # B1's per-node form at the same shapes: a uniform field of each
+    # celltype gives B1's bits; a field of mixed celltypes is held by the
+    # one-step limits in each celltype's nodes
+    table = np.stack([tp06.init_parameter_values(stim_amplitude=0.0, celltype=ct) for ct in kc.CELLTYPES])
+    for i, ct in enumerate(kc.CELLTYPES):
+        uniform = on_card(np.tile(table[i][:, None], (1, n)))
+        a, b = S0.clone(), S0.clone()
+        cuda_ode.tp06_grl_step_v(a, v, 1.0, DT, table[i])
+        cuda_ode.tp06_grl_node_step_v(b, v, 1.0, DT, uniform)
+        require(torch.equal(a, b), f"tp06_grl_node_step_v on a uniform field of celltype {ct:g} gives "
+                "tp06_grl_step_v's bits")
+        del uniform
+    cts = rng.integers(0, len(kc.CELLTYPES), n)
+    mixed = on_card(table[cts].T)
+    node_groups = {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts == i)[0], device=dev)
+                   for i, ct in enumerate(kc.CELLTYPES)}
+    node_abs, node_err = 0.0, {g: torch.zeros(19, dtype=torch.float64, device=dev) for g in node_groups}
+    for _, S in kc.step_check_states(S0):
+        for dt in (0.025, 0.05):
+            out = kc.ionic_step_errors_by_group(cuda_ode.tp06_grl_node_step_v, cuda_ode.tp06_grl_step_v_twin,
+                                                S, v, 1.0, dt, mixed, node_groups)
+            for g, (a, e) in out.items():
+                node_abs, node_err[g] = max(node_abs, a), torch.maximum(node_err[g], e)
+    for g, e in node_err.items():
+        print(f"[kernels] tp06_grl_node_step_v one step, mixed field, {g}, all state sets and dt: per row "
+              "|k-w| beyond 1 ulp / max|increment|: " + " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(names, e)))
+        require(bool((e <= kc.IONIC_STEP_TOL).all()),
+                f"tp06_grl_node_step_v one-step increments agree with its twin, {g}")
+    rows["tp06_grl_node_step_v"] = row(
+        (node_abs, max(float(e.max()) for e in node_err.values())),
+        time_ms(lambda: cuda_ode.tp06_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
+        time_ms(lambda: cuda_ode.tp06_grl_step_v_twin(scratch, v, 1.0, 0.025, mixed)),
+        bound((2 * 19 + 1 + 54) * n * f32, TP06_OPS_PER_NODE * n),
+        None,
+    )
+
     # B2 (with its dot) on the main path's theta-system operator
     kp = len(pos)
     x = on_card(rng.uniform(-90.0, 40.0, n))
@@ -397,6 +518,8 @@ def phase_kernels(seed: int = 0) -> dict:
     print_rows(rows)
     dev_us = {
         "tp06_grl_step_v": device_us_per_call(lambda: cuda_ode.tp06_grl_step_v(scratch, v, 1.0, 0.025, params)),
+        "tp06_grl_node_step_v": device_us_per_call(
+            lambda: cuda_ode.tp06_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
         "stencil_spmv_sym": device_us_per_call(lambda: cuda_spmv.stencil_spmv_sym_dot(A, x, pos)),
         "cg_update": device_us_per_call(lambda: cuda_cg.cg_update(xv, r, p, ap, minv, alpha)),
         "axpy": device_us_per_call(lambda: cuda_cg.axpy(xv, p, beta)),
@@ -493,16 +616,16 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     # with its own layer's parameter set (the model's own pacing on)
     sample = torch.as_tensor(np.linspace(0, n - 1, BEAT_CELLS).astype(np.int64), device=dev)
     model_b = solver._multi[0][sample].contiguous()
-    table_b = on_card(np.stack([tp06.init_parameter_values(celltype=CELLTYPES[m])
-                                for m in sorted(CELLTYPES)]))
+    table_np = np.stack([tp06.init_parameter_values(celltype=CELLTYPES[m]) for m in sorted(CELLTYPES)])
+    table_b = on_card(table_np)
     beat0 = on_card(np.tile(init[:, None], (1, BEAT_CELLS))
                     * (1 + 0.01 * rng.standard_normal((19, BEAT_CELLS))))
     beat_groups = {name: torch.nonzero(model_b == i).flatten() for i, name in layer_of.items()}
     tic = time.perf_counter()
-    beat = kc.ionic_beat_errors_by_group(
-        lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v(S, v, model_b, t, dt, p),
-        lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v_twin(S, v, model_b, t, dt, p),
-        beat0, table_b, beat_groups,
+    beat = kc.ionic_beat_errors_by_group(  # the twin's table on the host: its graph needs no copy
+        lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v(S, v, model_b, t, dt, table_b),
+        lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v_twin(S, v, model_b, t, dt, table_np),
+        beat0, None, beat_groups,
     )
     beat_s = time.perf_counter() - tic
     for g, (a, e) in beat.items():
@@ -585,6 +708,341 @@ def phase_lv_parity() -> None:
     require(max(dev.values()) <= DT + 1e-6, "LV probe activation times within one dt of the JAX values")
 
 
+def phase_steady_states() -> tuple[dict, float]:
+    """Each ToR-ORd celltype's single-cell steady state on the card (the LV
+    demo's pre-pacing, B1 with one node), held to the JAX package's
+    float64 states; returns marker -> states and the pacing seconds."""
+    import tempfile
+
+    import numpy as np
+
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES, PREPACE_BCL, PREPACE_BEATS, lv_steady_states
+    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    names = tor._STATE_NAMES
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache:  # nothing cached: paced here
+        tic = time.perf_counter()
+        steady = lv_steady_states(dt=DT, device=DEVICE, outdir=cache)
+        seconds = time.perf_counter() - tic
+    launches = cuda_ode.torord_grl_step_v.launches
+    steps = len(CELLTYPES) * PREPACE_BEATS * len(np.arange(0.0, PREPACE_BCL, DT))
+    print(f"[steady] {PREPACE_BEATS} beats at BCL {PREPACE_BCL} ms, dt={DT}, 3 celltypes: {seconds:.2f} s, "
+          f"{launches} torord_grl_step_v launches ({1e6 * seconds / steps:.1f} us per step)")
+    require(launches == steps, "every pacing step launched torord_grl_step_v")
+    for marker, y in steady.items():
+        ct = CELLTYPES[marker]
+        ref = np.asarray(JAX_STEADY[ct])
+        v_gap = abs(y[0] - ref[0])
+        tiny = (np.abs(ref) < F32_MIN_NORMAL) & (np.abs(y) < F32_MIN_NORMAL)
+        rel = np.where(tiny, 0.0, np.abs(y - ref) / np.maximum(np.abs(ref), 1e-300))
+        rel[0] = 0.0
+        worst = np.argsort(-rel)[:4]
+        print(f"[steady] celltype {ct:g}: |V - V_jax| {v_gap:.4e} mV (limit {STEADY_V_TOL:g}); max relative "
+              f"gap of the other states {rel.max():.3e} (limit {STEADY_REL_TOL:g}), largest "
+              + ", ".join(f"{names[i]} {rel[i]:.2e}" for i in worst)
+              + "; below float32's normal range in both: " + ", ".join(names[i] for i in np.nonzero(tiny)[0]))
+        require(np.isfinite(y).all(), f"celltype {ct:g} steady state finite")
+        require(v_gap <= STEADY_V_TOL, f"celltype {ct:g} steady V within {STEADY_V_TOL:g} mV of the JAX value")
+        require(rel.max() <= STEADY_REL_TOL,
+                f"celltype {ct:g} steady states within {STEADY_REL_TOL:g} of the JAX values")
+    return steady, seconds
+
+
+def phase_torord_lv_setup(steady: dict):
+    """The demo's own LV at full width: ToR-ORd layers from the pre-paced
+    steady states, its host setup timed."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.lv import build_lv_solver, lv_probe_points
+
+    tic = time.perf_counter()
+    solver = build_lv_solver(
+        psize=LV_PSIZE, device=DEVICE, precond="jacobi", model="torord_dyncl", init_states=steady,
+        probe_points=list(lv_probe_points(LV_PSIZE).values()),
+    )
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - tic
+    print(f"[torord_lv] psize {LV_PSIZE}: n={solver.V.ndofs} nodes, {solver.states.shape[0]} states, "
+          f"host setup {setup:.1f} s")
+    require(solver.V.ndofs == N_LV and solver._ionic.name == "torord_dyncl", "the ToR-ORd LV at full width")
+    return solver, setup
+
+
+def phase_torord_kernels(solver, seed: int = 3) -> dict:
+    """ToR-ORd's B1, its per-node form and B7 against their twins at the
+    full-width LV's shapes, B7 with the LV's own layers and table."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    n = solver.V.ndofs
+    S_, NP, f32 = len(tor._STATE_NAMES), len(tor._PARAM_NAMES), 4
+    names = tor._STATE_NAMES
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a), device=dev).to(torch.float32).contiguous()
+
+    def per_row(e):
+        return " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(names, e))
+
+    init = tor.init_state_values()
+    states = np.tile(init[:, None], (1, n)) * (1 + 0.05 * rng.standard_normal((S_, n)))
+    states[0] = rng.uniform(-90.0, 40.0, n)
+    S0 = on_card(states)
+    v = on_card(rng.uniform(-90.0, 40.0, n))
+    table = np.stack([tor.init_parameter_values(i_Stim_Amplitude=0.0, celltype=ct) for ct in kc.CELLTYPES])
+    state_sets = kc.step_check_states(S0, "torord_dyncl")
+    rows = {}
+
+    # B1 per celltype; its per-node form on each celltype's uniform field
+    # gives B1's bits
+    b1_abs, b1_err = 0.0, torch.zeros(S_, dtype=torch.float64, device=dev)
+    for i, ct in enumerate(kc.CELLTYPES):
+        ct_err = torch.zeros(S_, dtype=torch.float64, device=dev)
+        for _, S in state_sets:
+            for dt in (0.025, 0.05):
+                a, e = kc.ionic_step_errors(cuda_ode.torord_grl_step_v, cuda_ode.torord_grl_step_v_twin,
+                                            S, v, 1.0, dt, table[i])
+                b1_abs, ct_err = max(b1_abs, a), torch.maximum(ct_err, e)
+        print(f"[kernels] torord_grl_step_v one step, celltype {ct:g}, all state sets and dt: per row "
+              f"|k-w| beyond 1 ulp / max|increment|: {per_row(ct_err)}")
+        require(bool((ct_err <= kc.IONIC_STEP_TOL).all()),
+                f"torord_grl_step_v one-step increments agree with its twin, celltype {ct:g}")
+        b1_err = torch.maximum(b1_err, ct_err)
+        uniform = on_card(np.tile(table[i][:, None], (1, n)))
+        a, b = S0.clone(), S0.clone()
+        cuda_ode.torord_grl_step_v(a, v, 1.0, DT, table[i])
+        cuda_ode.torord_grl_node_step_v(b, v, 1.0, DT, uniform)
+        require(torch.equal(a, b), f"torord_grl_node_step_v on a uniform field of celltype {ct:g} gives "
+                "torord_grl_step_v's bits")
+        del uniform
+
+    # the per-node form on a field of mixed celltypes, per celltype's nodes
+    cts = rng.integers(0, len(kc.CELLTYPES), n)
+    mixed = on_card(table[cts].T)
+    groups = {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts == i)[0], device=dev)
+              for i, ct in enumerate(kc.CELLTYPES)}
+    node_abs, node_err = 0.0, {g: torch.zeros(S_, dtype=torch.float64, device=dev) for g in groups}
+    for _, S in state_sets:
+        for dt in (0.025, 0.05):
+            out = kc.ionic_step_errors_by_group(cuda_ode.torord_grl_node_step_v, cuda_ode.torord_grl_step_v_twin,
+                                                S, v, 1.0, dt, mixed, groups)
+            for g, (a, e) in out.items():
+                node_abs, node_err[g] = max(node_abs, a), torch.maximum(node_err[g], e)
+    for g, e in node_err.items():
+        print(f"[kernels] torord_grl_node_step_v one step, mixed field, {g}: per row {per_row(e)}")
+        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"torord_grl_node_step_v one-step increments agree, {g}")
+
+    # B7: the LV's own layer index and table, every 97th node in no layer
+    index, lv_table = solver._multi
+    index = index.clone()
+    index[::97] = -1
+    layer_of = {i: f"celltype {CELLTYPES[m]:g}" for i, m in enumerate(sorted(CELLTYPES))}
+    b7_groups = {name: torch.nonzero(index == i).flatten() for i, name in layer_of.items()}
+    b7_groups["no layer"] = torch.nonzero(index < 0).flatten()
+    lv_table_np = lv_table.double().cpu().numpy()
+
+    def b7(S, v, t, dt, p):
+        return cuda_ode.torord_grl_multi_step_v(S, v, index, t, dt, lv_table)
+
+    def b7_twin(S, v, t, dt, p):
+        return cuda_ode.torord_grl_multi_step_v_twin(S, v, index, t, dt, lv_table_np)
+
+    b7_abs, b7_err = 0.0, {g: torch.zeros(S_, dtype=torch.float64, device=dev) for g in layer_of.values()}
+    for _, S in state_sets:
+        for dt in (0.025, 0.05):
+            for g, (a, e) in kc.ionic_step_errors_by_group(b7, b7_twin, S, v, 1.0, dt, None, b7_groups).items():
+                if g == "no layer":
+                    require(a == 0.0, "torord_grl_multi_step_v leaves the nodes of no layer as they were")
+                    continue
+                b7_abs, b7_err[g] = max(b7_abs, a), torch.maximum(b7_err[g], e)
+    for g, e in b7_err.items():
+        print(f"[kernels] torord_grl_multi_step_v one step, {g} ({b7_groups[g].numel()} nodes): per row "
+              f"{per_row(e)}")
+        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"torord_grl_multi_step_v one-step increments agree, {g}")
+
+    # one paced beat (the model's own stimulus at 0-1 ms) of
+    # TORORD_BEAT_CELLS cells per kernel: B1 in endo, the per-node form on
+    # a mixed field, B7 on cells spread over the LV in their layers
+    m = TORORD_BEAT_CELLS
+    beat0 = on_card(np.tile(init[:, None], (1, m)) * (1 + 0.01 * rng.standard_normal((S_, m))))
+    paced = np.stack([tor.init_parameter_values(celltype=ct) for ct in kc.CELLTYPES])
+    cts_b = rng.integers(0, len(kc.CELLTYPES), m)
+    mixed_b = on_card(paced[cts_b].T)
+    sample = torch.as_tensor(np.linspace(0, n - 1, m).astype(np.int64), device=dev)
+    index_b = solver._multi[0][sample].contiguous()
+    paced_layers = np.stack([tor.init_parameter_values(celltype=CELLTYPES[mk]) for mk in sorted(CELLTYPES)])
+    paced_layers_b = on_card(paced_layers)
+    beats = {
+        "torord_grl_step_v": (cuda_ode.torord_grl_step_v, cuda_ode.torord_grl_step_v_twin, paced[0],
+                              {"celltype 0": None}),
+        "torord_grl_node_step_v": (cuda_ode.torord_grl_node_step_v, cuda_ode.torord_grl_step_v_twin, mixed_b,
+                                   {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts_b == i)[0], device=dev)
+                                    for i, ct in enumerate(kc.CELLTYPES)}),
+        "torord_grl_multi_step_v": (
+            lambda S, v, t, dt, p: cuda_ode.torord_grl_multi_step_v(S, v, index_b, t, dt, paced_layers_b),
+            lambda S, v, t, dt, p: cuda_ode.torord_grl_multi_step_v_twin(S, v, index_b, t, dt, paced_layers),
+            None, {name: torch.nonzero(index_b == i).flatten() for i, name in layer_of.items()}),
+    }
+    for name, (step, twin, p, bgroups) in beats.items():
+        tic = time.perf_counter()
+        out = kc.ionic_beat_errors_by_group(step, twin, beat0, p, bgroups)
+        took = time.perf_counter() - tic
+        for g, (a, e) in out.items():
+            print(f"[kernels] {name} one beat, {g} ({m} cells in all, {kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, "
+                  f"{took:.1f} s), max|k-w| {a:.3e}; per row max|k-w| / max excursion: {per_row(e)}")
+            require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{name} agrees with its twin over one beat, {g}")
+
+    scratch = S0.clone()
+    p0 = table[0]
+    b1_bytes = (2 * S_ + 1) * n * f32
+    rows["torord_grl_step_v"] = row(
+        (b1_abs, float(b1_err.max())),
+        time_ms(lambda: cuda_ode.torord_grl_step_v(scratch, v, 1.0, 0.025, p0)),
+        time_ms(lambda: cuda_ode.torord_grl_step_v_twin(scratch, v, 1.0, 0.025, p0), launches=5, reps=3),
+        bound(b1_bytes, TORORD_OPS_PER_NODE * n), None,
+    )
+    rows["torord_grl_node_step_v"] = row(
+        (node_abs, max(float(e.max()) for e in node_err.values())),
+        time_ms(lambda: cuda_ode.torord_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
+        time_ms(lambda: cuda_ode.torord_grl_step_v_twin(scratch, v, 1.0, 0.025, mixed), launches=5, reps=3),
+        bound(b1_bytes + NP * n * f32, TORORD_OPS_PER_NODE * n), None,
+    )
+    rows["torord_grl_multi_step_v"] = row(
+        (b7_abs, max(float(e.max()) for e in b7_err.values())),
+        time_ms(lambda: b7(scratch, v, 1.0, 0.025, None)),
+        time_ms(lambda: b7_twin(scratch, v, 1.0, 0.025, None), launches=5, reps=3),
+        bound(b1_bytes + n * 4, TORORD_OPS_PER_NODE * n), None,
+    )
+    dev_us = {
+        "torord_grl_step_v": device_us_per_call(lambda: cuda_ode.torord_grl_step_v(scratch, v, 1.0, 0.025, p0)),
+        "torord_grl_node_step_v": device_us_per_call(
+            lambda: cuda_ode.torord_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
+        "torord_grl_multi_step_v": device_us_per_call(lambda: b7(scratch, v, 1.0, 0.025, None)),
+    }
+    torch.cuda.synchronize()
+    print("[kernels] device time per call (torch.profiler, us): "
+          + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
+    print_rows(rows)
+    return rows
+
+
+def phase_torord_lv_parity() -> None:
+    from fenicsx_beat_tpu_torch.benchmarks.lv import run_lv
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    res = run_lv(psize=LV_CHECK_PSIZE, dt=DT, T=LV_T, device=DEVICE, precond="jacobi", model="torord_dyncl",
+                 prepace=False)
+    dev = {k: abs(res.probes[k] - v) for k, v in JAX_TORORD_LV_PSIZE03.items()}
+    print(f"[torord_lv_parity] psize {LV_CHECK_PSIZE}, ToR-ORd layers unpaced: n={res.n_nodes}, probes "
+          + ", ".join(f"{k}={v:.2f}" for k, v in res.probes.items())
+          + "; |probe - JAX| " + ", ".join(f"{k}={d:.3f}" for k, d in dev.items())
+          + f"; activated share {res.activated_share:.4f} (JAX {JAX_TORORD_LV_PSIZE03_ACTIVATED}); "
+          f"launches {json.dumps({k: w.launches for k, w in wrappers.items() if w.launches})}")
+    require(res.all_finite, "psize 0.3 ToR-ORd LV states finite")
+    require(wrappers["torord_grl_multi_step_v"].launches > 0, "the ToR-ORd LV runs torord_grl_multi_step_v")
+    require(max(dev.values()) <= DT + 1e-6, "ToR-ORd LV probe activation times within one dt of the JAX values")
+
+
+def phase_slab() -> dict:
+    """The slab demo on the card: the dx=0.05 ToR-ORd bar, 20 ms."""
+    from fenicsx_beat_tpu_torch.benchmarks.slab import run_slab
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    res = run_slab(dx=SLAB_DX, dt=DT, T=SLAB_T, device=DEVICE)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    gaps = [abs(res.t1 - JAX_SLAB_PROBES[0]), abs(res.t2 - JAX_SLAB_PROBES[1])]
+    print(f"[slab] dx={SLAB_DX} bar, n={res.n_nodes}, {res.simulated_ms:g} ms: t(x=0.3)={res.t1:.3f} "
+          f"t(x=0.7)={res.t2:.3f} ms (JAX {JAX_SLAB_PROBES[0]}, {JAX_SLAB_PROBES[1]}; gaps {gaps[0]:.3f}, "
+          f"{gaps[1]:.3f}); conduction velocity {res.cv_cm_per_ms} cm/ms; activated share "
+          f"{res.activated_share:.4f}; host setup {res.setup_s:.2f} s; ms_per_s={res.ms_per_second:.3f}; "
+          f"cg_iters max={res.cg_iters_max} mean={res.cg_iters_sum / res.n_steps:.3f}, host_syncs_per_step="
+          f"{res.host_syncs / res.n_steps:.3f}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    require(res.n_nodes == N_SLAB and res.all_finite, f"the dx={SLAB_DX} bar ({N_SLAB} nodes), states finite")
+    require(max(gaps) <= DT + 1e-6, "slab probe activation times within one dt of the JAX values")
+    for name in ("torord_grl_step_v", "stencil_spmv_sym", "cg_update", "axpy"):
+        require(launches[name] > 0, f"{name} launched on the slab path")
+    return launches
+
+
+def field_solver(solver, ode_fun, field, states):
+    """``solver``'s configuration with the ionic step ``ode_fun``, its
+    parameters the node-aligned field ``field`` (NP, n) and the states
+    ``states`` (S, n), both numpy."""
+    import dataclasses
+
+    return dataclasses.replace(solver, ode_fun=ode_fun, init_states=states, parameters=field, v_index=0,
+                               ode_markers=None)
+
+
+def phase_node_paths(lv_solver, t0: float) -> dict:
+    """B1's per-node form on the two main paths: the Niederer solver with
+    its TP06 vector as a uniform field (2 ms), and the ToR-ORd LV from its
+    state at ``t0`` with its layers as a per-node field (10 ms); each run
+    against the same run on its vector or table, every state and
+    activation time equal."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
+
+    wrappers = kernel_wrappers()
+    launches = {}
+    # TP06: the main path's configuration
+    ref = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
+    n = ref.V.ndofs
+    fld = field_solver(ref, tp06.generalized_rush_larsen, np.tile(ref._params[:, None], (1, n)),
+                       ref.states.double().cpu().numpy())
+    ref.solve((0.0, 2.0), dt=DT)
+    zero_launches(wrappers)
+    fld.solve((0.0, 2.0), dt=DT)
+    launches["tp06_grl_node_step_v"] = wrappers["tp06_grl_node_step_v"].launches
+    same = torch.equal(fld.states, ref.states) and torch.equal(fld.activation_time, ref.activation_time)
+    print(f"[node_paths] Niederer dx=0.1, TP06 parameters as a uniform ({fld._node_params.shape[0]}, {n}) field, "
+          f"2 ms: states and activation times equal to the vector run: {same}; "
+          f"max|dV| {float((fld.v - ref.v).abs().max()):.3e}; tp06_grl_node_step_v launches "
+          f"{launches['tp06_grl_node_step_v']}, tp06_grl_step_v {wrappers['tp06_grl_step_v'].launches}")
+    require(same, "the Niederer run on a uniform TP06 field equals the run on the vector")
+    require(launches["tp06_grl_node_step_v"] > 0 and wrappers["tp06_grl_step_v"].launches == 0,
+            "the field run launched tp06_grl_node_step_v and not tp06_grl_step_v")
+    del ref, fld
+
+    # ToR-ORd: the LV's layers as a per-node field, from the LV's state
+    index, table = lv_solver._multi
+    field = table.index_select(0, index.long()).T.double().cpu().numpy()
+    fld = field_solver(lv_solver, tor.generalized_rush_larsen, field, lv_solver.states.double().cpu().numpy())
+    fld.activation_time = lv_solver.activation_time.clone()
+    zero_launches(wrappers)  # counted over the field run alone
+    res = fld.run_chunk(t0, DT, 200)
+    launches["torord_grl_node_step_v"] = wrappers["torord_grl_node_step_v"].launches
+    multi_before = wrappers["torord_grl_multi_step_v"].launches
+    lv_solver.run_chunk(t0, DT, 200)  # the same window on the layer table
+    same = torch.equal(fld.states, lv_solver.states) and torch.equal(fld.activation_time, lv_solver.activation_time)
+    print(f"[node_paths] ToR-ORd LV psize {LV_PSIZE}, layers as a ({field.shape[0]}, {field.shape[1]}) field, "
+          f"{t0:g} to {res.t:g} ms: states and activation times equal to the B7 run: {same}; max|dV| "
+          f"{float((fld.v - lv_solver.v).abs().max()):.3e}; torord_grl_node_step_v launches "
+          f"{launches['torord_grl_node_step_v']}, torord_grl_multi_step_v {multi_before} in the field run")
+    require(same, "the ToR-ORd LV on its per-node field equals the run on its layer table")
+    require(launches["torord_grl_node_step_v"] > 0 and multi_before == 0,
+            "the field run launched torord_grl_node_step_v and not torord_grl_multi_step_v")
+    return launches
+
+
 def zero_launches(wrappers: dict) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -595,6 +1053,10 @@ def kernel_wrappers() -> dict:
 
     return {
         "tp06_grl_step_v": cuda_ode.tp06_grl_step_v,
+        "tp06_grl_node_step_v": cuda_ode.tp06_grl_node_step_v,
+        "torord_grl_step_v": cuda_ode.torord_grl_step_v,
+        "torord_grl_node_step_v": cuda_ode.torord_grl_node_step_v,
+        "torord_grl_multi_step_v": cuda_ode.torord_grl_multi_step_v,
         "stencil_spmv_sym": cuda_spmv.stencil_spmv_sym,
         "cg_update": cuda_cg.cg_update,
         "axpy": cuda_cg.axpy,
@@ -632,31 +1094,38 @@ def phase_main_path() -> dict:
     return launches
 
 
-def phase_lv_path(solver, setup_s: float) -> dict:
+def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict, float]:
+    """The full-width LV run on ``solver`` (TP06 layers, or the demo's
+    pre-paced ToR-ORd layers); returns the launch counts and the time
+    reached."""
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks.lv import run_lv_solver
 
+    tag = "lv" if solver._ionic.name == "tp06" else "torord_lv"
+    multi = solver._ionic.multi_step.__name__
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
-    res = run_lv_solver(solver, LV_PSIZE, T=LV_T, dt=DT, setup_s=setup_s)
+    torch.cuda.reset_peak_memory_stats()
+    res = run_lv_solver(solver, LV_PSIZE, T=LV_T, dt=DT, setup_s=setup_s, prepace_s=prepace_s)
     launches = {name: w.launches for name, w in wrappers.items()}
     stimulated = solver._b_units[0] > 0
     stim_share = float(stimulated.double().mean())
     fired = bool((solver.activation_time[stimulated] >= 0).all())
-    print(f"[lv] psize {LV_PSIZE} Strang dt={DT} {res.simulated_ms:g} ms: n={res.n_nodes} nodes, "
-          f"{res.n_cells} cells, layers {res.layer_nodes}, host setup {res.setup_s:.1f} s")
-    print(f"[lv] activated share {res.activated_share:.4f} (stimulated ENDO nodes: share "
+    print(f"[{tag}] psize {LV_PSIZE} Strang dt={DT} {res.simulated_ms:g} ms, {res.model} layers: n={res.n_nodes} "
+          f"nodes, {res.n_cells} cells, layers {res.layer_nodes}, host setup {res.setup_s:.1f} s, "
+          f"pre-pacing {res.prepace_s:.2f} s")
+    print(f"[{tag}] activated share {res.activated_share:.4f} (stimulated ENDO nodes: share "
           f"{stim_share:.4f}, all fired: {fired}); probes "
           + ", ".join(f"{k}={v:.2f}" for k, v in res.probes.items()))
-    print(f"[lv] ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.3f} s), steps={res.n_steps}, "
+    print(f"[{tag}] ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.3f} s), steps={res.n_steps}, "
           f"cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f}, "
           f"host_syncs_per_step={res.host_syncs_per_step:.3f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[lv] launches {json.dumps(launches)}")
+    print(f"[{tag}] launches {json.dumps(launches)}")
     require(res.all_finite, "every LV state finite")
     require(fired, "every stimulated endocardial node activated")
-    for name in ("tp06_grl_multi_step_v", "csr_spmv"):
+    for name in (multi, "csr_spmv"):
         require(launches[name] > 0, f"{name} launched on the LV path")
     # the wave through the wall: on in 10 ms chunks until half the nodes fired
     t, share = res.simulated_ms, res.activated_share
@@ -666,9 +1135,9 @@ def phase_lv_path(solver, setup_s: float) -> dict:
         t, share = t + more.simulated_ms, more.activated_share
         shares.append((t, share))
         require(more.all_finite, "every LV state finite")
-    print("[lv] activated share by time: " + ", ".join(f"{a:g} ms {b:.4f}" for a, b in shares))
+    print(f"[{tag}] activated share by time: " + ", ".join(f"{a:g} ms {b:.4f}" for a, b in shares))
     require(share > 0.5, f"more than half of the LV's nodes activated by {LV_T_MAX:g} ms")
-    return launches
+    return launches, t
 
 
 def general_stencil_csr(offsets, vals, n):
@@ -933,13 +1402,22 @@ def main() -> int:
     rows = phase_kernels()
     lv_solver, lv_setup = phase_lv_setup()
     rows.update(phase_lv_kernels(lv_solver))
+    steady, prepace_s = phase_steady_states()
+    torord_lv, torord_lv_setup = phase_torord_lv_setup(steady)
+    rows.update(phase_torord_kernels(torord_lv))
     phase_kernel_checks()
     phase_lv_parity()
+    phase_torord_lv_parity()
     launches = phase_main_path()
-    lv_launches = phase_lv_path(lv_solver, lv_setup)
+    lv_launches, _ = phase_lv_path(lv_solver, lv_setup)
     for name in ("tp06_grl_multi_step_v", "csr_spmv"):
         launches[name] = lv_launches[name]
     del lv_solver
+    torord_launches, t_end = phase_lv_path(torord_lv, torord_lv_setup + prepace_s, prepace_s)
+    launches["torord_grl_multi_step_v"] = torord_launches["torord_grl_multi_step_v"]
+    launches["torord_grl_step_v"] = phase_slab()["torord_grl_step_v"]
+    launches.update(phase_node_paths(torord_lv, t_end))
+    del torord_lv
     ecg_main, ecg_scale = phase_ecg_setup()
     rows.update(phase_stencil_kernels(ecg_main, ecg_scale))
     del ecg_main

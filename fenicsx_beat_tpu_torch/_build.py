@@ -26,8 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32", "require_cuda_i32",
-    "stream_ptr", "num_blocks",
+    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32",
+    "require_cuda_i32", "stream_ptr", "num_blocks",
 ]
 
 _CSRC = Path(__file__).with_name("csrc")
@@ -40,14 +40,35 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills
 ]
+# The ionic kernels round every product and every sum on its own, as their
+# plain twins' elementwise PyTorch operations do: no contraction into fused
+# multiply-adds, whose placement the compiler chooses per kernel.  B1's
+# forms, which differ only in where the parameters come from, then give
+# the same bits on the same parameters.
+_NO_FMA_SOURCES = ("tp06_grl", "torord_grl")
+
+
+def _nvcc_flags(src: Path) -> list[str]:
+    """The nvcc flags of one source file."""
+    return NVCC_FLAGS + (["-fmad=false"] if src.stem.startswith(_NO_FMA_SOURCES) else [])
+
 
 _P = ctypes.c_void_p
+# the ionic steps' C signatures, one per form, shared by both models
+_GRL_STEP = (ctypes.c_int, [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, _P])
+_GRL_NODE_STEP = (ctypes.c_int, [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P])
+_GRL_MULTI_STEP = (
+    ctypes.c_int,
+    [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P],
+)
 _SIGNATURES = {
     # name: (restype, argtypes) -- pointers and the stream as c_void_p
-    "tp06_grl_step_v": (
-        ctypes.c_int,
-        [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, _P],
-    ),
+    "tp06_grl_step_v": _GRL_STEP,
+    "tp06_grl_node_step_v": _GRL_NODE_STEP,
+    "tp06_grl_multi_step_v": _GRL_MULTI_STEP,
+    "torord_grl_step_v": _GRL_STEP,
+    "torord_grl_node_step_v": _GRL_NODE_STEP,
+    "torord_grl_multi_step_v": _GRL_MULTI_STEP,
     "stencil_spmv_sym": (
         ctypes.c_int,
         [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],
@@ -57,10 +78,6 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P],
     ),
     "axpy": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
-    "tp06_grl_multi_step_v": (
-        ctypes.c_int,
-        [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P],
-    ),
     "csr_spmv": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
     "stencil_spmv": (
         ctypes.c_int,
@@ -96,6 +113,7 @@ def _source_tag(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
+        h.update(" ".join(_nvcc_flags(src)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -119,7 +137,7 @@ def load_library() -> KernelLibrary:
                 obj = Path(td) / f"{src.stem}.o"
                 objs.append(obj)
                 procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    [nvcc, *_nvcc_flags(src), "-c", "-o", str(obj), str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 ))
             logs, failed = [], []

@@ -12,11 +12,14 @@ on one layer labelling.
 The voltage alone does not see the ionic step's slow concentrations (K_i,
 Na_i, Ca_SR), whose effect on V over 40 steps is below that noise.
 :func:`ionic_step_errors` and :func:`ionic_beat_errors` hold every state
-row of the ionic step against its twin: one step by increment, and one
-paced beat by excursion.  At physiological values one step moves K_i by
-less than a float32 ulp of 137 mM, so the one-step check also runs on
-:func:`step_check_states`, where the same formulas move those rows by
-thousands of ulps.
+row of an ionic step (TP06 or ToR-ORd, any form: B1, its per-node form,
+B7) against its twin: one step by increment, and one paced beat by
+excursion.  At physiological values one step moves TP06's K_i by less
+than a float32 ulp of 137 mM, so the one-step check also runs on
+:func:`step_check_states`, where the same formulas move each model's
+slow rows by thousands of ulps.  On the card the beat check replays its
+twin step as a CUDA graph: the twins are a thousand small kernels a step,
+bound by the host's launches.
 
 Usage, on a machine with a CUDA card::
 
@@ -31,7 +34,7 @@ from typing import Callable
 
 import torch
 
-from ..models import tentusscher_panfilov_2006 as tp06
+from ..ops.cuda_ode import IONIC_MODELS, V_INDEX
 
 THRESHOLD = 1e-2
 # One ionic step, per state row: the kernel-vs-twin difference beyond one
@@ -42,10 +45,16 @@ THRESHOLD = 1e-2
 # values).  A term small against its row's largest increment (i_NaK in
 # dK_i, 6e-4 of it) is left to the beat check.
 IONIC_STEP_TOL = 2e-2
-# The rows whose one-step increment float32 resolves only coarsely at
-# physiological values (ulp over increment: K_i 0.3, Na_i 0.17, Ca_SR
-# 0.05), and the factor that brings that to 2.4e-3 or less.
-SLOW_ROWS = ("Ca_SR", "Na_i", "K_i")
+# Each model's rows whose one-step increment float32 resolves only coarsely
+# on the check's states, and the factor that brings that to 2.4e-3 or
+# less.  The ratio of a float32 ulp of the value to the row's largest
+# one-step increment, dt = 0.025, V uniform on [-90, 40] mV: TP06 K_i 0.3,
+# Na_i 0.17, Ca_SR 0.05; ToR-ORd cansr 6.6e-3, CaMKt 5.2e-3, fs 4.7e-3,
+# every other ToR-ORd row 2e-3 or less (ki 8.4e-4, nai 7.9e-4).
+SLOW_ROWS = {
+    "tp06": ("Ca_SR", "Na_i", "K_i"),
+    "torord_dyncl": ("cansr", "CaMKt", "fs"),
+}
 SLOW_ROW_SCALE = 1e-2
 # One paced beat, per state row: max |kernel - twin| over the run, over
 # the row's largest excursion from the start in the twin.  Kernel vs twin
@@ -62,8 +71,9 @@ BEAT_STEPS = 8000
 # Start (ms) of the LV kernel check's window: after the stimulated
 # layer's upstroke (1.1-1.9 ms at psize 0.3), see lv_kernel_check
 LV_CHECK_START = 5.0
-# TP06 celltypes every ionic check runs: endo, epi, mid
+# celltypes every ionic check runs, in both models: endo, epi, mid
 CELLTYPES = (0.0, 1.0, 2.0)
+_MODULES = {m.name: m.module for m in IONIC_MODELS.values()}
 
 IonicStep = Callable[[torch.Tensor, torch.Tensor, float, float, object], torch.Tensor]
 
@@ -74,18 +84,18 @@ def _ulp32(x: torch.Tensor) -> torch.Tensor:
     return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).to(x.dtype)
 
 
-def step_check_states(states: torch.Tensor) -> list[tuple[str, torch.Tensor]]:
+def step_check_states(states: torch.Tensor, model: str = "tp06") -> list[tuple[str, torch.Tensor]]:
     """The states the one-step check runs from: ``states`` itself, then one
-    copy for each row of :data:`SLOW_ROWS` with that row alone scaled by
-    :data:`SLOW_ROW_SCALE`.  Those values are far from physiological, but
-    kernel and twin evaluate the same formulas on them, and one step's
-    increment of the scaled row is then large against a float32 ulp of its
-    value.  One row at a time, because a small Na_i also silences i_NaK,
-    which K_i's and V's rates carry."""
+    copy for each of ``model``'s :data:`SLOW_ROWS` with that row alone
+    scaled by :data:`SLOW_ROW_SCALE`.  Those values are far from
+    physiological, but kernel and twin evaluate the same formulas on them,
+    and one step's increment of the scaled row is then large against a
+    float32 ulp of its value.  One row at a time, because a small Na_i also
+    silences i_NaK, which K_i's and V's rates carry."""
     sets = [("physiological", states)]
-    for name in SLOW_ROWS:
+    for name in SLOW_ROWS[model]:
         out = states.clone()
-        out[tp06.state_index(name)] *= SLOW_ROW_SCALE
+        out[_MODULES[model].state_index(name)] *= SLOW_ROW_SCALE
         sets.append((f"{name} scaled", out))
     return sets
 
@@ -112,7 +122,7 @@ def ionic_step_errors_by_group(
     error taken over each group of nodes (``name -> node index tensor``,
     None for all nodes); returns ``name -> (max abs, per-row error)``."""
     s_in = states.clone()
-    s_in[tp06.state_index("V")] = v
+    s_in[V_INDEX] = v
     k, w = states.clone(), states.clone()
     step(k, v, t, dt, parameters)
     twin(w, v, t, dt, parameters)
@@ -135,7 +145,8 @@ def ionic_beat_errors(
     ``n_steps``, each cell driven by its own voltage row (no PDE) and the
     model's pacing stimulus in ``parameters``.  Returns the max absolute
     difference and, per state row, max over steps and nodes of
-    ``|k - w|`` over the row's largest excursion ``max |w - s0|``."""
+    ``|k - w|`` over the row's largest excursion ``max |w - s0|``.  On the
+    card the twin's step is a CUDA graph (:func:`_twin_stepper`)."""
     return ionic_beat_errors_by_group(
         step, twin, states, parameters, {"all": None}, dt=dt, n_steps=n_steps, t0=t0
     )["all"]
@@ -148,15 +159,15 @@ def ionic_beat_errors_by_group(
     """:func:`ionic_beat_errors` from one run, the max and the per-row error
     taken over each group of nodes (``name -> node index tensor``, None for
     all nodes); returns ``name -> (max abs, per-row error)``."""
-    iv = tp06.state_index("V")
     k, w = states.clone(), states.clone()
     acc = {name: (torch.zeros(states.shape[0], dtype=states.dtype, device=states.device),
                   torch.zeros(states.shape[0], dtype=states.dtype, device=states.device))
            for name in groups}
+    twin_step = _twin_stepper(twin, w, dt, parameters)
     t = float(t0)
     for _ in range(n_steps):
-        step(k, k[iv], t, dt, parameters)
-        twin(w, w[iv], t, dt, parameters)
+        step(k, k[V_INDEX], t, dt, parameters)
+        twin_step(t)
         d, e = (k - w).abs(), (w - states).abs()
         for name, nodes in groups.items():
             err, exc = acc[name]
@@ -167,6 +178,35 @@ def ionic_beat_errors_by_group(
         name: (float(err.max()), err.double() / exc.double().clamp_min(1e-300))
         for name, (err, exc) in acc.items()
     }
+
+
+def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters) -> Callable[[float], None]:
+    """``step(t)``: one step of ``twin`` on ``w`` in place, V from its own
+    row.  On the CPU a plain call.  On the card the step is captured once
+    as a CUDA graph and replayed, ``t`` a float32 scalar on the device that
+    each call sets: the graph runs the twin's kernels without the host's
+    launch cost, and the stimulus window is then evaluated in float32, as
+    the kernels evaluate it.  ``parameters`` must not need the host (a
+    vector as numpy, a field or table on the card)."""
+    if w.device.type != "cuda":
+        return lambda t: twin(w, w[V_INDEX], t, dt, parameters)
+    t_dev = torch.zeros((), dtype=w.dtype, device=w.device)
+    start = w.clone()
+    side = torch.cuda.Stream(w.device)
+    side.wait_stream(torch.cuda.current_stream(w.device))
+    with torch.cuda.stream(side):  # warm-up: first-call allocations outside the capture
+        twin(w, w[V_INDEX], t_dev, dt, parameters)
+    torch.cuda.current_stream(w.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        twin(w, w[V_INDEX], t_dev, dt, parameters)
+    w.copy_(start)  # the warm-up stepped w
+
+    def step(t: float) -> None:
+        t_dev.fill_(t)
+        graph.replay()
+
+    return step
 
 
 def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="cuda") -> dict:

@@ -1,19 +1,27 @@
 """Endocardial activation of the idealized LV on the port's fused solver.
 
-The configuration of ``demos/lv_endocardial.py`` (lines 55-103) with two
-differences: TP06 takes the place of ToR-ORd, and the fused solver the
-place of the operator-splitting OO path.  An LV ellipsoid
-(:func:`~..geometry.get_lv_ellipsoid_geometry`), endo/mid/epi layers from
-:func:`~..utils.expand_layer` (``endo_size=0.3, epi_size=0.3``), one TP06
-parameter set per layer (celltype endo 0, mid 2, epi 1) from
-``init_state_values()`` with no pre-pacing (``single_cell`` is not
-ported), an ENDO facet stimulus of 1 ms, and Niederer conductivities
-along ``geo.f0``.  This path runs the multi-marker ionic kernel (B7) and
-the CSR SpMV (B8).
+The configuration of ``demos/lv_endocardial.py`` (lines 55-116), run
+through the fused solver in the place of the operator-splitting OO path:
+an LV ellipsoid (:func:`~..geometry.get_lv_ellipsoid_geometry`),
+endo/mid/epi layers from :func:`~..utils.expand_layer`
+(``endo_size=0.3, epi_size=0.3``), one parameter set per layer (celltype
+endo 0, mid 2, epi 1) with the model's own pacing off, an ENDO facet
+stimulus of 1 ms, and Niederer conductivities along ``geo.f0``.  This path
+runs the multi-marker ionic kernel (B7) and the CSR SpMV (B8).
+
+Two ionic models (``model``):
+
+- ``"torord_dyncl"``, the demo's own: each layer starts from its
+  celltype's single-cell steady state, 2 beats at BCL 1000 ms
+  (:func:`lv_steady_states`, the demo's ``get_steady_state`` call, paced
+  on the card through B1), or from ``init_state_values()`` unpaced;
+- ``"tp06"``, the default, which the earlier measurements used: TP06 from
+  ``init_state_values()``, unpaced.
 
 Usage, on a machine with a CUDA card::
 
     python -m fenicsx_beat_tpu_torch.benchmarks.lv --psize 0.1 -T 30
+    python -m fenicsx_beat_tpu_torch.benchmarks.lv --psize 0.1 -T 30 --model torord_dyncl
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import json
 import sys
 import time as _time
 from dataclasses import asdict, dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,17 +41,24 @@ from ..conductivities import default_conductivities, define_conductivity_tensor
 from ..fused import FusedMonodomainSolver
 from ..geometry import get_lv_ellipsoid_geometry
 from ..models import tentusscher_panfilov_2006 as tp06
+from ..models import torord_dyncl as torord
+from ..single_cell import get_steady_state
 from ..stimulation import define_stimulus
 from ..units import ureg
 from ..utils import expand_layer
 
 __all__ = [
-    "MID", "ENDO", "EPI", "CELLTYPES", "lv_probe_points", "lv_amplitude", "lv_layers",
-    "build_lv_solver", "LVResult", "run_lv_solver", "run_lv",
+    "MID", "ENDO", "EPI", "CELLTYPES", "MODELS", "lv_probe_points", "lv_amplitude", "lv_layers",
+    "lv_steady_states", "lv_ionic", "build_lv_solver", "LVResult", "run_lv_solver", "run_lv",
 ]
 
 MID, ENDO, EPI = 0, 1, 2  # layer markers, as the demo numbers them
-CELLTYPES = {MID: 2.0, ENDO: 0.0, EPI: 1.0}  # TP06 celltype of each layer
+CELLTYPES = {MID: 2.0, ENDO: 0.0, EPI: 1.0}  # celltype of each layer (both models)
+MODELS = {"tp06": tp06, "torord_dyncl": torord}
+# the demo's pre-pacing of each layer's cell (demos/lv_endocardial.py:74-82)
+PREPACE_BEATS, PREPACE_BCL = 2, 1000
+# where the steady states are cached (git-ignored), keyed by their arguments
+STEADY_DIR = Path(__file__).resolve().parents[2] / "build" / "steady_states"
 LAYER_SIZE = 0.3  # endo_size and epi_size of expand_layer
 CHUNK_MS = 10.0  # run_chunk length of the timed runs; probes read at each end
 
@@ -92,6 +108,43 @@ def lv_layers(geo, V, precond: str = "auto", device=None) -> np.ndarray:
     )
 
 
+def lv_steady_states(dt: float = 0.05, device=None, outdir: Path = STEADY_DIR) -> dict:
+    """Each layer's ToR-ORd cell paced to its steady state, as the demo
+    does it: marker -> states after :data:`PREPACE_BEATS` beats at BCL
+    :data:`PREPACE_BCL` ms from ``init_state_values()``, with the model's
+    own stimulus (cached under ``outdir``, one directory per layer)."""
+    return {
+        marker: get_steady_state(
+            fun=torord.generalized_rush_larsen,
+            init_states=torord.init_state_values(),
+            parameters=torord.init_parameter_values(celltype=ct),
+            outdir=Path(outdir) / f"layer-{marker}",
+            BCL=PREPACE_BCL,
+            nbeats=PREPACE_BEATS,
+            dt=dt,
+            device=device,
+        )
+        for marker, ct in CELLTYPES.items()
+    }
+
+
+def lv_ionic(model: str = "tp06", init_states: dict | None = None) -> tuple[dict, dict, dict, dict]:
+    """The per-layer ``(ode_fun, init_states, parameters, v_index)`` dicts
+    of the LV: ``model``'s generalized Rush-Larsen step, ``init_states``
+    (marker -> states; ``init_state_values()`` for every layer when None)
+    and each celltype's parameters with the model's pacing stimulus off."""
+    m = MODELS[model]
+    off = {"stim_amplitude": 0.0} if m is tp06 else {"i_Stim_Amplitude": 0.0}
+    v_name = m._STATE_NAMES[0]
+    funs, init, params, v_idx = {}, {}, {}, {}
+    for marker, ct in CELLTYPES.items():
+        funs[marker] = m.generalized_rush_larsen
+        init[marker] = m.init_state_values() if init_states is None else init_states[marker]
+        params[marker] = m.init_parameter_values(celltype=ct, **off)
+        v_idx[marker] = m.state_index(v_name)
+    return funs, init, params, v_idx
+
+
 def build_lv_solver(
     psize: float = 0.3,
     theta: float = 0.5,
@@ -99,22 +152,21 @@ def build_lv_solver(
     precond: str = "auto",
     probe_points: np.ndarray | None = None,
     layers: np.ndarray | None = None,
+    model: str = "tp06",
+    init_states: dict | None = None,
     **solver_kwargs,
 ) -> FusedMonodomainSolver:
     """The LV configuration's solver on ``device`` (the card when None).
     ``precond`` goes to the layer labelling's Laplace solve; ``layers``
-    given skips it (two solvers compared on one labelling)."""
+    given skips it (two solvers compared on one labelling).  ``model`` and
+    ``init_states`` as :func:`lv_ionic` takes them (the pre-paced ToR-ORd
+    layers: ``init_states=lv_steady_states(dt)``)."""
     geo = get_lv_ellipsoid_geometry(psize_ref=psize)
     mesh = geo.mesh
     V = fem.functionspace(mesh, ("P", 1))
     if layers is None:
         layers = lv_layers(geo, V, precond=precond, device=device)
-    funs, init, params, v_idx = {}, {}, {}, {}
-    for marker, ct in CELLTYPES.items():
-        funs[marker] = tp06.generalized_rush_larsen
-        init[marker] = tp06.init_state_values()
-        params[marker] = tp06.init_parameter_values(stim_amplitude=0.0, celltype=ct)
-        v_idx[marker] = tp06.state_index("V")
+    funs, init, params, v_idx = lv_ionic(model, init_states)
     I_s = define_stimulus(
         mesh=mesh,
         chi=1400.0 * ureg("cm**-1"),
@@ -131,7 +183,6 @@ def build_lv_solver(
         I_s=I_s, theta=theta, ode_markers=layers, device=device, probe_points=probe_points,
         **solver_kwargs,
     )
-    return solver
 
 
 @dataclass
@@ -153,6 +204,8 @@ class LVResult:
     host_syncs: int
     all_finite: bool
     device: str
+    model: str = "tp06"
+    prepace_s: float = 0.0  # single-cell pre-pacing of the layers, inside setup_s
 
     @property
     def ms_per_second(self) -> float:
@@ -173,7 +226,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_lv_solver(solver: FusedMonodomainSolver, psize: float, T: float = 30.0, dt: float = 0.05,
-                  setup_s: float = 0.0, t0: float = 0.0) -> LVResult:
+                  setup_s: float = 0.0, t0: float = 0.0, prepace_s: float = 0.0) -> LVResult:
     """Run ``T`` ms of the psize-``psize`` LV ``solver`` from its state at
     time ``t0`` in chunks of :data:`CHUNK_MS`, the
     probes read at each chunk's end; the timed window is the whole run and
@@ -208,6 +261,7 @@ def run_lv_solver(solver: FusedMonodomainSolver, psize: float, T: float = 30.0, 
         cg_iters_max=it_max, cg_iters_sum=it_sum, host_syncs=solver.host_syncs - syncs0,
         all_finite=bool(torch.isfinite(solver.states).all()),
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        model=solver._ionic.name, prepace_s=prepace_s,
     )
 
 
@@ -218,17 +272,25 @@ def run_lv(
     theta: float = 0.5,
     device=None,
     precond: str = "auto",
+    model: str = "tp06",
+    prepace: bool = True,
     **solver_kwargs,
 ) -> LVResult:
     """Build the LV solver with the probes of :func:`lv_probe_points` (its
-    host setup timed) and run it (:func:`run_lv_solver`)."""
+    host setup timed, the ToR-ORd layers' pre-pacing included unless
+    ``prepace`` is False) and run it (:func:`run_lv_solver`)."""
     tic = _time.perf_counter()
+    init, prepace_s = None, 0.0
+    if model == "torord_dyncl" and prepace:
+        init = lv_steady_states(dt=dt, device=device)
+        prepace_s = _time.perf_counter() - tic
     solver = build_lv_solver(
         psize=psize, theta=theta, device=device, precond=precond,
-        probe_points=np.array(list(lv_probe_points(psize).values())), **solver_kwargs,
+        probe_points=np.array(list(lv_probe_points(psize).values())), model=model, init_states=init,
+        **solver_kwargs,
     )
     _sync(solver.device)
-    return run_lv_solver(solver, psize, T=T, dt=dt, setup_s=_time.perf_counter() - tic)
+    return run_lv_solver(solver, psize, T=T, dt=dt, setup_s=_time.perf_counter() - tic, prepace_s=prepace_s)
 
 
 def main(argv=None) -> int:
@@ -237,8 +299,9 @@ def main(argv=None) -> int:
     ap.add_argument("-T", type=float, default=30.0)
     ap.add_argument("--dt", type=float, default=0.05)
     ap.add_argument("--precond", default="jacobi")
+    ap.add_argument("--model", choices=sorted(MODELS), default="tp06")
     args = ap.parse_args(argv)
-    res = run_lv(psize=args.psize, dt=args.dt, T=args.T, precond=args.precond)
+    res = run_lv(psize=args.psize, dt=args.dt, T=args.T, precond=args.precond, model=args.model)
     print(json.dumps({**asdict(res), "ms_per_second": res.ms_per_second}))
     return 0
 

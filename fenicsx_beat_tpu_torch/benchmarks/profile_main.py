@@ -97,22 +97,28 @@ def device_us_per_call(fn, calls: int = 50, attempts: int = 5) -> float:
     summed, over ``calls``.  Unlike a back-to-back wall time it leaves out
     the host's time between launches.  ``fn`` must launch the same device
     work at every call, so every event name must occur a whole number of
-    times per call.  A trace that breaks this has lost events (it has been
-    seen to hold only some of the calls): it is discarded and the calls are
-    profiled again, up to ``attempts`` times, then this raises."""
-    from torch.profiler import ProfilerActivity, profile
+    times per call.  A trace that breaks this has lost events (traces
+    have been seen to hold only some of the calls, the first ones
+    missing): the profiler records the calls in its second step, after a
+    warm-up step of the same calls that starts its device tracing; a trace
+    still short is discarded and the calls are profiled again, up to
+    ``attempts`` times, then this raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     counts: Counter = Counter()
+    trace = _trace_path("calls")
     for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        trace = _trace_path("calls")
-        prof.export_chrome_trace(str(trace))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(str(trace))) as prof:
+            for _ in range(2):  # the warm-up step, then the recorded one
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         iv = _device_intervals(trace)
         trace.unlink()
         counts = Counter(name for _, _, name in iv)

@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+
 namespace fbt {
 
 constexpr int kThreads = 256;          // threads per block of every kernel
@@ -19,6 +21,32 @@ constexpr int kFinalizeThreads = 1024;
 inline int num_blocks(long long n) {
     return static_cast<int>((n + kThreads - 1) / kThreads);
 }
+
+// Where an ionic model's node update reads its parameters, so that each
+// model's formulas exist once (tp06.cuh, torord.cuh) and serve every form
+// of its step.  Both sources take a parameter's index in the model's
+// parameter struct, a constant once the node function is inlined.
+//
+// One parameter set by value: B1's launch argument, in the constant bank.
+template <class Params>
+struct ParamSet {
+    const Params& p;
+    __device__ __forceinline__ float operator()(int k) const {
+        return reinterpret_cast<const float*>(&p)[k];
+    }
+};
+
+// Parameters in device memory, parameter k at base[k * ld], read through
+// the read-only path: a row of B7's [nm, NP] table (ld = 1; the nodes of a
+// warp almost always share a row, so their reads broadcast), or this
+// node's column of B1's node-aligned [NP, n] field (ld = n; neighbouring
+// threads on neighbouring addresses, so each parameter row is read
+// coalesced).
+struct StridedParams {
+    const float* __restrict__ base;  // this node's parameter 0
+    long long ld;                    // the distance between parameters
+    __device__ __forceinline__ float operator()(int k) const { return __ldg(base + k * ld); }
+};
 
 // Sum of one value per thread over the block, in a fixed order (warp
 // shuffles, then the warp sums in lane order).  Every thread of the block

@@ -1,0 +1,59 @@
+// B7 for the ToR-ORd dynCl model: the multi-marker ionic step -- one
+// generalized Rush-Larsen step per node with that node's own parameter set
+// (the LV demo's endo / mid / epi layers, demos/lv_endocardial.py:69-116),
+// the PDE voltage injected into row v of every node first.
+//
+// Replaces fenicsx_beat_tpu/ops/pallas_ode.py:build_pallas_multi_ode_step
+// over ToR-ORd layers, with the semantics of tp06_grl_multi.cu: v is
+// written into row v of every node; a node of model i steps with row i of
+// the [nm, 108] parameter table; a node in no mask (model index outside
+// [0, nm)) keeps its states, with v injected; states are updated in place.
+// The formulas are torord.cuh's, the one copy B1 runs.  The table is read
+// by reference through the read-only path: the nodes of a warp almost
+// always share a layer, so their reads of a row broadcast.
+//
+// What bounds it on the H100: device memory, as for B1.  A step reads 45
+// state rows, v and the int32 model index and writes 45 rows: 368 B a
+// node, 89.6 MB at the LV of psize 0.1 (n = 243,518), a floor of 26.8 us
+// at the H100 SXM data sheet's 3.35 TB/s.
+#include "torord.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(fbt::kThreads)
+    torord_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row v
+                                   const int* __restrict__ model, int n, float t, float dt,
+                                   const TorordParams* __restrict__ table, int nm) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float v = vin[i];
+    const int mi = model[i];
+    if (mi < 0 || mi >= nm) {
+        states[i] = v;  // row v (TR_v = 0); the other rows stay
+        return;
+    }
+    const float* row = reinterpret_cast<const float*>(table + mi);
+    fbt::torord_grl_node(states + i, n, v, t, dt, fbt::StridedParams{row, 1});
+}
+
+}  // namespace
+
+extern "C" {
+
+// One multi-marker GRL step over the (45, n) states, in place, with v
+// replacing row v first (v may alias that row).  `model` holds n int32
+// model indices; `table` points to nm parameter sets of 108 floats each,
+// on the device, in _PARAM_NAMES order.  Returns the cudaError_t of the
+// launch.
+int torord_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
+                            float dt, const float* table, int nm, void* stream) {
+    if (n < 1 || n > 0x7fffffffLL || nm < 1) return cudaErrorInvalidValue;
+    static_assert(TR_v == 0, "row v is row 0");
+    torord_grl_multi_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt,
+        reinterpret_cast<const TorordParams*>(table), nm);
+    return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -109,10 +109,13 @@ __device__ __forceinline__ float rl(float x, float x_inf, float tau, float dt) {
 
 // One GRL step of one node, in place: `row` points at the node's entry of
 // state row 0 and consecutive state rows lie `ld` floats apart; `V` is the
-// voltage to step from (the injected PDE voltage, not row V's content).
-// Every state is read before any is written.
+// voltage to step from (the injected PDE voltage, not row V's content);
+// `prm` is where the parameters come from (fbt::ParamSet or
+// fbt::StridedParams, common.cuh).  Every state is read before any is written.
+template <class Src>
 __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V, float t, float dt,
-                                              const Tp06Params& p) {
+                                              const Src& prm) {
+#define TP(name) prm(offsetof(Tp06Params, name) / sizeof(float))
     const float Xr1 = row[S_Xr1 * ld], Xr2 = row[S_Xr2 * ld], Xs = row[S_Xs * ld];
     const float m = row[S_m * ld], h = row[S_h * ld], j = row[S_j * ld];
     const float d = row[S_d * ld], f = row[S_f * ld], f2 = row[S_f2 * ld];
@@ -121,8 +124,8 @@ __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V,
     const float Ca_SR = row[S_Ca_SR * ld], Ca_ss = row[S_Ca_ss * ld];
     const float Na_i = row[S_Na_i * ld], K_i = row[S_K_i * ld];
 
-    const bool is_endo = p.celltype == 0.0f;
-    const bool is_mid = p.celltype == 2.0f;
+    const bool is_endo = TP(celltype) == 0.0f;
+    const bool is_mid = TP(celltype) == 2.0f;
 
     // ---- gate rates (V only) --------------------------------------------
     const float xr1_inf = 1.0f / (1.0f + expf((-26.0f - V) / 7.0f));
@@ -182,89 +185,89 @@ __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V,
     const float tau_fCass = 80.0f * y + 2.0f;
 
     // ---- V-only current factors -----------------------------------------
-    const float RTF = p.R * p.T / p.F;
+    const float RTF = TP(R) * TP(T) / TP(F);
     const float VFRT = V / RTF;
     const float x = 2.0f * (V - 15.0f) * (1.0f / RTF);
     const float ex = expf(x);
     const float ex1 = ex - 1.0f;
     const float xg = fabsf(x) < 1e-7f ? 1.0f - 0.5f * x : x / (fabsf(ex1) < 1e-30f ? 1.0f : ex1);
-    const float caL1 = p.g_CaL * 2.0f * p.F * 0.25f * ex * xg;
-    const float caL2 = p.g_CaL * 2.0f * p.F * p.Ca_o * xg;
-    const float naK = p.P_NaK * p.K_o / (p.K_o + p.K_mk) /
+    const float caL1 = TP(g_CaL) * 2.0f * TP(F) * 0.25f * ex * xg;
+    const float caL2 = TP(g_CaL) * 2.0f * TP(F) * TP(Ca_o) * xg;
+    const float naK = TP(P_NaK) * TP(K_o) / (TP(K_o) + TP(K_mk)) /
                       (1.0f + 0.1245f * expf(-0.1f * VFRT) + 0.0353f * expf(-VFRT));
-    const float denom = (p.Km_Nai * p.Km_Nai * p.Km_Nai + p.Na_o * p.Na_o * p.Na_o) *
-                        (p.Km_Ca + p.Ca_o);
-    const float e2 = expf((p.gamma - 1.0f) * VFRT);
-    const float sat = 1.0f + p.K_sat * e2;
-    const float naCa1 = p.K_NaCa * p.Ca_o * expf(p.gamma * VFRT) / (denom * sat);
-    const float naCa2 = p.K_NaCa * (p.Na_o * p.Na_o * p.Na_o) * p.alpha * e2 / (denom * sat);
+    const float denom = (TP(Km_Nai) * TP(Km_Nai) * TP(Km_Nai) + TP(Na_o) * TP(Na_o) * TP(Na_o)) *
+                        (TP(Km_Ca) + TP(Ca_o));
+    const float e2 = expf((TP(gamma) - 1.0f) * VFRT);
+    const float sat = 1.0f + TP(K_sat) * e2;
+    const float naCa1 = TP(K_NaCa) * TP(Ca_o) * expf(TP(gamma) * VFRT) / (denom * sat);
+    const float naCa2 = TP(K_NaCa) * (TP(Na_o) * TP(Na_o) * TP(Na_o)) * TP(alpha) * e2 / (denom * sat);
     const float pK = 1.0f / (1.0f + expf((25.0f - V) / 5.98f));
 
     // ---- currents ---------------------------------------------------------
-    const float g_Ks = is_mid ? 0.098f : p.g_Ks;
-    const float g_to = is_endo ? 0.073f : p.g_to;
+    const float g_Ks = is_mid ? 0.098f : TP(g_Ks);
+    const float g_to = is_endo ? 0.073f : TP(g_to);
 
-    const float E_Na = RTF * logf(p.Na_o / Na_i);
-    const float E_K = RTF * logf(p.K_o / K_i);
-    const float E_Ks = RTF * logf((p.K_o + p.P_kna * p.Na_o) / (K_i + p.P_kna * Na_i));
-    const float E_Ca = 0.5f * RTF * logf(p.Ca_o / Ca_i);
+    const float E_Na = RTF * logf(TP(Na_o) / Na_i);
+    const float E_K = RTF * logf(TP(K_o) / K_i);
+    const float E_Ks = RTF * logf((TP(K_o) + TP(P_kna) * TP(Na_o)) / (K_i + TP(P_kna) * Na_i));
+    const float E_Ca = 0.5f * RTF * logf(TP(Ca_o) / Ca_i);
 
     const float u = V - E_K;
     const float a_K1 = 0.1f / (1.0f + expf(0.06f * (u - 200.0f)));
     const float b_K1 = (3.0f * expf(0.0002f * (u + 100.0f)) + expf(0.1f * (u - 10.0f))) /
                        (1.0f + expf(-0.5f * u));
     const float xK1 = a_K1 / (a_K1 + b_K1);
-    const float sqrt_ko = sqrtf(p.K_o / 5.4f);
+    const float sqrt_ko = sqrtf(TP(K_o) / 5.4f);
 
-    const float i_K1 = p.g_K1 * xK1 * sqrt_ko * (V - E_K);
-    const float i_Kr = p.g_Kr * sqrt_ko * Xr1 * Xr2 * (V - E_K);
+    const float i_K1 = TP(g_K1) * xK1 * sqrt_ko * (V - E_K);
+    const float i_Kr = TP(g_Kr) * sqrt_ko * Xr1 * Xr2 * (V - E_K);
     const float i_Ks = g_Ks * sq(Xs) * (V - E_Ks);
-    const float i_Na = p.g_Na * (m * m * m) * h * j * (V - E_Na);
-    const float i_b_Na = p.g_bna * (V - E_Na);
+    const float i_Na = TP(g_Na) * (m * m * m) * h * j * (V - E_Na);
+    const float i_b_Na = TP(g_bna) * (V - E_Na);
     const float i_CaL = d * f * f2 * fCass * (Ca_ss * caL1 - caL2);
-    const float i_b_Ca = p.g_bca * (V - E_Ca);
+    const float i_b_Ca = TP(g_bca) * (V - E_Ca);
     const float i_to = g_to * r * s * (V - E_K);
-    const float i_NaK = naK * Na_i / (Na_i + p.K_mNa);
+    const float i_NaK = naK * Na_i / (Na_i + TP(K_mNa));
     const float i_NaCa = naCa1 * (Na_i * Na_i * Na_i) - naCa2 * Ca_i;
-    const float i_p_Ca = p.g_pCa * Ca_i / (Ca_i + p.K_pCa);
-    const float i_p_K = p.g_pK * (V - E_K) * pK;
+    const float i_p_Ca = TP(g_pCa) * Ca_i / (Ca_i + TP(K_pCa));
+    const float i_p_K = TP(g_pK) * (V - E_K) * pK;
 
-    const float i_up = p.Vmax_up / (1.0f + sq(p.K_up) / sq(Ca_i));
-    const float i_leak = p.V_leak * (Ca_SR - Ca_i);
-    const float i_xfer = p.V_xfer * (Ca_ss - Ca_i);
-    const float kcasr = p.max_sr - (p.max_sr - p.min_sr) / (1.0f + sq(p.EC / Ca_SR));
-    const float k1 = p.k1_prime / kcasr;
-    const float k2 = p.k2_prime * kcasr;
-    const float O = k1 * sq(Ca_ss) * R_prime / (p.k3 + k1 * sq(Ca_ss));
-    const float i_rel = p.V_rel * O * (Ca_SR - Ca_ss);
+    const float i_up = TP(Vmax_up) / (1.0f + sq(TP(K_up)) / sq(Ca_i));
+    const float i_leak = TP(V_leak) * (Ca_SR - Ca_i);
+    const float i_xfer = TP(V_xfer) * (Ca_ss - Ca_i);
+    const float kcasr = TP(max_sr) - (TP(max_sr) - TP(min_sr)) / (1.0f + sq(TP(EC) / Ca_SR));
+    const float k1 = TP(k1_prime) / kcasr;
+    const float k2 = TP(k2_prime) * kcasr;
+    const float O = k1 * sq(Ca_ss) * R_prime / (TP(k3) + k1 * sq(Ca_ss));
+    const float i_rel = TP(V_rel) * O * (Ca_SR - Ca_ss);
 
     // periodic pacing stimulus (amplitude 0 in tissue mode)
-    const float t_in_period = t - floorf(t / p.stim_period) * p.stim_period;
+    const float t_in_period = t - floorf(t / TP(stim_period)) * TP(stim_period);
     const float i_Stim =
-        (t_in_period >= p.stim_start && t_in_period <= p.stim_start + p.stim_duration)
-            ? p.stim_amplitude
+        (t_in_period >= TP(stim_start) && t_in_period <= TP(stim_start) + TP(stim_duration))
+            ? TP(stim_amplitude)
             : 0.0f;
 
     // ---- non-gate derivatives ---------------------------------------------
-    const float CmF = p.Cm / (p.V_c * p.F);
-    const float f_free_i = 1.0f / (1.0f + p.Buf_c * p.K_buf_c / sq(Ca_i + p.K_buf_c));
-    const float f_free_sr = 1.0f / (1.0f + p.Buf_sr * p.K_buf_sr / sq(Ca_SR + p.K_buf_sr));
-    const float f_free_ss = 1.0f / (1.0f + p.Buf_ss * p.K_buf_ss / sq(Ca_ss + p.K_buf_ss));
+    const float CmF = TP(Cm) / (TP(V_c) * TP(F));
+    const float f_free_i = 1.0f / (1.0f + TP(Buf_c) * TP(K_buf_c) / sq(Ca_i + TP(K_buf_c)));
+    const float f_free_sr = 1.0f / (1.0f + TP(Buf_sr) * TP(K_buf_sr) / sq(Ca_SR + TP(K_buf_sr)));
+    const float f_free_ss = 1.0f / (1.0f + TP(Buf_ss) * TP(K_buf_ss) / sq(Ca_ss + TP(K_buf_ss)));
 
     const float dCa_i = (-(i_b_Ca + i_p_Ca - 2.0f * i_NaCa) * CmF / 2.0f +
-                         (i_leak - i_up) * p.V_sr / p.V_c + i_xfer) *
+                         (i_leak - i_up) * TP(V_sr) / TP(V_c) + i_xfer) *
                         f_free_i;
     const float dCa_SR = (i_up - (i_rel + i_leak)) * f_free_sr;
-    const float dCa_ss = (-i_CaL * p.Cm / (2.0f * p.V_ss * p.F) + i_rel * p.V_sr / p.V_ss -
-                          i_xfer * p.V_c / p.V_ss) *
+    const float dCa_ss = (-i_CaL * TP(Cm) / (2.0f * TP(V_ss) * TP(F)) + i_rel * TP(V_sr) / TP(V_ss) -
+                          i_xfer * TP(V_c) / TP(V_ss)) *
                          f_free_ss;
     const float dNa_i = -(i_Na + i_b_Na + 3.0f * i_NaK + 3.0f * i_NaCa) * CmF;
     const float dV = -(i_K1 + i_to + i_Kr + i_Ks + i_CaL + i_NaK + i_Na + i_b_Na + i_NaCa +
                        i_b_Ca + i_p_K + i_p_Ca + i_Stim);
     const float dK_i = -(i_K1 + i_to + i_Kr + i_Ks + i_p_K + i_Stim - 2.0f * i_NaK) * CmF;
 
-    const float rp_rate = k2 * Ca_ss + p.k4;
-    const float rp_inf = p.k4 / rp_rate;
+    const float rp_rate = k2 * Ca_ss + TP(k4);
+    const float rp_inf = TP(k4) / rp_rate;
 
     // ---- generalized Rush-Larsen update, written back in place --------------
     row[S_V * ld] = V + dt * dV;
@@ -286,6 +289,7 @@ __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V,
     row[S_Ca_ss * ld] = Ca_ss + dt * dCa_ss;
     row[S_Na_i * ld] = Na_i + dt * dNa_i;
     row[S_K_i * ld] = K_i + dt * dK_i;
+#undef TP
 }
 
 }  // namespace fbt

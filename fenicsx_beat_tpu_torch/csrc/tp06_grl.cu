@@ -23,11 +23,12 @@
 
 namespace {
 
-__global__ void tp06_grl_step_v_kernel(float* states, const float* vin,  // vin may alias row V
-                                       int n, float t, float dt, Tp06Params p) {
+__global__ void __launch_bounds__(fbt::kThreads)
+    tp06_grl_step_v_kernel(float* states, const float* vin,  // vin may alias row V
+                           int n, float t, float dt, Tp06Params p) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fbt::tp06_grl_node(states + i, n, vin[i], t, dt, p);
+    fbt::tp06_grl_node(states + i, n, vin[i], t, dt, fbt::ParamSet<Tp06Params>{p});
 }
 
 }  // namespace

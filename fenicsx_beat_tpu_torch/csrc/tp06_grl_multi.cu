@@ -26,10 +26,10 @@
 
 namespace {
 
-__global__ void tp06_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row V
-                                             const int* __restrict__ model, int n, float t,
-                                             float dt, const Tp06Params* __restrict__ table,
-                                             int nm) {
+__global__ void __launch_bounds__(fbt::kThreads)
+    tp06_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row V
+                                 const int* __restrict__ model, int n, float t, float dt,
+                                 const Tp06Params* __restrict__ table, int nm) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float V = vin[i];
@@ -38,7 +38,8 @@ __global__ void tp06_grl_multi_step_v_kernel(float* states, const float* vin,  /
         states[i] = V;  // row V (S_V = 0); the other rows stay
         return;
     }
-    fbt::tp06_grl_node(states + i, n, V, t, dt, table[mi]);
+    const float* row = reinterpret_cast<const float*>(table + mi);
+    fbt::tp06_grl_node(states + i, n, V, t, dt, fbt::StridedParams{row, 1});
 }
 
 }  // namespace

@@ -21,20 +21,25 @@ Two operator paths, chosen by the assembly as in JAX
   Its exit test is ``sqrt(rr) > tol``, as JAX's ``cg``, so the iteration
   counts match the JAX solver's.
 
-The ionic step is B1 for one TP06 parameter set, or B7 for marker-
-partitioned layers: a dict ``ode_fun`` with ``ode_markers`` composes
-through :func:`~.odesolver.make_multi_ode`, whose masks become B7's
-per-node model index.  Stimuli are separable TimeWindow loads on cell or
-exterior-facet measures.  On the CPU every kernel runs as its plain
+The ionic model is TP06 or ToR-ORd dynCl generalized Rush-Larsen, V in
+row 0 of either, and the solver takes its kernels from the model's entry
+in :data:`~.ops.cuda_ode.IONIC_MODELS`: B1 for one parameter vector, B1's
+per-node form for a node-aligned ``[NP, n]`` parameter field (2-D
+``parameters``, as ``fenicsx_beat_tpu/fused.py:213-217`` routes it), or
+B7 for marker-partitioned layers of one model: a dict ``ode_fun`` with
+``ode_markers`` composes through :func:`~.odesolver.make_multi_ode`, whose
+masks become B7's per-node model index.  Stimuli are separable TimeWindow
+loads on cell or exterior-facet measures.  On the CPU every kernel runs as its plain
 PyTorch twin, which is how the port is held against the JAX solver;
 ``use_kernels=False`` selects the twins on any device (the kernel check's
 reference on the card); there is no silent switch between the two.
 
-Scope of this port: TP06 generalized Rush-Larsen (one parameter set or
-one per marker), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
-Everything else the JAX solver offers (merged Strang, per-node parameter
-fields, other models, non-TimeWindow stimuli) raises
-``NotImplementedError``.  The node axis is not padded.
+Scope of this port: TP06 and ToR-ORd dynCl generalized Rush-Larsen (one
+parameter vector, a per-node parameter field, or one vector per marker of
+one model), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
+Everything else the JAX solver offers (merged Strang, other models,
+markers that mix models, per-marker parameter fields, non-TimeWindow
+stimuli) raises ``NotImplementedError``.  The node axis is not padded.
 """
 
 from __future__ import annotations
@@ -53,7 +58,6 @@ from .conductivities import as_cell_tensors
 from .config import default_dtype, resolve_device
 from .convert import states_from_numpy
 from .mesh import Mesh
-from .models import tentusscher_panfilov_2006 as tp06
 from .odesolver import check_multi_models, make_multi_ode
 from .ops import cuda_cg, cuda_ell, cuda_ode, cuda_spmv
 from .ops.cg import CGInfo, cg_solve
@@ -83,12 +87,15 @@ class FusedMonodomainSolver:
     ----------
     mesh : Mesh
     M : conductivity spec (scalar / tensor / ConductivityTensor)
-    ode_fun : the ionic step, ``models.tentusscher_panfilov_2006.generalized_rush_larsen``,
-        or a dict marker -> that step (multi-marker layers, with ``ode_markers``)
-    init_states : (19,) or (19, n_nodes); a dict marker -> those with a dict ``ode_fun``
-    parameters : the 54-entry TP06 parameter vector; a dict marker -> vector
-        with a dict ``ode_fun``
-    v_index : voltage row in the state array (TP06: 0); a dict with a dict ``ode_fun``
+    ode_fun : the ionic step, ``generalized_rush_larsen`` of
+        ``models.tentusscher_panfilov_2006`` or ``models.torord_dyncl``, or a
+        dict marker -> one of those steps (multi-marker layers of one model,
+        with ``ode_markers``)
+    init_states : (S,) or (S, n_nodes); a dict marker -> those with a dict ``ode_fun``
+    parameters : the model's parameter vector (NP,), or a node-aligned
+        (NP, n_nodes) field; a dict marker -> vector with a dict ``ode_fun``
+    v_index : voltage row in the state array (both models: 0); a dict with a
+        dict ``ode_fun``
     I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell or
         exterior-facet measures)
     theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
@@ -151,7 +158,7 @@ class FusedMonodomainSolver:
                 markers, self.ode_fun, self.init_states, self.parameters, self.v_index
             )
             if not all(multi_fun.multi["trivial_swap"]):
-                raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX} for every marker")
+                raise ValueError(f"{self._ionic.name} keeps V in row {cuda_ode.V_INDEX} for every marker")
             self.ode_fun = multi_fun
             table = np.stack([np.asarray(q, dtype=np.float64) for q in multi_fun.multi["params"]])
             self._multi = (
@@ -211,6 +218,14 @@ class FusedMonodomainSolver:
         self.states = states_from_numpy(states, dev, dt_)
         self.activation_time = torch.full((n,), -1.0, dtype=dt_, device=dev)
         self._params = None if self.parameters is None else np.asarray(self.parameters, dtype=np.float64)
+        self._node_params = None  # B1's per-node form: the [NP, n] field on the device
+        if self._params is not None and self._params.ndim == 2:
+            if self._params.shape != (self._ionic.num_params, n):
+                raise ValueError(
+                    f"node-aligned parameters of shape {self._params.shape}: {self._ionic.name} "
+                    f"needs ({self._ionic.num_params}, {n})"
+                )
+            self._node_params = torch.as_tensor(self._params, device=dev).to(dt_).contiguous()
 
         if self.probe_points is not None:
             pdofs, pw = fem.point_evaluation_tables(self.V, np.asarray(self.probe_points))
@@ -219,13 +234,17 @@ class FusedMonodomainSolver:
         else:
             self._probe_dofs = self._probe_w = None
 
-        k = self.use_kernels
+        k, ionic = self.use_kernels, self._ionic
         if self._multi is not None:
-            step = cuda_ode.tp06_grl_multi_step_v if k else cuda_ode.tp06_grl_multi_step_v_twin
+            step = ionic.multi_step if k else ionic.multi_step_twin
             model, table = self._multi
             self._ode_step = lambda states, v, t, dt: step(states, v, model, t, dt, table)
+        elif self._node_params is not None:
+            step = ionic.node_step if k else ionic.step_twin
+            field = self._node_params
+            self._ode_step = lambda states, v, t, dt: step(states, v, t, dt, field)
         else:
-            step = cuda_ode.tp06_grl_step_v if k else cuda_ode.tp06_grl_step_v_twin
+            step = ionic.step if k else ionic.step_twin
             self._ode_step = lambda states, v, t, dt: step(states, v, t, dt, self._params)
         if self._structured:
             self._spmv = cuda_spmv.stencil_spmv_sym if k else cuda_spmv.stencil_spmv_sym_twin
@@ -242,7 +261,7 @@ class FusedMonodomainSolver:
         if self.merge_strang_halves:
             raise NotImplementedError("merged Strang splitting is not ported yet")
         if isinstance(self.ode_fun, dict):
-            check_multi_models(self.ode_fun)
+            self._ionic = check_multi_models(self.ode_fun)
             if self.ode_markers is None:
                 raise ValueError("dict-valued ode_fun requires ode_markers")
             for name in ("init_states", "parameters", "v_index"):
@@ -250,21 +269,18 @@ class FusedMonodomainSolver:
                     raise ValueError(f"a dict ode_fun takes {name} as a dict keyed by marker")
             if any(q is None or np.ndim(q) != 1 for q in self.parameters.values()):
                 raise NotImplementedError(
-                    "each marker's TP06 model needs its parameter vector; per-node parameter "
-                    "fields are not ported yet"
+                    f"each marker's {self._ionic.name} model needs its parameter vector (B7's "
+                    "table); per-marker parameter fields are not ported yet"
                 )
         else:
-            if self.ode_fun is not tp06.generalized_rush_larsen:
-                raise NotImplementedError(
-                    "the port's ionic step is TP06 generalized Rush-Larsen "
-                    "(models.tentusscher_panfilov_2006.generalized_rush_larsen); "
-                    "other models are not ported yet"
-                )
+            self._ionic = cuda_ode.ionic_model(self.ode_fun)
             if self.v_index != cuda_ode.V_INDEX:
-                raise ValueError(f"TP06 keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}")
-            if self.parameters is None or np.ndim(self.parameters) != 1:
+                raise ValueError(
+                    f"{self._ionic.name} keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}"
+                )
+            if self.parameters is None or np.ndim(self.parameters) not in (1, 2):
                 raise NotImplementedError(
-                    "TP06 needs its parameter vector; per-node parameter fields are not ported yet"
+                    f"{self._ionic.name} needs its parameter vector or a node-aligned parameter field"
                 )
         if not (np.isclose(self.theta, 1.0) or np.isclose(self.theta, 0.5)):
             raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")

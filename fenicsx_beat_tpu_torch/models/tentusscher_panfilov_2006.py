@@ -12,8 +12,11 @@ The formulas are the JAX package's, term for term (the same guarded
 L-type Ca driving force, the same ``celltype`` switches), written against
 a small torch namespace that also accepts Python scalars where the JAX
 code relied on ``jnp`` promoting them.  The generalized Rush-Larsen step
-is the plain twin of the CUDA ionic kernel (``csrc/tp06_grl.cu``).  The
-tabulated variant is not ported.
+is the plain twin of the CUDA ionic kernels (``csrc/tp06_grl.cu``,
+``csrc/tp06_grl_node.cu``, ``csrc/tp06_grl_multi.cu``).  ``parameters`` is
+the 54-entry vector (Python floats, as the JAX kernel bakes them) or a
+node-aligned ``[54, n]`` field (one row per parameter, the per-node
+parameter form, :mod:`._common`).  The tabulated variant is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import math
 
 import numpy as np
 import torch
+
+from ._common import sqrt as _sqrt
+from ._common import unpack_params
 
 __all__ = [
     "init_state_values",
@@ -164,15 +170,6 @@ def init_parameter_values(**overrides) -> np.ndarray:
     vals = dict(_PARAM_DEFAULTS)
     vals.update(overrides)
     return np.array([vals[n] for n in _PARAM_NAMES], dtype=np.float64)
-
-
-def _unpack_params(parameters):
-    """Parameter vector -> {name: Python float} (the parameters are fixed
-    per solver, as the JAX kernel bakes them)."""
-    vals = np.asarray(parameters, dtype=np.float64).reshape(-1)
-    if vals.shape[0] != len(_PARAM_NAMES):
-        raise ValueError(f"TP06 takes {len(_PARAM_NAMES)} parameters, got {vals.shape[0]}")
-    return {name: float(vals[i]) for i, name in enumerate(_PARAM_NAMES)}
 
 
 class _xp:
@@ -367,7 +364,7 @@ def _currents_and_derivs(states, t, p, fac, k1_of_u, xp=_xp):
     ) = (states[i] for i in range(19))
 
     log = xp.log
-    sqrt = math.sqrt
+    sqrt = _sqrt  # of parameters: a Python float, or a row of a node field
     where = xp.where
 
     RTF = p["R"] * p["T"] / p["F"]
@@ -488,7 +485,7 @@ def _currents_and_gates(states, t, p, xp=_xp):
 
 def rhs(states: torch.Tensor, t, parameters) -> torch.Tensor:
     """Full right-hand side: d(states)/dt, shape (19, n)."""
-    p = _unpack_params(parameters)
+    p = unpack_params(parameters, states, _PARAM_NAMES)
     gates, nongates, _ = _currents_and_gates(states, t, p)
     out = []
     for i, name in enumerate(_STATE_NAMES):
@@ -509,7 +506,7 @@ def generalized_rush_larsen(states: torch.Tensor, t, parameters, dt, **kwargs) -
     gotranx): exact exponential update for the 12 Hodgkin-Huxley gates and
     the linear R_prime ODE, explicit update for V and the concentrations.
     ``t`` and ``dt`` are Python floats."""
-    p = _unpack_params(parameters)
+    p = unpack_params(parameters, states, _PARAM_NAMES)
     gates, nongates, (rp_inf, rp_rate) = _currents_and_gates(states, t, p)
     out = []
     for i, name in enumerate(_STATE_NAMES):

@@ -5,11 +5,13 @@ Port of ``make_multi_ode`` from ``fenicsx_beat_tpu/odesolver.py`` (the
 marker value, each stepping the nodes that carry its marker.  The rest of
 that module (the OO ODE solvers) is not ported yet.
 
-Only TP06 generalized Rush-Larsen steps compose here: on the card the
-composed step is the multi-marker ionic kernel ``csrc/tp06_grl_multi.cu``
-(:func:`~.ops.cuda_ode.tp06_grl_multi_step_v`), written for TP06 alone.
-Other models raise ``NotImplementedError`` until they are ported (ROADMAP
-A4, A8).
+The composed step's markers all run one ported model, TP06 or ToR-ORd
+dynCl generalized Rush-Larsen (:data:`~.ops.cuda_ode.IONIC_MODELS`): on the
+card it is that model's multi-marker ionic kernel (B7,
+``csrc/tp06_grl_multi.cu`` or ``csrc/torord_grl_multi.cu``, through
+:func:`~.ops.cuda_ode.ionic_model`).  Other models, and markers that mix
+models, raise ``NotImplementedError`` until they are ported (ROADMAP A4,
+A8, B7).
 """
 
 from __future__ import annotations
@@ -20,23 +22,28 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .models import tentusscher_panfilov_2006 as tp06
+from .ops.cuda_ode import ionic_model
 
 __all__ = ["make_multi_ode", "check_multi_models"]
 
 logger = logging.getLogger(__name__)
 
 
-def check_multi_models(fun: dict) -> None:
-    """Raise ``NotImplementedError`` unless every model of ``fun`` is the
-    TP06 generalized Rush-Larsen step."""
-    other = [m for m, f in fun.items() if f is not tp06.generalized_rush_larsen]
-    if other:
+def check_multi_models(fun: dict):
+    """The one ported model (:class:`~.ops.cuda_ode.IonicModel`) whose
+    generalized Rush-Larsen step every marker of ``fun`` runs; raises
+    ``NotImplementedError`` for any other step, or for markers that mix
+    models (one B7 kernel runs one model's formulas)."""
+    models = {m: ionic_model(f) for m, f in fun.items()}
+    names = {spec.name for spec in models.values()}
+    if len(names) > 1:
         raise NotImplementedError(
-            f"multi-marker models for marker(s) {sorted(other)}: the port composes only "
-            "models.tentusscher_panfilov_2006.generalized_rush_larsen; other ionic models "
-            "are not ported yet (ROADMAP A4, A8)"
+            "multi-marker models mixing "
+            + ", ".join(f"marker {m}: {spec.name}" for m, spec in sorted(models.items()))
+            + ": B7 runs one ionic model over every marker; mixed models are not ported yet "
+            "(ROADMAP B7)"
         )
+    return next(iter(models.values()))
 
 
 def make_multi_ode(

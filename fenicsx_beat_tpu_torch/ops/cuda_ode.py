@@ -1,76 +1,250 @@
-"""B1 and B7: the ionic steps of the fused solver — TP06 generalized
-Rush-Larsen with the PDE voltage injected into row V.
+"""B1 and B7: the ionic steps of the fused solver -- generalized
+Rush-Larsen with the PDE voltage injected into row V -- for TP06 and
+ToR-ORd dynCl.
 
-B1, :func:`tp06_grl_step_v`, is the counterpart of
-``fenicsx_beat_tpu/ops/pallas_ode.py:build_pallas_ode_step`` (its
-``v_index`` form): one parameter set for every node.  B7,
-:func:`tp06_grl_multi_step_v`, is the counterpart of
-``build_pallas_multi_ode_step``: each node steps with the parameter set of
-its model index (the transmural endo/mid/epi layers), a node with no model
-keeps its states with V injected.
+Each model has three forms, counterparts of
+``fenicsx_beat_tpu/ops/pallas_ode.py``:
 
-Both update a ``(19, n)`` state tensor in place: on a CUDA tensor they
-launch the hand-written kernels ``csrc/tp06_grl.cu`` and
-``csrc/tp06_grl_multi.cu`` (one copy of the formulas, ``csrc/tp06.cuh``);
-on a CPU tensor they run their plain PyTorch twins.  The JAX kernels trace
-any jnp model; these are written for TP06 alone, so the solver accepts no
-other model on the card.
+- B1, ``<model>_grl_step_v``: ``build_pallas_ode_step`` in its
+  ``v_index`` form, one parameter vector for every node;
+- B1's per-node form, ``<model>_grl_node_step_v``: ``build_pallas_ode_step``
+  with ``node_params``, a node-aligned ``[NP, n]`` parameter field;
+- B7, ``<model>_grl_multi_step_v``: ``build_pallas_multi_ode_step``, each
+  node stepping with the parameter set of its model index (the transmural
+  endo/mid/epi layers); a node with no model keeps its states with V
+  injected.
+
+All update a ``(S, n)`` state tensor in place: on a CUDA tensor they
+launch the hand-written kernels ``csrc/<model>_grl{,_node,_multi}.cu``
+(one copy of each model's formulas, ``csrc/tp06.cuh`` and
+``csrc/torord.cuh``); on a CPU tensor they run their plain PyTorch twins.
+The JAX kernels trace any jnp model; these are written for the two models
+in :data:`IONIC_MODELS`, which :func:`ionic_model` looks up by the model's
+``generalized_rush_larsen`` step, so the solvers pick kernels by model.
+Any other model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from types import ModuleType
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .._build import check, load_library, require_cuda_f32, require_cuda_i32, stream_ptr
 from ..models import tentusscher_panfilov_2006 as tp06
+from ..models import torord_dyncl as torord
 
 __all__ = [
+    "IonicModel",
+    "IONIC_MODELS",
+    "ionic_model",
+    "V_INDEX",
+    "model_index_from_masks",
     "tp06_grl_step_v",
     "tp06_grl_step_v_twin",
+    "tp06_grl_node_step_v",
     "tp06_grl_multi_step_v",
     "tp06_grl_multi_step_v_twin",
-    "model_index_from_masks",
+    "torord_grl_step_v",
+    "torord_grl_step_v_twin",
+    "torord_grl_node_step_v",
+    "torord_grl_multi_step_v",
+    "torord_grl_multi_step_v_twin",
 ]
 
-V_INDEX = tp06.state_index("V")
+V_INDEX = 0  # row V of both models' states
+assert tp06.state_index("V") == torord.state_index("v") == V_INDEX
 
 
-def tp06_grl_step_v_twin(
-    states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters
-) -> torch.Tensor:
-    """Plain PyTorch twin: ``states[V] = v``, then one GRL step, in place."""
-    s = states.clone()
-    s[V_INDEX] = v
-    states.copy_(tp06.generalized_rush_larsen(s, float(t), parameters, float(dt)))
-    return states
+def _time(t):
+    return t if isinstance(t, torch.Tensor) else float(t)
 
 
-def tp06_grl_step_v(
-    states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters
-) -> torch.Tensor:
-    """One TP06 GRL step of ``states`` (19, n) in place, with ``v`` (n,)
-    replacing row V first (``v`` may be that row itself).  ``parameters``
-    is the 54-entry host parameter vector."""
-    if states.device.type == "cpu":
-        return tp06_grl_step_v_twin(states, v, t, dt, parameters)
-    require_cuda_f32(states=states, v=v)
-    S, n = states.shape
-    if S != len(tp06._STATE_NAMES) or v.shape != (n,):
-        raise ValueError(f"states {tuple(states.shape)} and v {tuple(v.shape)}: need (19, n) and (n,)")
-    params = np.ascontiguousarray(parameters, dtype=np.float32).reshape(-1)
-    if params.shape[0] != len(tp06._PARAM_NAMES):
-        raise ValueError(f"TP06 takes {len(tp06._PARAM_NAMES)} parameters, got {params.shape[0]}")
-    err = load_library().lib.tp06_grl_step_v(
-        states.data_ptr(), v.data_ptr(), n, float(t), float(dt),
-        params.ctypes.data, stream_ptr(states),
+def _b1_twin(model: ModuleType) -> Callable:
+    def twin(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters) -> torch.Tensor:
+        """Plain PyTorch twin of B1 and of its per-node form:
+        ``states[V] = v``, then one GRL step with the parameter vector or
+        the ``[NP, n]`` field ``parameters``, in place.  ``t`` is a float,
+        or a 0-d tensor on the states' device (a step captured in a CUDA
+        graph)."""
+        s = states.clone()
+        s[V_INDEX] = v
+        states.copy_(model.generalized_rush_larsen(s, _time(t), parameters, float(dt)))
+        return states
+
+    return twin
+
+
+def _b7_twin(model: ModuleType) -> Callable:
+    def twin(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
+             table) -> torch.Tensor:
+        """Plain PyTorch twin of B7: ``states[V] = v``; then the GRL step
+        with every row of ``table`` over all nodes, each kept where
+        ``index`` selects it (the masked composition of
+        ``make_multi_ode``), in place.  ``t`` as for B1's twin."""
+        table = np.asarray(table.detach().cpu().double() if isinstance(table, torch.Tensor) else table)
+        s = states.clone()
+        s[V_INDEX] = v
+        out = s
+        for i in range(table.shape[0]):
+            keep = index == i
+            out = torch.where(keep[None, :], model.generalized_rush_larsen(s, _time(t), table[i], float(dt)), out)
+        states.copy_(out)
+        return states
+
+    return twin
+
+
+def _shape_error(what: str, model: ModuleType, **shapes) -> ValueError:
+    got = ", ".join(f"{k} {tuple(s)}" for k, s in shapes.items())
+    return ValueError(f"{got}: {what} ({len(model._STATE_NAMES)} states, "
+                      f"{len(model._PARAM_NAMES)} parameters)")
+
+
+def _b1(name: str, model: ModuleType, twin: Callable) -> Callable:
+    S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
+
+    def step(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters) -> torch.Tensor:
+        if states.device.type == "cpu":
+            return twin(states, v, t, dt, parameters)
+        require_cuda_f32(states=states, v=v)
+        n = states.shape[1]
+        if states.shape[0] != S or v.shape != (n,):
+            raise _shape_error("need (S, n) and (n,)", model, states=states.shape, v=v.shape)
+        params = np.ascontiguousarray(parameters, dtype=np.float32).reshape(-1)
+        if params.shape[0] != NP:
+            raise _shape_error("need the parameter vector", model, parameters=params.shape)
+        err = getattr(load_library().lib, name)(
+            states.data_ptr(), v.data_ptr(), n, float(t), float(dt), params.ctypes.data, stream_ptr(states),
+        )
+        check(err, name)
+        step.launches += 1
+        return states
+
+    step.__doc__ = (f"B1: one {model.__name__.rsplit('.', 1)[-1]} GRL step of ``states`` ({S}, n) in "
+                    f"place, with ``v`` (n,) replacing row V first (``v`` may be that row itself); "
+                    f"``parameters`` is the {NP}-entry host parameter vector.")
+    return _named(step, name)
+
+
+def _b1_node(name: str, model: ModuleType, twin: Callable) -> Callable:
+    S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
+
+    def step(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, params: torch.Tensor) -> torch.Tensor:
+        if states.device.type == "cpu":
+            return twin(states, v, t, dt, params)
+        require_cuda_f32(states=states, v=v, params=params)
+        n = states.shape[1]
+        if states.shape[0] != S or v.shape != (n,) or params.shape != (NP, n):
+            raise _shape_error("need (S, n), (n,) and (NP, n)", model, states=states.shape, v=v.shape,
+                               params=params.shape)
+        err = getattr(load_library().lib, name)(
+            states.data_ptr(), v.data_ptr(), params.data_ptr(), n, float(t), float(dt), stream_ptr(states),
+        )
+        check(err, name)
+        step.launches += 1
+        return states
+
+    step.__doc__ = (f"B1's per-node form: one GRL step of ``states`` ({S}, n) in place, ``v`` (n,) "
+                    f"replacing row V first; node i reads parameter k from ``params[k, i]`` "
+                    f"(a node-aligned ({NP}, n) field, float32 on the states' device).")
+    return _named(step, name)
+
+
+def _b7(name: str, model: ModuleType, twin: Callable) -> Callable:
+    S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
+
+    def step(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
+             table: torch.Tensor) -> torch.Tensor:
+        if states.device.type == "cpu":
+            return twin(states, v, index, t, dt, table)
+        require_cuda_f32(states=states, v=v, table=table)
+        require_cuda_i32(index=index)
+        n = states.shape[1]
+        if states.shape[0] != S or v.shape != (n,) or index.shape != (n,):
+            raise _shape_error("need (S, n), (n,) and (n,)", model, states=states.shape, v=v.shape,
+                               index=index.shape)
+        if table.dim() != 2 or table.shape[1] != NP or table.shape[0] < 1:
+            raise _shape_error("need the (NM, NP) table", model, table=table.shape)
+        err = getattr(load_library().lib, name)(
+            states.data_ptr(), v.data_ptr(), index.data_ptr(), n, float(t), float(dt),
+            table.data_ptr(), table.shape[0], stream_ptr(states),
+        )
+        check(err, name)
+        step.launches += 1
+        return states
+
+    step.__doc__ = (f"B7: one multi-marker GRL step of ``states`` ({S}, n) in place: ``v`` (n,) "
+                    f"replaces row V of every node first (``v`` may be that row itself); node k "
+                    f"steps with parameter set ``table[index[k]]`` (``table`` is (NM, {NP})), or "
+                    f"keeps its states when ``index[k]`` is outside [0, NM).  On the card "
+                    f"``index`` is int32 and ``table`` float32, both on the states' device.")
+    return _named(step, name)
+
+
+def _named(step: Callable, name: str) -> Callable:
+    step.__name__ = step.__qualname__ = name
+    step.launches = 0  # kernel launches; the CPU twin does not count
+    return step
+
+
+tp06_grl_step_v_twin = _b1_twin(tp06)
+tp06_grl_multi_step_v_twin = _b7_twin(tp06)
+tp06_grl_step_v = _b1("tp06_grl_step_v", tp06, tp06_grl_step_v_twin)
+tp06_grl_node_step_v = _b1_node("tp06_grl_node_step_v", tp06, tp06_grl_step_v_twin)
+tp06_grl_multi_step_v = _b7("tp06_grl_multi_step_v", tp06, tp06_grl_multi_step_v_twin)
+
+torord_grl_step_v_twin = _b1_twin(torord)
+torord_grl_multi_step_v_twin = _b7_twin(torord)
+torord_grl_step_v = _b1("torord_grl_step_v", torord, torord_grl_step_v_twin)
+torord_grl_node_step_v = _b1_node("torord_grl_node_step_v", torord, torord_grl_step_v_twin)
+torord_grl_multi_step_v = _b7("torord_grl_multi_step_v", torord, torord_grl_multi_step_v_twin)
+
+
+@dataclass(frozen=True)
+class IonicModel:
+    """A ported ionic model and its kernels, each beside its twin (the
+    per-node form shares B1's twin, which takes a vector or a field)."""
+
+    name: str
+    module: ModuleType
+    step: Callable  # B1
+    node_step: Callable  # B1, per-node parameters
+    multi_step: Callable  # B7
+    step_twin: Callable
+    multi_step_twin: Callable
+
+    @property
+    def num_params(self) -> int:
+        return len(self.module._PARAM_NAMES)
+
+
+IONIC_MODELS = {
+    m.module.generalized_rush_larsen: m
+    for m in (
+        IonicModel("tp06", tp06, tp06_grl_step_v, tp06_grl_node_step_v, tp06_grl_multi_step_v,
+                   tp06_grl_step_v_twin, tp06_grl_multi_step_v_twin),
+        IonicModel("torord_dyncl", torord, torord_grl_step_v, torord_grl_node_step_v,
+                   torord_grl_multi_step_v, torord_grl_step_v_twin, torord_grl_multi_step_v_twin),
     )
-    check(err, "tp06_grl_step_v")
-    tp06_grl_step_v.launches += 1
-    return states
+}
 
 
-tp06_grl_step_v.launches = 0
+def ionic_model(fun: Callable) -> IonicModel:
+    """The ported model whose generalized Rush-Larsen step is ``fun``;
+    ``NotImplementedError`` for any other step."""
+    try:
+        return IONIC_MODELS[fun]
+    except (KeyError, TypeError):
+        raise NotImplementedError(
+            f"{getattr(fun, '__module__', '?')}.{getattr(fun, '__name__', fun)}: the port's ionic "
+            "kernels run the generalized Rush-Larsen step of "
+            + " or ".join(f"models.{m.module.__name__.rsplit('.', 1)[-1]}" for m in IONIC_MODELS.values())
+            + "; other models are not ported yet (ROADMAP A4, A8)"
+        ) from None
 
 
 def model_index_from_masks(masks: np.ndarray) -> np.ndarray:
@@ -82,53 +256,3 @@ def model_index_from_masks(masks: np.ndarray) -> np.ndarray:
     nm = masks.shape[0]
     last = nm - 1 - np.argmax(masks[::-1], axis=0)
     return np.where(masks.any(axis=0), last, -1).astype(np.int32)
-
-
-def tp06_grl_multi_step_v_twin(
-    states: torch.Tensor, v: torch.Tensor, model: torch.Tensor, t: float, dt: float, table
-) -> torch.Tensor:
-    """Plain PyTorch twin of B7: ``states[V] = v``; then every model's GRL
-    step over all nodes, each kept where ``model`` selects it (the masked
-    composition of ``make_multi_ode``), in place."""
-    table = np.asarray(table.detach().cpu().double() if isinstance(table, torch.Tensor) else table)
-    s = states.clone()
-    s[V_INDEX] = v
-    out = s
-    for i in range(table.shape[0]):
-        keep = model == i
-        out = torch.where(keep[None, :], tp06.generalized_rush_larsen(s, float(t), table[i], float(dt)), out)
-    states.copy_(out)
-    return states
-
-
-def tp06_grl_multi_step_v(
-    states: torch.Tensor, v: torch.Tensor, model: torch.Tensor, t: float, dt: float, table
-) -> torch.Tensor:
-    """One multi-marker TP06 GRL step of ``states`` (19, n) in place:
-    ``v`` (n,) replaces row V of every node first (``v`` may be that row
-    itself); node k steps with parameter set ``table[model[k]]`` (``table``
-    is ``[NM, 54]``), or keeps its states when ``model[k]`` is outside
-    ``[0, NM)``.  On the card ``model`` is int32 and ``table`` float32, both
-    on the states' device."""
-    if states.device.type == "cpu":
-        return tp06_grl_multi_step_v_twin(states, v, model, t, dt, table)
-    require_cuda_f32(states=states, v=v, table=table)
-    require_cuda_i32(model=model)
-    S, n = states.shape
-    if S != len(tp06._STATE_NAMES) or v.shape != (n,) or model.shape != (n,):
-        raise ValueError(
-            f"states {tuple(states.shape)}, v {tuple(v.shape)}, model {tuple(model.shape)}: "
-            "need (19, n), (n,) and (n,)"
-        )
-    if table.dim() != 2 or table.shape[1] != len(tp06._PARAM_NAMES) or table.shape[0] < 1:
-        raise ValueError(f"table {tuple(table.shape)}: need (NM, {len(tp06._PARAM_NAMES)})")
-    err = load_library().lib.tp06_grl_multi_step_v(
-        states.data_ptr(), v.data_ptr(), model.data_ptr(), n, float(t), float(dt),
-        table.data_ptr(), table.shape[0], stream_ptr(states),
-    )
-    check(err, "tp06_grl_multi_step_v")
-    tp06_grl_multi_step_v.launches += 1
-    return states
-
-
-tp06_grl_multi_step_v.launches = 0

@@ -5,10 +5,12 @@ steps of dt=0.05, in f64 on the CPU (the port on its kernels' twins).
 All states agree within atol 1e-8 (CG tolerance rtol 1e-8 on both sides;
 the port's symmetric SpMV sums in another order) and activation times are
 equal.  Also: a JAX checkpoint continued by the port, the port's
-checkpoint read by JAX, the device policy, the unported options, and the
-import boundary (the port never loads jax or the JAX package).
+checkpoint read by JAX, a run with node-aligned (2-D) parameters, the
+device policy, the unported options, and the import boundary (the port
+never loads jax or the JAX package).
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -25,6 +27,7 @@ from fenicsx_beat_tpu_torch.config import resolve_device
 from fenicsx_beat_tpu_torch.benchmarks import niederer as tnied
 from fenicsx_beat_tpu_torch.benchmarks.kernel_check import kernel_check
 from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as ttp
+from fenicsx_beat_tpu_torch.models import torord_dyncl as ttor
 
 DX, DT, N_STEPS = 1.0, 0.05, 40
 ROOT = Path(__file__).resolve().parent.parent
@@ -159,7 +162,8 @@ def test_default_device_is_the_card():
         {"ode_fun": ttp.forward_euler},
         {"theta": 0.7},
         {"ode_fun": {0: ttp.forward_euler}, "ode_markers": np.zeros(672, dtype=int)},
-        {"parameters": np.tile(ttp.init_parameter_values()[:, None], (1, 672))},
+        {"ode_fun": {0: ttp.generalized_rush_larsen, 1: ttor.generalized_rush_larsen},
+         "ode_markers": np.arange(672) % 2},
     ],
 )
 def test_unported_options_raise(kw):
@@ -172,6 +176,35 @@ def test_unported_options_raise(kw):
         tfused.FusedMonodomainSolver(**common)
 
 
+@pytest.mark.parametrize("route", ["plain", "pallas_interpret"])
+def test_node_aligned_parameters_match_jax(route):
+    """2-D ``parameters``, a [54, n] field of mixed celltypes, through B1's
+    per-node form (its twin here), against the JAX solver, which routes
+    the field to its plain step or to the Pallas kernel's node_params form
+    (interpret mode, padded node axis)."""
+    n = 672
+    cts = np.random.default_rng(0).integers(0, 3, n).astype(float)
+    field = np.stack([ttp.init_parameter_values(stim_amplitude=0.0, celltype=c) for c in cts], axis=1)
+    kw = {"use_pallas_ode": route == "pallas_interpret"}
+    if route == "pallas_interpret":
+        kw["pallas_spmv_min_nodes"] = 1
+    js = dataclasses.replace(jax_solver(0.5, **kw), parameters=field)
+    js.solve((0.0, N_STEPS * DT), dt=DT)
+    vec = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
+    ts = dataclasses.replace(vec, parameters=field)
+    assert ts._node_params is not None and ts._node_params.shape == (54, n)
+    ts.solve((0.0, N_STEPS * DT), dt=DT)
+    assert_same_run(ts, js)
+    vec.solve((0.0, N_STEPS * DT), dt=DT)
+    assert not torch.equal(vec.states, ts.states)  # the celltypes took effect
+
+
+def test_node_aligned_parameters_of_the_wrong_shape_raise():
+    ts = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
+    with pytest.raises(ValueError, match="node-aligned"):
+        dataclasses.replace(ts, parameters=np.zeros((54, 5)))
+
+
 def test_port_imports_neither_jax_nor_jax_package():
     code = (
         "import sys; import fenicsx_beat_tpu_torch, fenicsx_beat_tpu_torch.fused, "
@@ -181,7 +214,9 @@ def test_port_imports_neither_jax_nor_jax_package():
         "fenicsx_beat_tpu_torch.ops.cuda_ell, fenicsx_beat_tpu_torch.ops.cuda_ode, "
         "fenicsx_beat_tpu_torch.ops.sparse, fenicsx_beat_tpu_torch.ops.cg, "
         "fenicsx_beat_tpu_torch.ecg, fenicsx_beat_tpu_torch.ops.cuda_stencil, "
-        "fenicsx_beat_tpu_torch.benchmarks.ecg_scale; "
+        "fenicsx_beat_tpu_torch.benchmarks.ecg_scale, fenicsx_beat_tpu_torch.benchmarks.slab, "
+        "fenicsx_beat_tpu_torch.single_cell, fenicsx_beat_tpu_torch.models.torord_dyncl, "
+        "fenicsx_beat_tpu_torch.models._common; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
