@@ -35,6 +35,10 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      own layers), held per state row and celltype by the one-step limits
      (each slow row scaled) and over one paced beat of 4,096 cells; B1's
      per-node form on a uniform field gives B1's bits;
+   - FitzHugh-Nagumo's B1, per-node form and B7 at the main path's width
+     (n = 442,401; ``benchmarks/kernel_check.py:fhn_checks``): per state
+     row, one step with the stimulus on and off, and one paced beat of
+     every cell; B7 on make_multi_ode's storage layout (V in row 0);
 4. the kernel checks: the dx=0.5 slab and the psize 0.3 LV, 40 steps each
    through the kernels and through the twins, max |dv| < 1e-2 (the LV's
    window from a shared state at 5 ms, after the stimulated layer's
@@ -81,7 +85,32 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
 11. ECG Configuration 2: the JAX package's production run, dx=0.05, 10
    frames of a moving wavefront (B6), through ``run_ecg_scale``; every
    frame converged, every potential finite, ``lead_I_sample`` within 1e-2
-   of the JAX package's value.
+   of the JAX package's value;
+12. the bidomain Niederer slab at dx=0.1 (442,401 nodes; TP06's B1, B5 and
+   the DCT u-block preconditioner), 5 ms of warm-up and a 10 ms timed
+   window through ``benchmarks/bidomain_scale.py:run_slab``: monolithic
+   (with the matched monodomain run), Gauss-Seidel (elliptic solve to
+   3e-4), and monolithic on the twins; ms/s, CG iterations and host syncs
+   per step, setup seconds and peak memory; every state finite and every
+   CG converged; the kernel run held to the twin run at every node (v
+   within 2e-2 mV, u_e within 3e-4 of its largest magnitude: 3x the
+   float32 noise of the kernel run from states one ulp away), its v_max
+   within 0.5 mV and its share of nodes with v > 0 within 0.5 percentage
+   points; the card's float32 DCT solve within 1e-5 of a float64 host
+   solve with TF32 matmuls off and on; B5 timed on the bidomain's operator
+   streams;
+13. the dx=0.2 bidomain slab (15 ms) and the psize 0.3 LV (Jacobi, B8,
+   10 ms) on the kernels: v_max, max|u_e| and the v > 0 share each within
+   its float32 tolerance of the JAX package's float64 value (three times
+   the field's largest distance over the float32 witnesses of
+   ``tests/torch_bidomain_reference.py``), CG iterations per step within 1
+   of the witnesses' range; each also on its twins on the card, printed
+   beside;
+14. ``demos/bidomain_ue.py``'s configuration (nx=48, FHN, Strang, 40 ms):
+   every saved (t, v_max, max|u_e|) row within its field's float32
+   tolerance of the JAX package's; then the same run with FHN's parameters as a uniform
+   node-aligned field (B1's per-node form) and as one marker layer (B7),
+   each equal bit for bit to the vector run.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -199,6 +228,68 @@ TP06_OPS_PER_NODE = 400
 # helpers inlined (each operator and call once): about 1,570
 # add/mul/div/compare and 126 exp/log/sqrt/pow.
 TORORD_OPS_PER_NODE = 1_700
+# FitzHugh-Nagumo forward-Euler operations per node, counted from
+# csrc/fhn.cuh: 25 add/mul/div/neg and 3 compares.
+FHN_OPS_PER_NODE = 28
+# The bidomain Niederer slab (benchmarks/bidomain_scale.py): dx=0.1 at full
+# width, monolithic and Gauss-Seidel (its elliptic solve to 3e-4), 5 ms of
+# warm-up and a 10 ms timed window; the kernel run is held to the twin run.
+BIDOMAIN_DX = 0.1
+BIDOMAIN_GS_U_RTOL = 3e-4
+BIDOMAIN_V_MAX_TOL = 0.5  # mV, kernels vs twins at 15 ms
+BIDOMAIN_SHARE_TOL = 0.005  # the share of nodes with v > 0, kernels vs twins
+# ... and at every node: max|v_k - v_w| (mV) and max|u_e_k - u_e_w| /
+# max|u_e_w|, each 3x float32's noise there, which the phase measures and
+# prints: the kernel run against itself from states one ulp away read
+# 6.46e-3 mV and 8.74e-5 on an H100 (700 W), the wavefront amplifying
+# rounding (kernels vs twins: 6.91e-3 mV and 9.49e-5)
+BIDOMAIN_V_FIELD_TOL = 2e-2
+BIDOMAIN_UE_FIELD_TOL = 3e-4
+# CG iterations per 100-step chunk's worst step that the JAX package recorded
+# on its dx=0.1 slab (BIDOMAIN_SCALE.json, mean over chunks): iteration
+# counts of the same numerics, not times; a count over twice these is a
+# finding, not a failure.
+JAX_BIDOMAIN_ITERS = {"monolithic": 10.7, "gs": 14.0}
+DCT_REL_TOL = 1e-5  # the card's float32 DCT solve vs a float64 host solve
+# The JAX package's bidomain in float64 on the CPU, and the tolerances the
+# card is held to, from
+#   JAX_PLATFORMS=cpu python tests/torch_bidomain_reference.py --slab 0.2 --lv 0.3 --demo
+# Each field's tolerance ("tol") is three times its largest distance from
+# the float64 value over the port's float32 witnesses on the CPU (the run
+# from the initial states and three runs from states moved by one ulp at
+# random; the share of nodes with v > 0 to at least three nodes, 3/n): a
+# card that rounds within float32's noise passes, a kernel that strays
+# further does not.  CG iterations per step are held to the witnesses'
+# range ("cg_iters_f32") within 1 (float64 solves to rtol 1e-8, float32 to
+# 1e-6, so float64 takes more by construction); "cg_iters_f64" is the
+# port's float64 count, whose per-chunk worst steps equal JAX's.
+# The dx=0.2 slab (58,176 nodes) at 15 ms:
+JAX_BIDOMAIN_SLAB02 = {"v_max": 32.92460214259786, "u_e_max_abs": 16.90570116741482,
+                       "v_pos_share": 0.23729716721672167, "n_nodes": 58_176, "chunk_iters": [13, 16, 17],
+                       "cg_iters_f64": 13.7, "cg_iters_f32": (8.09, 8.09),
+                       "tol": {"v_max": 0.001932953672493909, "u_e_max_abs": 0.009826204270822814,
+                               "v_pos_share": 5.156765676567657e-05}}
+# The psize 0.3 LV (9,780 nodes), Jacobi, at 10 ms:
+JAX_BIDOMAIN_LV03 = {"v_max": 25.371059848996335, "u_e_max_abs": 10.698734203049115,
+                     "v_pos_share": 0.6597137014314929, "n_nodes": 9_780, "chunk_iters": [190, 188],
+                     "cg_iters_f64": 149.18, "cg_iters_f32": (48.33, 49.485),
+                     "tol": {"v_max": 0.0005906645427167234, "u_e_max_abs": 0.029071095381462797,
+                             "v_pos_share": 0.00030674846625766873}}
+# The demo (nx=48, 2,401 nodes): (t, v_max, max|u_e|) at every save, and
+# each field's largest relative distance over every row and witness.
+JAX_BIDOMAIN_DEMO_STRAY = {"v_max": 4.402667825734572e-05, "u_e_max_abs": 6.174984329169421e-05}
+JAX_BIDOMAIN_DEMO = [
+    (2.0, 128.0133864282921, 85.03049404928092), (4.0, 70.3813009747673, 59.59041916561341),
+    (6.0, 52.3416009073036, 51.0761755835024), (8.0, 42.96592150124936, 46.27339804774597),
+    (10.0, 37.14883982832212, 43.027126948467654), (12.0, 33.16008425808197, 40.6075101326946),
+    (14.0, 30.228140838900277, 38.6836276328974), (16.0, 27.954497585533407, 37.08044653881406),
+    (18.0, 26.112895952329353, 35.69584955850425), (20.0, 24.56600256979801, 34.46601765877898),
+    (22.0, 23.226190762032004, 33.34895457902014), (24.0, 22.035374054733374, 32.31590183902734),
+    (26.0, 20.953877429185056, 31.346514764540643), (28.0, 19.953948708958208, 30.426002654317713),
+    (30.0, 19.015812180316644, 29.543357980773177), (32.0, 18.12515569268194, 28.690201410770456),
+    (34.0, 17.27149230199026, 27.860031886175395), (36.0, 16.44708690934611, 27.047697950291116),
+    (38.0, 15.64618107737431, 26.249036416487815), (40.0, 14.864500259765705, 25.46061169317759),
+]
 
 SOURCES = {
     "tp06_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl.cu",
@@ -225,6 +316,9 @@ SOURCES = {
                      "fenicsx_beat_tpu/ops/pallas_spmv.py:38"),
     "stencil_spmv_window": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_window.cu",
                             "fenicsx_beat_tpu/ops/pallas_spmv.py:358"),
+    "fhn_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_step.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "fhn_node_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_node.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "fhn_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_multi.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
 }
 
 
@@ -436,7 +530,7 @@ def phase_kernels(seed: int = 0) -> dict:
         (step_abs, float(step_err.max())),
         time_ms(lambda: cuda_ode.tp06_grl_step_v(scratch, v, 1.0, 0.025, params)),
         time_ms(lambda: cuda_ode.tp06_grl_step_v_twin(scratch, v, 1.0, 0.025, params)),
-        bound((2 * 19 + 1) * n * f32, TP06_OPS_PER_NODE * n),
+        bound(2 * 19 * n * f32, TP06_OPS_PER_NODE * n),  # 18 rows and v read, 19 written
         None,
     )
 
@@ -472,7 +566,7 @@ def phase_kernels(seed: int = 0) -> dict:
         (node_abs, max(float(e.max()) for e in node_err.values())),
         time_ms(lambda: cuda_ode.tp06_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
         time_ms(lambda: cuda_ode.tp06_grl_step_v_twin(scratch, v, 1.0, 0.025, mixed)),
-        bound((2 * 19 + 1 + 54) * n * f32, TP06_OPS_PER_NODE * n),
+        bound((2 * 19 + 54) * n * f32, TP06_OPS_PER_NODE * n),
         None,
     )
 
@@ -639,7 +733,7 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
         (step_abs, max(float(e.max()) for e in step_err.values())),
         time_ms(lambda: b7(scratch, v, 1.0, 0.025, table)),
         time_ms(lambda: b7_twin(scratch, v, 1.0, 0.025, table)),
-        bound((2 * 19 + 2) * n * f32, TP06_OPS_PER_NODE * n),
+        bound((2 * 19 + 1) * n * f32, TP06_OPS_PER_NODE * n),  # and the model index
         None,
     )
 
@@ -906,7 +1000,7 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
 
     scratch = S0.clone()
     p0 = table[0]
-    b1_bytes = (2 * S_ + 1) * n * f32
+    b1_bytes = 2 * S_ * n * f32  # S - 1 rows and the injected v read, S rows written
     rows["torord_grl_step_v"] = row(
         (b1_abs, float(b1_err.max())),
         time_ms(lambda: cuda_ode.torord_grl_step_v(scratch, v, 1.0, 0.025, p0)),
@@ -1006,14 +1100,14 @@ def phase_node_paths(lv_solver, t0: float) -> dict:
     # TP06: the main path's configuration
     ref = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
     n = ref.V.ndofs
-    fld = field_solver(ref, tp06.generalized_rush_larsen, np.tile(ref._params[:, None], (1, n)),
+    fld = field_solver(ref, tp06.generalized_rush_larsen, np.tile(np.asarray(ref.parameters)[:, None], (1, n)),
                        ref.states.double().cpu().numpy())
     ref.solve((0.0, 2.0), dt=DT)
     zero_launches(wrappers)
     fld.solve((0.0, 2.0), dt=DT)
     launches["tp06_grl_node_step_v"] = wrappers["tp06_grl_node_step_v"].launches
     same = torch.equal(fld.states, ref.states) and torch.equal(fld.activation_time, ref.activation_time)
-    print(f"[node_paths] Niederer dx=0.1, TP06 parameters as a uniform ({fld._node_params.shape[0]}, {n}) field, "
+    print(f"[node_paths] Niederer dx=0.1, TP06 parameters as a uniform {np.shape(fld.parameters)} field, "
           f"2 ms: states and activation times equal to the vector run: {same}; "
           f"max|dV| {float((fld.v - ref.v).abs().max()):.3e}; tp06_grl_node_step_v launches "
           f"{launches['tp06_grl_node_step_v']}, tp06_grl_step_v {wrappers['tp06_grl_step_v'].launches}")
@@ -1043,6 +1137,301 @@ def phase_node_paths(lv_solver, t0: float) -> dict:
     return launches
 
 
+def phase_fhn_kernels() -> dict:
+    """FitzHugh-Nagumo's B1, its per-node form and B7 against their twins
+    at the main path's width (n = 442,401) through
+    ``benchmarks/kernel_check.py:fhn_checks``: one step per state row at two
+    times (the stimulus on and off) and both dt, and one paced beat of every
+    cell (the model's own 0-1 ms stimulus); B1's per-node form on a uniform
+    field gives B1's bits.  B1's forms inject V into row 1; B7 works on
+    make_multi_ode's storage layout (V in row 0)."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    n, f32 = N_MAIN, 4
+    tic = time.perf_counter()
+    out = kc.fhn_checks(n=n, device=DEVICE)
+    took = time.perf_counter() - tic
+    errs = {}
+    for name, res in out["forms"].items():
+        step_abs, worst = 0.0, 0.0
+
+        def per_row(e):
+            return " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(res["rows"], e))
+
+        for (t, dt, g), (a, e) in res["step"].items():
+            if g == "no layer":
+                require(a == 0.0, f"{name} leaves the nodes of no layer as they were, V injected")
+                continue
+            print(f"[kernels] {name} one step, t={t:g}, dt={dt:g}, {g}: per row |k-w| beyond 1 ulp / "
+                  f"max|increment|: {per_row(e)}")
+            require(bool((e <= kc.IONIC_STEP_TOL).all()), f"{name} one-step increments agree, {g}")
+            step_abs, worst = max(step_abs, a), max(worst, float(e.max()))
+        for g, (a, e) in res["beat"].items():
+            print(f"[kernels] {name} one beat, {g} ({n} cells in all, {kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms), "
+                  f"max|k-w| {a:.3e}; per row max|k-w| / max excursion: {per_row(e)}")
+            require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{name} agrees with its twin over one beat, {g}")
+        errs[name] = (step_abs, worst)
+    print(f"[kernels] FitzHugh-Nagumo checks: {took:.1f} s")
+    require(out["uniform_bits"], "fhn_node_step_v on a uniform field gives fhn_step_v's bits")
+
+    x = out["inputs"]
+    v, p0, field, b7, b7_twin = x["v"], x["table"][0], x["field"], x["b7"], x["b7_twin"]
+    scratch, scratch_storage = x["S0"].clone(), x["S0_storage"].clone()
+    b1_bytes = 2 * 2 * n * f32  # s and the injected v read, s and v written (row v is never read)
+    rows = {
+        "fhn_step_v": row(
+            errs["fhn_step_v"], time_ms(lambda: cuda_ode.fhn_step_v(scratch, v, 2.0, 0.025, p0)),
+            time_ms(lambda: cuda_ode.fhn_step_v_twin(scratch, v, 2.0, 0.025, p0)),
+            bound(b1_bytes, FHN_OPS_PER_NODE * n), None),
+        "fhn_node_step_v": row(
+            errs["fhn_node_step_v"], time_ms(lambda: cuda_ode.fhn_node_step_v(scratch, v, 2.0, 0.025, field)),
+            time_ms(lambda: cuda_ode.fhn_step_v_twin(scratch, v, 2.0, 0.025, field)),
+            bound(b1_bytes + 11 * n * f32, FHN_OPS_PER_NODE * n), None),
+        "fhn_multi_step_v": row(
+            errs["fhn_multi_step_v"], time_ms(lambda: b7(scratch_storage, v, 2.0, 0.025, None)),
+            time_ms(lambda: b7_twin(scratch_storage, v, 2.0, 0.025, None)),
+            bound(b1_bytes + n * 4, FHN_OPS_PER_NODE * n), None),
+    }
+    dev_us = {
+        "fhn_step_v": device_us_per_call(lambda: cuda_ode.fhn_step_v(scratch, v, 2.0, 0.025, p0)),
+        "fhn_node_step_v": device_us_per_call(lambda: cuda_ode.fhn_node_step_v(scratch, v, 2.0, 0.025, field)),
+        "fhn_multi_step_v": device_us_per_call(lambda: b7(scratch_storage, v, 2.0, 0.025, None)),
+    }
+    torch.cuda.synchronize()
+    print("[kernels] device time per call (torch.profiler, us): "
+          + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
+    print_rows(rows)
+    return rows
+
+
+def phase_bidomain_slab() -> None:
+    """The bidomain Niederer slab at dx=0.1 (442,401 nodes) through
+    ``benchmarks/bidomain_scale.py:run_slab``: monolithic on the kernels
+    (with the matched monodomain run), Gauss-Seidel on the kernels, and
+    monolithic on the twins over the same 15 ms; the kernel run held to the
+    twin run; the card's float32 DCT solve held to a float64 host solve with
+    TF32 matmuls off and on; B5 timed on the bidomain's operator streams;
+    20 steps of the monolithic run profiled."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call, profile_window
+    from fenicsx_beat_tpu_torch.ops import cuda_stencil
+    from fenicsx_beat_tpu_torch.ops.spectral import dct_solve
+
+    wrappers = kernel_wrappers()
+    runs, launches = {}, {}
+    solvers = {}
+    for tag, kw in (("monolithic", dict(scheme="monolithic")),
+                    ("gs", dict(scheme="gs", gs_u_rtol=BIDOMAIN_GS_U_RTOL, monodomain=False)),
+                    ("monolithic, twins", dict(scheme="monolithic", use_kernels=False, monodomain=False))):
+        zero_launches(wrappers)
+        r, solvers[tag] = bs.run_slab(BIDOMAIN_DX, dt=DT, device=DEVICE, return_solver=True, **kw)
+        launches[tag] = {name: w.launches for name, w in wrappers.items() if w.launches}
+        runs[tag] = r
+        mono = (f"; matched monodomain {r['mono_ms_per_s']:.3f} ms/s (CG worst step {r['mono_cg_iters_max']}), "
+                f"bidomain slowdown {r['bidomain_slowdown']:.2f}x") if "mono_ms_per_s" in r else ""
+        print(f"[bidomain] dx={BIDOMAIN_DX} {tag}: n={r['n_nodes']}, u_precond {r['u_precond']}, host setup "
+              f"{r['setup_s']:.1f} s; {r['timed_ms']:g} ms timed after 5 ms: ms_per_s={r['ms_per_s']:.3f} (wall "
+              f"{r['wall_s']:.3f} s); CG per step {r['cg_iters_per_step']:.3f}, per-chunk worst step "
+              f"{r['chunk_iters']} (mean {r['cg_iters_mean']:.2f}, max {r['cg_iters_max']}); host syncs per step "
+              f"{r['host_syncs_per_step']:.3f}; peak device memory {r['peak_device_gib']:.2f} GiB; at 15 ms "
+              f"v_max {r['v_max']:.4f}, max|u_e| {r['u_e_max_abs']:.4f}, v>0 share {r['v_pos_share']:.6f}, finite "
+              f"{r['finite']}, converged {r['converged']}{mono}; launches {json.dumps(launches[tag])}")
+        require(r["finite"] and r["converged"], f"bidomain slab {tag}: every state finite, every CG converged")
+        jax_iters = JAX_BIDOMAIN_ITERS[r["scheme"]]
+        if r["cg_iters_mean"] > 2 * jax_iters:
+            print(f"[bidomain] finding: {tag} CG worst-step mean {r['cg_iters_mean']:.2f} is over twice the JAX "
+                  f"package's {jax_iters}")
+    for name in ("tp06_grl_step_v", "stencil_spmv"):
+        require(launches["monolithic"].get(name, 0) > 0 and launches["gs"].get(name, 0) > 0,
+                f"{name} launched on the bidomain slab path")
+    require(not launches["monolithic, twins"], "the twin run launched no kernel")
+    k, w = runs["monolithic"], runs["monolithic, twins"]
+    bi, tw = solvers["monolithic"], solvers.pop("monolithic, twins")
+    dv, dshare = abs(k["v_max"] - w["v_max"]), abs(k["v_pos_share"] - w["v_pos_share"])
+
+    def field_gaps(a, b):
+        return float((a.v - b.v).abs().max()), float((a.u_e - b.u_e).abs().max() / b.u_e.abs().max())
+
+    dv_field, du_field = field_gaps(bi, tw)
+    # float32's own noise at every node: the kernel run again, from states
+    # moved by one ulp at random
+    nz = bs.slab_solver(BIDOMAIN_DX, device=DEVICE, scheme="monolithic")
+    bs.perturb_states(nz, 1)
+    bs.timed_solve(nz, 5.0, 10.0, DT)
+    nv, nu = field_gaps(nz, bi)
+    del nz
+    print(f"[bidomain] kernels vs twins at 15 ms, every node: max|v_k - v_w| {dv_field:.4e} mV (limit "
+          f"{BIDOMAIN_V_FIELD_TOL}), max|u_e_k - u_e_w| / max|u_e_w| {du_field:.4e} (limit {BIDOMAIN_UE_FIELD_TOL}); "
+          f"float32 noise (the kernel run from states one ulp away) {nv:.4e} mV and {nu:.4e}; "
+          f"|v_max| gap {dv:.4e} mV (limit {BIDOMAIN_V_MAX_TOL}), v>0 share gap {dshare:.3e} (limit "
+          f"{BIDOMAIN_SHARE_TOL}), max|u_e| {k['u_e_max_abs']:.4f} vs {w['u_e_max_abs']:.4f}; CG per step "
+          f"{k['cg_iters_per_step']:.3f} vs {w['cg_iters_per_step']:.3f}")
+    require(dv_field <= BIDOMAIN_V_FIELD_TOL and du_field <= BIDOMAIN_UE_FIELD_TOL,
+            "bidomain kernel run's v and u_e agree with the twin run's at every node")
+    require(dv <= BIDOMAIN_V_MAX_TOL and dshare <= BIDOMAIN_SHARE_TOL, "bidomain kernel run agrees with twin run")
+    del tw, solvers
+
+    # where a monolithic step's time goes: 20 steps from 15 ms, profiled
+    amps, saved = bi.stimulus_amplitudes(), (bi.states.clone(), bi.u_e.clone())
+
+    def reset():
+        bi.states.copy_(saved[0])
+        bi.u_e = saved[1].clone()
+
+    w = profile_window(lambda: bi.run_chunk(15.0, DT, 20, amps).iters_sum, reset, tag="bidomain")
+    print(f"[bidomain] 20 steps from 15 ms (monolithic, kernels): wall {w['wall_ms']:.3f} ms unprofiled, device "
+          f"busy {w['device_busy_ms']:.3f} ms = {w['busy_share_of_wall']:.4f} of it; CG iterations {w['cg_iters']} "
+          f"in each of the two runs")
+    for k in w["kernels"][:12]:
+        print(f"[bidomain]   {k['ms']:9.4f} ms {k['calls']:6d} calls {k['us_per_call']:8.3f} us/call  "
+              f"{k['name'][:90]}")
+
+    # the DCT solve on the card against a float64 host solve, with TF32
+    # matmuls off and on: the transform must not depend on the setting
+    r = torch.as_tensor(np.random.default_rng(6).standard_normal(bi._n), device=DEVICE).float()
+    ref = dct_solve(r.double().cpu(), bi._u_lam.cpu(), bi._dims)
+    before = torch.backends.cuda.matmul.allow_tf32
+    gaps = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            z = dct_solve(r, bi._u_lam, bi._dims)
+            gaps[tf32] = float((z.double().cpu() - ref).abs().max() / ref.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    dct_ms = time_ms(lambda: dct_solve(r, bi._u_lam, bi._dims))
+    print(f"[bidomain] DCT solve on {bi._dims}: max|card - float64 host| / max|host| {gaps[False]:.3e} (TF32 off), "
+          f"{gaps[True]:.3e} (TF32 on), limit {DCT_REL_TOL}; {dct_ms:.4f} ms back to back")
+    require(max(gaps.values()) <= DCT_REL_TOL, "the card's DCT solve is float32-grade whatever TF32 allows")
+
+    # B5 on the bidomain's streams: one SpMV of A = C_m M + dt/2 K_i, and a
+    # monolithic matvec's four (A, K_i twice, K_ie)
+    ops = bi._operators(float(np.float32(DT)))
+    A = ops.A
+    x = torch.as_tensor(np.random.default_rng(7).uniform(-90.0, 40.0, bi._n), device=DEVICE).float()
+    K = len(bi._offsets)
+
+    def four():
+        return ops.mvA(x), ops.mvKi(x), ops.mvKi(x), ops.mvKie(x)
+
+    b5 = {"one_ms": time_ms(lambda: ops.mvA(x)), "four_ms": time_ms(four),
+          "device_us": device_us_per_call(lambda: cuda_stencil.stencil_spmv(A, x, bi._offsets)),
+          "bound_ms": bound((K + 2) * bi._n * 4, 2 * K * bi._n)[0]}
+    print(f"[bidomain] stencil_spmv on the bidomain operator A (K={K}): {b5['one_ms']:.4f} ms back to back, "
+          f"{b5['device_us']:.2f} us device (torch.profiler), bound {b5['bound_ms']:.4f} ms; the four streams of "
+          f"one monolithic matvec {b5['four_ms']:.4f} ms")
+
+
+def phase_bidomain_references() -> None:
+    """The dx=0.2 bidomain slab (15 ms) and the psize 0.3 LV (Jacobi, 10 ms)
+    on the kernels, held to the JAX package's float64 values within the
+    tolerances of ``tests/torch_bidomain_reference.py``; each also on its
+    twins on the card, whose distance from JAX is printed beside: a kernel
+    that strays shows as a kernel run further from JAX than its twin run."""
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+
+    def slab(use_kernels):
+        r, solver = bs.run_slab(0.2, dt=DT, device=DEVICE, monodomain=False, return_solver=True,
+                                use_kernels=use_kernels)
+        r["cg_iters_all_steps"] = solver.cg_iterations / solver.steps  # 0-15 ms, as the reference counts
+        return r
+
+    def lv(use_kernels):
+        r = bs.run_lv(LV_CHECK_PSIZE, dt=DT, T_warm=0.0, T_timed=10.0, device=DEVICE, use_kernels=use_kernels)
+        r["cg_iters_all_steps"] = r["cg_iters_per_step"]  # no warm-up: the timed window is the run
+        return r
+
+    wrappers = kernel_wrappers()
+    launches = {}
+    for tag, run, ref in (("slab", slab, JAX_BIDOMAIN_SLAB02), ("LV", lv, JAX_BIDOMAIN_LV03)):
+        zero_launches(wrappers)
+        r = run(True)
+        launches[tag] = {name: w.launches for name, w in wrappers.items() if w.launches}
+        twin = run(False)
+        tol = ref["tol"]
+        gaps = {k: abs(r[k] - ref[k]) for k in tol}
+        lo, hi = ref["cg_iters_f32"]
+        print(f"[bidomain_ref] {r['case']}: n={r['n_nodes']}, u_precond {r['u_precond']}, setup {r['setup_s']:.1f} s, "
+              f"ms_per_s={r['ms_per_s']:.3f}, host syncs per step {r['host_syncs_per_step']:.3f}; CG per step "
+              f"{r['cg_iters_all_steps']:.3f} (twins on the card {twin['cg_iters_all_steps']:.3f}, float32 witnesses "
+              f"on the CPU {lo}-{hi}, float64 {ref['cg_iters_f64']}), per-chunk worst step {r['chunk_iters']} "
+              f"(twins {twin['chunk_iters']}, JAX float64 {ref['chunk_iters']}); "
+              + ", ".join(f"{k} {r[k]:.6g} (JAX {ref[k]:.6g}, gap {gaps[k]:.3e}; twins on the card "
+                          f"{twin[k]:.6g}, gap {abs(twin[k] - ref[k]):.3e}; limit {tol[k]:.3e})" for k in tol)
+              + f"; launches {json.dumps(launches[tag])}")
+        require(r["finite"] and r["converged"], f"bidomain {tag}: states finite, every CG converged")
+        require(all(gaps[k] <= tol[k] for k in tol), f"bidomain {tag} within its float32 tolerances of JAX")
+        require(lo - 1 <= r["cg_iters_all_steps"] <= hi + 1,
+                f"bidomain {tag}: CG iterations per step within 1 of the float32 witnesses'")
+    require(launches["slab"].get("stencil_spmv", 0) > 0 and launches["slab"].get("tp06_grl_step_v", 0) > 0,
+            "the bidomain slab runs stencil_spmv and tp06_grl_step_v")
+    require(launches["LV"].get("csr_spmv", 0) > 0 and launches["LV"].get("tp06_grl_step_v", 0) > 0,
+            "the bidomain LV runs csr_spmv and tp06_grl_step_v")
+
+
+def phase_bidomain_demo() -> dict:
+    """``demos/bidomain_ue.py``'s configuration (nx=48, 40 ms, FHN, Strang,
+    the DCT): the per-save rows held to the JAX package's float64 rows; then
+    the same run with FHN's parameters as a uniform node-aligned field (B1's
+    per-node form) and as one marker layer (B7), each equal bit for bit to
+    the vector run.  Returns the launches of each kernel in its run."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+    from fenicsx_beat_tpu_torch.models import fitzhughnagumo as fhn
+
+    wrappers = kernel_wrappers()
+    launches = {}
+    zero_launches(wrappers)
+    res = bs.run_demo(nx=48, T=40.0, dt=0.1, device=DEVICE)
+    launches["fhn_step_v"] = wrappers["fhn_step_v"].launches
+    print(f"[demo] bidomain demo nx=48: n={res['n_nodes']}, status {res['status']}, setup {res['setup_s']:.2f} s, "
+          f"ms_per_s={res['ms_per_s']:.3f}, CG per step {res['cg_iters_per_step']:.3f} (worst {res['cg_iters_max']}), "
+          f"host syncs per step {res['host_syncs_per_step']:.3f}; launches "
+          f"{json.dumps({k: w.launches for k, w in wrappers.items() if w.launches})}")
+    gaps = []
+    stray_v, stray_u = JAX_BIDOMAIN_DEMO_STRAY["v_max"], JAX_BIDOMAIN_DEMO_STRAY["u_e_max_abs"]
+    for (t, vm, um), (tj, vj, uj) in zip(res["rows"], JAX_BIDOMAIN_DEMO):
+        gaps.append(max(abs(vm - vj) / abs(vj) / stray_v, abs(um - uj) / abs(uj) / stray_u))
+        print(f"[demo] t={t:6.1f}  v_max={vm:9.4f} (JAX {vj:9.4f})  |u_e|_max={um:8.4f} (JAX {uj:8.4f})")
+    print(f"[demo] largest relative gap to JAX {max(gaps):.3f}x the float32 CPU witnesses' largest for its field "
+          f"(v_max {stray_v:.3e}, max|u_e| {stray_u:.3e}; limit 3x)")
+    require(res["status"] == "OK" and res["finite"] and len(gaps) == len(JAX_BIDOMAIN_DEMO),
+            "the demo converged, its fields finite, every save made")
+    require(max(gaps) <= 3.0, "the demo's rows within their float32 tolerances of JAX")
+
+    # the same run on B1's per-node form (a uniform field) and on B7 (one
+    # marker layer): the same formulas on the same values, so the same bits
+    ref = bs.demo_solver(48, device=DEVICE)
+    n = ref._n
+    p = fhn.init_parameter_values(stim_amplitude=0.0)
+    variants = {
+        "fhn_node_step_v": dict(parameters=np.tile(p[:, None], (1, n))),
+        "fhn_multi_step_v": dict(ode_fun={1: fhn.forward_euler}, init_states={1: fhn.init_state_values()},
+                                 parameters={1: p}, v_index={1: 1}, ode_markers=np.ones(n, dtype=np.int64)),
+    }
+    ref.solve((0.0, 40.0), dt=0.1, save_freq=20)
+    for name, kw in variants.items():
+        other = bs.demo_solver(48, device=DEVICE, **kw)
+        zero_launches(wrappers)
+        other.solve((0.0, 40.0), dt=0.1, save_freq=20)
+        launches[name] = wrappers[name].launches
+        same = torch.equal(other.v, ref.v) and torch.equal(other.u_e, ref.u_e)
+        print(f"[demo] {name} run: v and u_e at 40 ms equal to the vector run: {same}; launches {launches[name]}, "
+              f"fhn_step_v {wrappers['fhn_step_v'].launches}")
+        require(same and launches[name] > 0 and wrappers["fhn_step_v"].launches == 0,
+                f"the demo on {name} equals the vector run bit for bit")
+    return launches
+
+
 def zero_launches(wrappers: dict) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -1064,6 +1453,9 @@ def kernel_wrappers() -> dict:
         "csr_spmv": cuda_ell.csr_spmv,
         "stencil_spmv": cuda_stencil.stencil_spmv,
         "stencil_spmv_window": cuda_stencil.stencil_spmv_window,
+        "fhn_step_v": cuda_ode.fhn_step_v,
+        "fhn_node_step_v": cuda_ode.fhn_node_step_v,
+        "fhn_multi_step_v": cuda_ode.fhn_multi_step_v,
     }
 
 
@@ -1405,6 +1797,7 @@ def main() -> int:
     steady, prepace_s = phase_steady_states()
     torord_lv, torord_lv_setup = phase_torord_lv_setup(steady)
     rows.update(phase_torord_kernels(torord_lv))
+    rows.update(phase_fhn_kernels())
     phase_kernel_checks()
     phase_lv_parity()
     phase_torord_lv_parity()
@@ -1423,6 +1816,10 @@ def main() -> int:
     del ecg_main
     launches["stencil_spmv"] = phase_ecg_main()["stencil_spmv"]
     launches["stencil_spmv_window"] = phase_ecg_scale(ecg_scale)["stencil_spmv_window"]
+    del ecg_scale
+    phase_bidomain_slab()
+    phase_bidomain_references()
+    launches.update(phase_bidomain_demo())
 
     kernels = []
     for name, r in rows.items():

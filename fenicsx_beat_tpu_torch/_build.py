@@ -45,7 +45,7 @@ NVCC_FLAGS = [
 # multiply-adds, whose placement the compiler chooses per kernel.  B1's
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
-_NO_FMA_SOURCES = ("tp06_grl", "torord_grl")
+_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "fhn_")
 
 
 def _nvcc_flags(src: Path) -> list[str]:
@@ -54,7 +54,7 @@ def _nvcc_flags(src: Path) -> list[str]:
 
 
 _P = ctypes.c_void_p
-# the ionic steps' C signatures, one per form, shared by both models
+# the ionic steps' C signatures, one per form, shared by every model
 _GRL_STEP = (ctypes.c_int, [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, _P])
 _GRL_NODE_STEP = (ctypes.c_int, [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P])
 _GRL_MULTI_STEP = (
@@ -69,6 +69,9 @@ _SIGNATURES = {
     "torord_grl_step_v": _GRL_STEP,
     "torord_grl_node_step_v": _GRL_NODE_STEP,
     "torord_grl_multi_step_v": _GRL_MULTI_STEP,
+    "fhn_step_v": _GRL_STEP,
+    "fhn_node_step_v": _GRL_NODE_STEP,
+    "fhn_multi_step_v": _GRL_MULTI_STEP,
     "stencil_spmv_sym": (
         ctypes.c_int,
         [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],

@@ -12,14 +12,17 @@ on one layer labelling.
 The voltage alone does not see the ionic step's slow concentrations (K_i,
 Na_i, Ca_SR), whose effect on V over 40 steps is below that noise.
 :func:`ionic_step_errors` and :func:`ionic_beat_errors` hold every state
-row of an ionic step (TP06 or ToR-ORd, any form: B1, its per-node form,
-B7) against its twin: one step by increment, and one paced beat by
+row of an ionic step (TP06, ToR-ORd or FitzHugh-Nagumo, any form: B1, its
+per-node form, B7) against its twin: one step by increment, and one paced beat by
 excursion.  At physiological values one step moves TP06's K_i by less
 than a float32 ulp of 137 mM, so the one-step check also runs on
 :func:`step_check_states`, where the same formulas move each model's
 slow rows by thousands of ulps.  On the card the beat check replays its
 twin step as a CUDA graph: the twins are a thousand small kernels a step,
 bound by the host's launches.
+
+:func:`fhn_checks` runs FitzHugh-Nagumo's three forms so, by step and by
+beat.
 
 Usage, on a machine with a CUDA card::
 
@@ -34,7 +37,7 @@ from typing import Callable
 
 import torch
 
-from ..ops.cuda_ode import IONIC_MODELS, V_INDEX
+from ..ops.cuda_ode import IONIC_MODELS
 
 THRESHOLD = 1e-2
 # One ionic step, per state row: the kernel-vs-twin difference beyond one
@@ -50,10 +53,12 @@ IONIC_STEP_TOL = 2e-2
 # less.  The ratio of a float32 ulp of the value to the row's largest
 # one-step increment, dt = 0.025, V uniform on [-90, 40] mV: TP06 K_i 0.3,
 # Na_i 0.17, Ca_SR 0.05; ToR-ORd cansr 6.6e-3, CaMKt 5.2e-3, fs 4.7e-3,
-# every other ToR-ORd row 2e-3 or less (ki 8.4e-4, nai 7.9e-4).
+# every other ToR-ORd row 2e-3 or less (ki 8.4e-4, nai 7.9e-4).  FHN's two
+# rows move by far more than an ulp in one step (s by b (v - v_rest) dt).
 SLOW_ROWS = {
     "tp06": ("Ca_SR", "Na_i", "K_i"),
     "torord_dyncl": ("cansr", "CaMKt", "fs"),
+    "fhn": (),
 }
 SLOW_ROW_SCALE = 1e-2
 # One paced beat, per state row: max |kernel - twin| over the run, over
@@ -101,7 +106,8 @@ def step_check_states(states: torch.Tensor, model: str = "tp06") -> list[tuple[s
 
 
 def ionic_step_errors(
-    step: IonicStep, twin: IonicStep, states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters
+    step: IonicStep, twin: IonicStep, states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters,
+    v_index: int = 0,
 ) -> tuple[float, torch.Tensor]:
     """One ionic step from the same ``states`` and ``v`` through ``step``
     and ``twin``.  Returns the max absolute difference and, per state row,
@@ -111,18 +117,19 @@ def ionic_step_errors(
     to neighbouring numbers; anything beyond that one ulp is held against
     the step's own increment, so a row left unchanged or moved by a wrong
     rate shows at O(1) however small its value's change."""
-    return ionic_step_errors_by_group(step, twin, states, v, t, dt, parameters, {"all": None})["all"]
+    return ionic_step_errors_by_group(step, twin, states, v, t, dt, parameters, {"all": None}, v_index)["all"]
 
 
 def ionic_step_errors_by_group(
     step: IonicStep, twin: IonicStep, states: torch.Tensor, v: torch.Tensor, t: float, dt: float,
-    parameters, groups: dict,
+    parameters, groups: dict, v_index: int = 0,
 ) -> dict:
     """:func:`ionic_step_errors` from one step, with the max and the per-row
     error taken over each group of nodes (``name -> node index tensor``,
-    None for all nodes); returns ``name -> (max abs, per-row error)``."""
+    None for all nodes); returns ``name -> (max abs, per-row error)``.
+    ``v_index`` is the row the step injects ``v`` into."""
     s_in = states.clone()
-    s_in[V_INDEX] = v
+    s_in[v_index] = v
     k, w = states.clone(), states.clone()
     step(k, v, t, dt, parameters)
     twin(w, v, t, dt, parameters)
@@ -139,7 +146,7 @@ def ionic_step_errors_by_group(
 
 def ionic_beat_errors(
     step: IonicStep, twin: IonicStep, states: torch.Tensor, parameters,
-    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0,
+    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0, v_index: int = 0,
 ) -> tuple[float, torch.Tensor]:
     """Run ``step`` and ``twin`` side by side from ``states`` for
     ``n_steps``, each cell driven by its own voltage row (no PDE) and the
@@ -148,13 +155,13 @@ def ionic_beat_errors(
     ``|k - w|`` over the row's largest excursion ``max |w - s0|``.  On the
     card the twin's step is a CUDA graph (:func:`_twin_stepper`)."""
     return ionic_beat_errors_by_group(
-        step, twin, states, parameters, {"all": None}, dt=dt, n_steps=n_steps, t0=t0
+        step, twin, states, parameters, {"all": None}, dt=dt, n_steps=n_steps, t0=t0, v_index=v_index
     )["all"]
 
 
 def ionic_beat_errors_by_group(
     step: IonicStep, twin: IonicStep, states: torch.Tensor, parameters, groups: dict,
-    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0,
+    dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0, v_index: int = 0,
 ) -> dict:
     """:func:`ionic_beat_errors` from one run, the max and the per-row error
     taken over each group of nodes (``name -> node index tensor``, None for
@@ -163,10 +170,10 @@ def ionic_beat_errors_by_group(
     acc = {name: (torch.zeros(states.shape[0], dtype=states.dtype, device=states.device),
                   torch.zeros(states.shape[0], dtype=states.dtype, device=states.device))
            for name in groups}
-    twin_step = _twin_stepper(twin, w, dt, parameters)
+    twin_step = _twin_stepper(twin, w, dt, parameters, v_index)
     t = float(t0)
     for _ in range(n_steps):
-        step(k, k[V_INDEX], t, dt, parameters)
+        step(k, k[v_index], t, dt, parameters)
         twin_step(t)
         d, e = (k - w).abs(), (w - states).abs()
         for name, nodes in groups.items():
@@ -180,7 +187,8 @@ def ionic_beat_errors_by_group(
     }
 
 
-def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters) -> Callable[[float], None]:
+def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters,
+                  v_index: int = 0) -> Callable[[float], None]:
     """``step(t)``: one step of ``twin`` on ``w`` in place, V from its own
     row.  On the CPU a plain call.  On the card the step is captured once
     as a CUDA graph and replayed, ``t`` a float32 scalar on the device that
@@ -189,17 +197,17 @@ def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters) -> Ca
     the kernels evaluate it.  ``parameters`` must not need the host (a
     vector as numpy, a field or table on the card)."""
     if w.device.type != "cuda":
-        return lambda t: twin(w, w[V_INDEX], t, dt, parameters)
+        return lambda t: twin(w, w[v_index], t, dt, parameters)
     t_dev = torch.zeros((), dtype=w.dtype, device=w.device)
     start = w.clone()
     side = torch.cuda.Stream(w.device)
     side.wait_stream(torch.cuda.current_stream(w.device))
     with torch.cuda.stream(side):  # warm-up: first-call allocations outside the capture
-        twin(w, w[V_INDEX], t_dev, dt, parameters)
+        twin(w, w[v_index], t_dev, dt, parameters)
     torch.cuda.current_stream(w.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        twin(w, w[V_INDEX], t_dev, dt, parameters)
+        twin(w, w[v_index], t_dev, dt, parameters)
     w.copy_(start)  # the warm-up stepped w
 
     def step(t: float) -> None:
@@ -207,6 +215,77 @@ def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters) -> Ca
         graph.replay()
 
     return step
+
+
+def fhn_checks(n: int = 442_401, device="cuda", beat_steps: int = BEAT_STEPS) -> dict:
+    """FitzHugh-Nagumo's three kernel forms against their twins on ``n``
+    nodes: B1 (one parameter vector), B1's per-node form (a field mixing
+    three parameter sets) and B7 (the same three sets as layers, 2% of the
+    nodes in none, on ``make_multi_ode``'s storage layout, V in row 0).
+
+    Each form runs :func:`ionic_step_errors_by_group` from random states (s
+    in [0, 60], v in [-90, 40] mV) at t = 0.5 (the stimulus on) and 2.0
+    (off) and dt = 0.025 and 0.05, and :func:`ionic_beat_errors_by_group`
+    over one paced beat of every cell from rest (the model's own 0-1 ms
+    stimulus).  Returns ``{"forms": {name: {"rows": state names in the
+    form's row order, "step": {(t, dt, group): (max abs, per-row error)},
+    "beat": {group: (max abs, per-row error)}}}, "uniform_bits": B1's
+    per-node form on a uniform field gives B1's bits, "inputs": the
+    tensors, for timing}``."""
+    import numpy as np
+
+    from ..models import fitzhughnagumo as fhn
+    from ..ops import cuda_ode
+
+    rng = np.random.default_rng(5)
+    dev = torch.device(device)
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32).contiguous()
+
+    S0 = on(np.stack([rng.uniform(0.0, 60.0, n), rng.uniform(-90.0, 40.0, n)]))
+    S0_storage = S0.flip(0).contiguous()  # make_multi_ode's layout: v in row 0, s in row 1
+    v = on(rng.uniform(-90.0, 40.0, n))
+    table = np.stack([fhn.init_parameter_values(), fhn.init_parameter_values(b=0.02),
+                      fhn.init_parameter_values(a=0.1, c_3=1.5)])
+    table_k = on(table)
+    sets = rng.integers(0, len(table), n)
+    field = on(table[sets].T)
+    index = torch.as_tensor(np.where(rng.random(n) < 0.02, -1, sets).astype(np.int32), device=dev)
+    set_groups = {f"set {i}": torch.as_tensor(np.nonzero(sets == i)[0], device=dev) for i in range(len(table))}
+    layers = {f"set {i}": torch.nonzero(index == i).flatten() for i in range(len(table))}
+
+    def b7(S, v_, t, dt, p):
+        return cuda_ode.fhn_multi_step_v(S, v_, index, t, dt, table_k)
+
+    def b7_twin(S, v_, t, dt, p):
+        return cuda_ode.fhn_multi_step_v_twin(S, v_, index, t, dt, table)
+
+    names = fhn._STATE_NAMES
+    forms = {  # step, twin, parameters, groups, states, voltage row
+        "fhn_step_v": (cuda_ode.fhn_step_v, cuda_ode.fhn_step_v_twin, table[0], {"all": None}, S0, 1),
+        "fhn_node_step_v": (cuda_ode.fhn_node_step_v, cuda_ode.fhn_step_v_twin, field, set_groups, S0, 1),
+        "fhn_multi_step_v": (b7, b7_twin, None, {**layers, "no layer": torch.nonzero(index < 0).flatten()},
+                             S0_storage, 0),
+    }
+    out = {}
+    for name, (step, twin, p, groups, S, vi) in forms.items():
+        res = {"rows": names if vi == 1 else names[::-1], "step": {}}
+        for t in (0.5, 2.0):
+            for dt in (0.025, 0.05):
+                for g, e in ionic_step_errors_by_group(step, twin, S, v, t, dt, p, groups, vi).items():
+                    res["step"][(t, dt, g)] = e
+        rest = np.stack([np.zeros(n), -85.0 + 0.5 * rng.standard_normal(n)])
+        beat_groups = {g: x for g, x in groups.items() if g != "no layer"}
+        res["beat"] = ionic_beat_errors_by_group(step, twin, on(rest if vi == 1 else rest[::-1]), p, beat_groups,
+                                                 n_steps=beat_steps, v_index=vi)
+        out[name] = res
+    uniform = on(np.tile(table[1][:, None], (1, n)))
+    a, b = S0.clone(), S0.clone()
+    cuda_ode.fhn_step_v(a, v, 0.5, 0.05, table[1])
+    cuda_ode.fhn_node_step_v(b, v, 0.5, 0.05, uniform)
+    inputs = dict(S0=S0, S0_storage=S0_storage, v=v, table=table, field=field, b7=b7, b7_twin=b7_twin)
+    return {"forms": out, "uniform_bits": bool(torch.equal(a, b)), "inputs": inputs}
 
 
 def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="cuda") -> dict:
@@ -294,7 +373,13 @@ def main() -> int:
     out_lv = lv_kernel_check()
     print(json.dumps(out_lv))
     ok = out["max_abs_dev"] < out["threshold"] and out_lv["max_abs_dev"] < out_lv["threshold"]
-    return 0 if ok else 1
+    fhn = fhn_checks()
+    for name, res in fhn["forms"].items():
+        step = max(float(e.max()) for _, e in res["step"].values())
+        beat = max(float(e.max()) for _, e in res["beat"].values())
+        print(json.dumps({"kernel": name, "step_err": step, "beat_err": beat}))
+        ok = ok and step <= IONIC_STEP_TOL and beat <= IONIC_BEAT_TOL
+    return 0 if ok and fhn["uniform_bits"] else 1
 
 
 if __name__ == "__main__":

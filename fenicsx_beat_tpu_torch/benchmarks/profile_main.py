@@ -26,7 +26,8 @@ prints:
 The profiler's trace is written under ``build/profile/`` in the checkout
 and deleted after it is read unless ``--keep-trace`` is given.
 :func:`device_us_per_call` gives the device time of one call of any
-function that launches kernels, from the same kind of trace.
+function that launches kernels, and :func:`profile_window` where the time
+of any window of steps goes, from the same kind of trace.
 """
 
 from __future__ import annotations
@@ -138,30 +139,36 @@ def _reset(solver, init) -> None:
     torch.cuda.synchronize()
 
 
-def profile_window(solver, amps, init, keep_trace: bool) -> dict:
+def profile_window(run, reset, tag: str = "window", keep_trace: bool = False) -> dict:
+    """Where one window's time goes: ``run()``, which launches the window's
+    work and returns its CG iterations, from the state ``reset()``
+    restores, once unprofiled (timed on the host clock, a device
+    synchronize at each end) and once under ``torch.profiler``.  Both runs
+    must do the same work (equal CG iterations).  Returns the CG
+    iterations, both walls, the device's busy time (the union of the
+    profiled run's kernel, copy and memset intervals), its share of the
+    unprofiled wall and of the profiled run's own device span, and each
+    kernel's device time, largest first.  The state is left at the
+    window's end."""
     from torch.profiler import ProfilerActivity, profile
 
-    t_start = WINDOW_START_STEPS * DT
-    _reset(solver, init)
-    solver.run_chunk(0.0, DT, WINDOW_START_STEPS, amps, probed=True)
+    reset()
     torch.cuda.synchronize()
-    saved = (solver.states.clone(), solver.activation_time.clone())
-    solver.host_syncs = 0
     tic = time.perf_counter()
-    plain = solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True)
+    plain = run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - tic) * 1e3
-    syncs = solver.host_syncs
 
-    _reset(solver, saved)
-    trace = _trace_path("window")
+    reset()
+    torch.cuda.synchronize()
+    trace = _trace_path(tag)
     tic = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled = solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True)
+        profiled = run()
         torch.cuda.synchronize()
     wall_prof_ms = (time.perf_counter() - tic) * 1e3
-    if profiled.iters_sum != plain.iters_sum:
-        raise RuntimeError(f"the two runs of the window differ: {plain.iters_sum} vs {profiled.iters_sum} CG iterations")
+    if profiled != plain:
+        raise RuntimeError(f"the two runs of the window differ: {plain} vs {profiled} CG iterations")
     prof.export_chrome_trace(str(trace))
     iv = _device_intervals(trace)
     if not keep_trace:
@@ -177,10 +184,7 @@ def profile_window(solver, amps, init, keep_trace: bool) -> dict:
         ((sum(d) / 1e3, len(d), name) for name, d in by_name.items()), reverse=True
     )
     return {
-        "t_start_ms": t_start,
-        "steps": WINDOW_STEPS,
-        "cg_iters": plain.iters_sum,
-        "host_syncs": syncs,
+        "cg_iters": plain,
         "wall_ms": wall_ms,
         "wall_profiled_ms": wall_prof_ms,
         "device_busy_ms": busy_ms,
@@ -193,6 +197,21 @@ def profile_window(solver, amps, init, keep_trace: bool) -> dict:
         ],
         "trace": str(trace.relative_to(ROOT)) if keep_trace else None,
     }
+
+
+def main_path_window(solver, amps, init, keep_trace: bool) -> dict:
+    """:func:`profile_window` of the main path's window: ``WINDOW_STEPS``
+    steps from t = 20 ms, and the host syncs of one run of it."""
+    t_start = WINDOW_START_STEPS * DT
+    _reset(solver, init)
+    solver.run_chunk(0.0, DT, WINDOW_START_STEPS, amps, probed=True)
+    torch.cuda.synchronize()
+    saved = (solver.states.clone(), solver.activation_time.clone())
+    solver.host_syncs = 0
+    w = profile_window(lambda: solver.run_chunk(t_start, DT, WINDOW_STEPS, amps, probed=True).iters_sum,
+                       lambda: _reset(solver, saved), keep_trace=keep_trace)
+    # both runs do the same work, so each made half the syncs
+    return {"t_start_ms": t_start, "steps": WINDOW_STEPS, "host_syncs": solver.host_syncs // 2, **w}
 
 
 def time_horizons(solver, amps, init, repeats: int) -> list[dict]:
@@ -255,7 +274,7 @@ def main(argv=None) -> int:
     horizons = time_horizons(solver, amps, init, args.repeats)
     for i, h in enumerate(horizons):
         print(f"[horizon {i}] " + json.dumps(h))
-    w = profile_window(solver, amps, init, args.keep_trace)
+    w = main_path_window(solver, amps, init, args.keep_trace)
     print(f"[window] t={w['t_start_ms']} ms, {w['steps']} steps, {w['cg_iters']} CG iterations, "
           f"{w['host_syncs']} host syncs: wall {w['wall_ms']:.3f} ms unprofiled, "
           f"{w['wall_profiled_ms']:.3f} ms profiled; device busy {w['device_busy_ms']:.3f} ms = "

@@ -8,10 +8,10 @@
 // The formulas live in torord.cuh, shared with the node-parameter form and
 // the multi-marker kernel (B7).
 //
-// What bounds it on the H100: device memory by design.  A step reads 45
-// state rows and v and writes 45 rows back, 364 B a node in f32 (88.6 MB
-// at the LV's n = 243,518: 26.5 us at the H100 SXM data sheet's
-// 3.35 TB/s), against about 1,000 float operations a node (3.6 us at
+// What bounds it on the H100: device memory by design.  A step reads 44
+// state rows and v (row v is overwritten, never read) and writes 45 rows
+// back, 360 B a node in f32 (87.7 MB at the LV's n = 243,518: 26.2 us at
+// the H100 SXM data sheet's 3.35 TB/s), against about 1,000 float operations a node (3.6 us at
 // 67 TFLOP/s).  The design is TP06's (tp06_grl.cu): one thread per node,
 // the node's states in registers, each state row read once and written
 // once, coalesced, in place; the 108 parameters (432 B) arrive by value

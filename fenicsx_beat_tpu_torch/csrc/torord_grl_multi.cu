@@ -12,10 +12,11 @@
 // by reference through the read-only path: the nodes of a warp almost
 // always share a layer, so their reads of a row broadcast.
 //
-// What bounds it on the H100: device memory, as for B1.  A step reads 45
-// state rows, v and the int32 model index and writes 45 rows: 368 B a
-// node, 89.6 MB at the LV of psize 0.1 (n = 243,518), a floor of 26.8 us
-// at the H100 SXM data sheet's 3.35 TB/s.
+// What bounds it on the H100: device memory, as for B1.  A step reads 44
+// state rows (row v is overwritten, never read), v and the int32 model
+// index and writes 45 rows: 364 B a node, 88.6 MB at the LV of psize 0.1
+// (n = 243,518), a floor of 26.5 us at the H100 SXM data sheet's
+// 3.35 TB/s.
 #include "torord.cuh"
 
 namespace {

@@ -10,10 +10,10 @@
 // formulas are torord.cuh's, the one copy B1 and B7 run; only where the
 // parameters come from differs (fbt::StridedParams, common.cuh).
 //
-// What bounds it on the H100: device memory.  Beside B1's 2 x 45 state
-// rows and v, each node reads its 108 parameters once, coalesced
-// (neighbouring threads on neighbouring addresses of each parameter row):
-// 796 B a node against B1's 364.
+// What bounds it on the H100: device memory.  Beside B1's 44 state rows
+// and v read and 45 rows written, each node reads its 108 parameters once,
+// coalesced (neighbouring threads on neighbouring addresses of each
+// parameter row): 792 B a node against B1's 360.
 #include "torord.cuh"
 
 namespace {

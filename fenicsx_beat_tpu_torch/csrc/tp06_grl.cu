@@ -7,9 +7,9 @@
 // The formulas live in tp06.cuh, shared with the multi-marker kernel (B7).
 //
 // What bounds it on the H100: device memory by design.  At n = 442,401 in
-// f32 a step reads 19 state rows and v and writes 19 rows back: about 70 MB
-// (counted from the shapes), whose floor at the H100 SXM data sheet's
-// 3.35 TB/s is about 21 us.  The arithmetic is about 60 expf and 6 logf per
+// f32 a step reads 18 state rows and v (row V is overwritten, never read)
+// and writes 19 rows back: about 67 MB (counted from the shapes), whose
+// floor at the H100 SXM data sheet's 3.35 TB/s is about 20 us.  The arithmetic is about 60 expf and 6 logf per
 // node.  The design is one thread per node, all 19 states in registers,
 // each state row read and written once, coalesced (row-major (19, n)
 // layout: neighbouring threads on neighbouring nodes), in place, so no

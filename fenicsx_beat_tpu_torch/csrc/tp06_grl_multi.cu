@@ -19,9 +19,10 @@
 // same few rows, which L1 broadcasts.
 //
 // What bounds it on the H100: device memory, as for B1.  At the LV of
-// psize 0.1 (n = 243,518, f32) a step reads 19 state rows, v and the model
-// index and writes 19 rows: about 39 MB, a floor of about 12 us at the
-// H100 SXM data sheet's 3.35 TB/s.
+// psize 0.1 (n = 243,518, f32) a step reads 18 state rows (row V is
+// overwritten, never read), v and the model index and writes 19 rows:
+// about 38 MB, a floor of about 11 us at the H100 SXM data sheet's
+// 3.35 TB/s.
 #include "tp06.cuh"
 
 namespace {

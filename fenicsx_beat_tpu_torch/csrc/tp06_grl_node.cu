@@ -10,10 +10,10 @@
 // formulas are tp06.cuh's, the one copy B1 and B7 run; only where the
 // parameters come from differs (fbt::StridedParams, common.cuh).
 //
-// What bounds it on the H100: device memory.  Beside B1's 2 x 19 state rows
-// and v, each node reads its 54 parameters once, coalesced (neighbouring
-// threads on neighbouring addresses of each parameter row): 372 B a node
-// against B1's 156.
+// What bounds it on the H100: device memory.  Beside B1's 18 state rows and
+// v read and 19 rows written, each node reads its 54 parameters once,
+// coalesced (neighbouring threads on neighbouring addresses of each
+// parameter row): 368 B a node against B1's 152.
 #include "tp06.cuh"
 
 namespace {

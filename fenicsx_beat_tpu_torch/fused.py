@@ -21,9 +21,11 @@ Two operator paths, chosen by the assembly as in JAX
   Its exit test is ``sqrt(rr) > tol``, as JAX's ``cg``, so the iteration
   counts match the JAX solver's.
 
-The ionic model is TP06 or ToR-ORd dynCl generalized Rush-Larsen, V in
-row 0 of either, and the solver takes its kernels from the model's entry
-in :data:`~.ops.cuda_ode.IONIC_MODELS`: B1 for one parameter vector, B1's
+The ionic model is TP06 or ToR-ORd dynCl generalized Rush-Larsen (V in
+row 0) or FitzHugh-Nagumo forward Euler (V in row 1), and the solver takes
+its kernels from the model's entry in
+:data:`~.ops.cuda_ode.IONIC_MODELS` (:func:`~.splitting.ionic_layer`,
+shared with the bidomain solver): B1 for one parameter vector, B1's
 per-node form for a node-aligned ``[NP, n]`` parameter field (2-D
 ``parameters``, as ``fenicsx_beat_tpu/fused.py:213-217`` routes it), or
 B7 for marker-partitioned layers of one model: a dict ``ode_fun`` with
@@ -34,7 +36,7 @@ PyTorch twin, which is how the port is held against the JAX solver;
 ``use_kernels=False`` selects the twins on any device (the kernel check's
 reference on the card); there is no silent switch between the two.
 
-Scope of this port: TP06 and ToR-ORd dynCl generalized Rush-Larsen (one
+Scope of this port: TP06, ToR-ORd dynCl and FitzHugh-Nagumo (one
 parameter vector, a per-node parameter field, or one vector per marker of
 one model), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
 Everything else the JAX solver offers (merged Strang, other models,
@@ -53,17 +55,15 @@ import numpy as np
 import torch
 
 from . import fem
-from .base_model import Status, _transform_I_s
+from .base_model import Status
 from .conductivities import as_cell_tensors
 from .config import default_dtype, resolve_device
 from .convert import states_from_numpy
 from .mesh import Mesh
-from .odesolver import check_multi_models, make_multi_ode
-from .ops import cuda_cg, cuda_ell, cuda_ode, cuda_spmv
+from .ops import cuda_cg, cuda_ell, cuda_spmv
 from .ops.cg import CGInfo, cg_solve
 from .ops.sparse import StencilMatrix, pack_sym_values, stencil_is_symmetric
-from .stimulation import TimeWindow, separable_stimulus_terms
-from .stimulation import dx as dx_measure
+from .splitting import check_ionic_scope, ionic_layer, stimulus_loads
 
 __all__ = ["FusedMonodomainSolver", "ChunkResult"]
 
@@ -88,17 +88,19 @@ class FusedMonodomainSolver:
     mesh : Mesh
     M : conductivity spec (scalar / tensor / ConductivityTensor)
     ode_fun : the ionic step, ``generalized_rush_larsen`` of
-        ``models.tentusscher_panfilov_2006`` or ``models.torord_dyncl``, or a
-        dict marker -> one of those steps (multi-marker layers of one model,
-        with ``ode_markers``)
+        ``models.tentusscher_panfilov_2006``, ``models.torord_dyncl`` or
+        ``models.fitzhughnagumo`` (whose ``forward_euler`` is the same
+        step), or a dict marker -> one of those steps (multi-marker layers
+        of one model, with ``ode_markers``)
     init_states : (S,) or (S, n_nodes); a dict marker -> those with a dict ``ode_fun``
     parameters : the model's parameter vector (NP,), or a node-aligned
         (NP, n_nodes) field; a dict marker -> vector with a dict ``ode_fun``
-    v_index : voltage row in the state array (both models: 0); a dict with a
-        dict ``ode_fun``
+    v_index : the model's voltage row in the state array (TP06 and
+        ToR-ORd: 0, FHN: 1); a dict with a dict ``ode_fun``
     I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell or
         exterior-facet measures)
     theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
+    monitor : any object with ``record_ksp(CGInfo)``, called once per chunk
     device, dtype : where the state lives: the card unless the CPU is
         named; float32 on CUDA, float64 on CPU by default (:mod:`.config`)
     use_kernels : False runs the plain PyTorch twins of the kernels
@@ -116,6 +118,7 @@ class FusedMonodomainSolver:
     pde_theta: float = 0.5  # PDE time discretization (Crank-Nicolson)
     C_m: float = 1.0
     params: dict | None = None
+    monitor: Any = None
     activation_threshold: float = 0.0
     probe_points: Any = None  # [np, gdim] physical probe coordinates
     device: Any = None
@@ -146,26 +149,12 @@ class FusedMonodomainSolver:
         n = self.V.ndofs
         self._n = n
 
-        # multi-marker ionic models (fused.py:104-136): the dicts compose
-        # through make_multi_ode; its masks become B7's per-node model index
-        self._multi = None
-        if isinstance(self.ode_fun, dict):
-            markers = self.ode_markers.x.array if hasattr(self.ode_markers, "x") else self.ode_markers
-            markers = np.asarray(markers).astype(np.int64)
-            if markers.shape[0] != n:
-                raise ValueError(f"ode_markers has {markers.shape[0]} entries, expected {n}")
-            multi_fun, self.init_states, masks, self.v_index = make_multi_ode(
-                markers, self.ode_fun, self.init_states, self.parameters, self.v_index
-            )
-            if not all(multi_fun.multi["trivial_swap"]):
-                raise ValueError(f"{self._ionic.name} keeps V in row {cuda_ode.V_INDEX} for every marker")
-            self.ode_fun = multi_fun
-            table = np.stack([np.asarray(q, dtype=np.float64) for q in multi_fun.multi["params"]])
-            self._multi = (
-                torch.as_tensor(cuda_ode.model_index_from_masks(masks), device=dev),
-                torch.as_tensor(table, device=dev).to(dt_),
-            )
-            self.parameters = None  # per-marker vectors travel in the table
+        # the ionic layer: B1, its per-node form, or B7 for marker layers
+        # (fused.py:104-136), whose dicts compose through make_multi_ode
+        layer = ionic_layer(self._ionic, self.ode_fun, self.ode_markers, self.init_states, self.parameters,
+                            self.v_index, n, dev, dt_, self.use_kernels)
+        self._multi, self._ode_step = layer.multi, layer.step
+        self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators: assembled in float64 on the host (stencil first, ELL
         # otherwise, fem.assemble_mass_stiffness_auto)
@@ -193,39 +182,14 @@ class FusedMonodomainSolver:
         self._ops_cache: tuple | None = None
 
         # stimuli: separable TimeWindow loads, assembled once on the host
-        stim_quads = []
-        for s in _transform_I_s(self.I_s, dZ=dx_measure(self.mesh)):
-            ents = s.dz.entities()
-            if len(ents) == 0:
-                continue
-            if not isinstance(s.expr, TimeWindow):
-                raise NotImplementedError(
-                    "only TimeWindow stimuli are ported (general expressions are not)"
-                )
-            if s.dz.integral_type() == "cell":
-                quad = fem.cell_quadrature(self.V, ents, degree=p["quadrature_degree"])
-            else:
-                quad = fem.facet_quadrature(self.V, ents, degree=p["quadrature_degree"])
-            stim_quads.append((quad, s.expr.indicator, s))
-        self._stim_quads = stim_quads
-        self._stim_terms, b_units = separable_stimulus_terms(stim_quads)
-        self._b_units = (
-            torch.as_tensor(np.stack(b_units), device=dev).to(dt_) if b_units else None
+        self._stim_quads, self._stim_terms, self._b_units = stimulus_loads(
+            self.V, self.I_s, self.mesh, p["quadrature_degree"], dev, dt_
         )
 
         init = np.asarray(self.init_states, dtype=np.float64)
         states = np.tile(init[:, None], (1, n)) if init.ndim == 1 else init
         self.states = states_from_numpy(states, dev, dt_)
         self.activation_time = torch.full((n,), -1.0, dtype=dt_, device=dev)
-        self._params = None if self.parameters is None else np.asarray(self.parameters, dtype=np.float64)
-        self._node_params = None  # B1's per-node form: the [NP, n] field on the device
-        if self._params is not None and self._params.ndim == 2:
-            if self._params.shape != (self._ionic.num_params, n):
-                raise ValueError(
-                    f"node-aligned parameters of shape {self._params.shape}: {self._ionic.name} "
-                    f"needs ({self._ionic.num_params}, {n})"
-                )
-            self._node_params = torch.as_tensor(self._params, device=dev).to(dt_).contiguous()
 
         if self.probe_points is not None:
             pdofs, pw = fem.point_evaluation_tables(self.V, np.asarray(self.probe_points))
@@ -234,18 +198,7 @@ class FusedMonodomainSolver:
         else:
             self._probe_dofs = self._probe_w = None
 
-        k, ionic = self.use_kernels, self._ionic
-        if self._multi is not None:
-            step = ionic.multi_step if k else ionic.multi_step_twin
-            model, table = self._multi
-            self._ode_step = lambda states, v, t, dt: step(states, v, model, t, dt, table)
-        elif self._node_params is not None:
-            step = ionic.node_step if k else ionic.step_twin
-            field = self._node_params
-            self._ode_step = lambda states, v, t, dt: step(states, v, t, dt, field)
-        else:
-            step = ionic.step if k else ionic.step_twin
-            self._ode_step = lambda states, v, t, dt: step(states, v, t, dt, self._params)
+        k = self.use_kernels
         if self._structured:
             self._spmv = cuda_spmv.stencil_spmv_sym if k else cuda_spmv.stencil_spmv_sym_twin
             self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot if k else cuda_spmv.stencil_spmv_sym_dot_twin
@@ -254,34 +207,16 @@ class FusedMonodomainSolver:
         else:
             self._csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
         self.host_syncs = 0  # PCG exit tests read back to the host
+        self.cg_iterations = 0  # over every step
+        self.steps = 0
         self.last_solve_converged = True
         self.last_cg: CGInfo | None = None  # the last chunk's CG statistics
 
     def _check_scope(self):
         if self.merge_strang_halves:
             raise NotImplementedError("merged Strang splitting is not ported yet")
-        if isinstance(self.ode_fun, dict):
-            self._ionic = check_multi_models(self.ode_fun)
-            if self.ode_markers is None:
-                raise ValueError("dict-valued ode_fun requires ode_markers")
-            for name in ("init_states", "parameters", "v_index"):
-                if not isinstance(getattr(self, name), dict):
-                    raise ValueError(f"a dict ode_fun takes {name} as a dict keyed by marker")
-            if any(q is None or np.ndim(q) != 1 for q in self.parameters.values()):
-                raise NotImplementedError(
-                    f"each marker's {self._ionic.name} model needs its parameter vector (B7's "
-                    "table); per-marker parameter fields are not ported yet"
-                )
-        else:
-            self._ionic = cuda_ode.ionic_model(self.ode_fun)
-            if self.v_index != cuda_ode.V_INDEX:
-                raise ValueError(
-                    f"{self._ionic.name} keeps V in row {cuda_ode.V_INDEX}, got v_index={self.v_index}"
-                )
-            if self.parameters is None or np.ndim(self.parameters) not in (1, 2):
-                raise NotImplementedError(
-                    f"{self._ionic.name} needs its parameter vector or a node-aligned parameter field"
-                )
+        self._ionic = check_ionic_scope(self.ode_fun, self.ode_markers, self.init_states, self.parameters,
+                                        self.v_index)
         if not (np.isclose(self.theta, 1.0) or np.isclose(self.theta, 0.5)):
             raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")
 
@@ -398,6 +333,8 @@ class FusedMonodomainSolver:
         # one voltage-row write-back per chunk (Godunov: v_cur is the PDE result)
         states[vi].copy_(v_cur)
         self.activation_time = act
+        self.cg_iterations += it_sum
+        self.steps += n_steps
         probes = None
         if probed:
             probes = (act[self._probe_dofs] * self._probe_w).sum(dim=1)
@@ -445,8 +382,10 @@ class FusedMonodomainSolver:
                     "t=%g (last residual norm %.3e)", res.t, rnorm,
                 )
             self.last_cg = CGInfo(res.iters_max, rnorm, res.converged)
+            if self.monitor is not None:
+                self.monitor.record_ksp(self.last_cg)
             if save_callback is not None:
-                save_callback(res.t, self.v.cpu().numpy())
+                save_callback(res.t, np.array(self.v.cpu()))  # a copy, not a view of the stepped state
         self.last_solve_converged = all_converged
         return Status.OK if all_converged else Status.NOT_CONVERGING
 

@@ -7,7 +7,11 @@ iteration.  It is the plain reference the fused solver's kernel PCG
 (:mod:`.cuda_cg`) is tested against, and the solver of the unstructured
 paths (the fused solver's ELL branch, ``utils.laplace_solve``) with the
 CSR SpMV kernel as ``matvec``: same recurrences, same tolerance rule, so
-the iteration counts match JAX's.
+the iteration counts match JAX's.  As in JAX, a general preconditioner
+``precond`` (the bidomain's DCT solve or its deflated block
+preconditioner) takes precedence over the Jacobi ``precond_diag``, and the
+default inner product flattens its operands (``jnp.vdot``), so the
+bidomain's stacked ``[2, n]`` system runs through the same loop.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ class CGInfo(NamedTuple):
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a, b)
+    return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
 def cg_solve(
@@ -39,8 +43,11 @@ def cg_solve(
     atol: float = 1e-12,
     maxiter: int = 1000,
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
-    """Jacobi-PCG for SPD A, keeping the final residual on the device.
+    """Preconditioned CG for SPD A, keeping the final residual on the
+    device: ``precond(r)`` (an SPD ``z = P^{-1} r``) if given, else Jacobi
+    with ``precond_diag``, else none.
 
     Returns ``(x, iterations, rr, tol)`` with ``rr = <r, r>`` and ``tol``
     0-d tensors.  The loop reads ``sqrt(rr) > tol`` back to the host once
@@ -51,6 +58,8 @@ def cg_solve(
     minv = None if precond_diag is None else 1.0 / precond_diag
 
     def apply_prec(r):
+        if precond is not None:
+            return precond(r)
         return r if minv is None else r * minv
 
     r = b - matvec(x)
@@ -85,10 +94,12 @@ def cg(
     atol: float = 1e-12,
     maxiter: int = 1000,
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, CGInfo]:
-    """Solve A x = b for SPD A with Jacobi-preconditioned CG."""
+    """Solve A x = b for SPD A with preconditioned CG (:func:`cg_solve`)."""
     x, k, rr, tol = cg_solve(
-        matvec, b, x0, precond_diag=precond_diag, rtol=rtol, atol=atol, maxiter=maxiter, dot=dot
+        matvec, b, x0, precond_diag=precond_diag, rtol=rtol, atol=atol, maxiter=maxiter, dot=dot,
+        precond=precond,
     )
     rnorm = torch.sqrt(rr)
     return x, CGInfo(iterations=k, residual_norm=float(rnorm), converged=bool(rnorm <= tol))

@@ -173,9 +173,11 @@ class CSRMatrix:
 
 
 def csr_spmv_twin(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin: ``y = index_add(rows, vals * x[cols])``."""
+    """Plain PyTorch twin: ``y = index_add(rows, vals * x[cols])`` (the
+    gather as ``index_select``: the same values, and on the CPU it does not
+    take the multi-threaded advanced-indexing path, 100x slower there)."""
     y = torch.zeros(A.shape[0], dtype=x.dtype, device=x.device)
-    return y.index_add_(0, A.row_of_entries(), A.vals.to(x.dtype) * x[A.cols.long()])
+    return y.index_add_(0, A.row_of_entries(), A.vals.to(x.dtype) * torch.index_select(x, 0, A.cols.long()))
 
 
 def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -1,27 +1,34 @@
-"""B1 and B7: the ionic steps of the fused solver -- generalized
-Rush-Larsen with the PDE voltage injected into row V -- for TP06 and
-ToR-ORd dynCl.
+"""B1 and B7: the ionic steps of the splitting solvers -- one generalized
+Rush-Larsen step with the PDE voltage injected into row V -- for TP06,
+ToR-ORd dynCl and FitzHugh-Nagumo (whose GRL step is forward Euler).
 
 Each model has three forms, counterparts of
 ``fenicsx_beat_tpu/ops/pallas_ode.py``:
 
-- B1, ``<model>_grl_step_v``: ``build_pallas_ode_step`` in its
-  ``v_index`` form, one parameter vector for every node;
-- B1's per-node form, ``<model>_grl_node_step_v``: ``build_pallas_ode_step``
+- B1, ``<model>_step_v``: ``build_pallas_ode_step`` in its ``v_index``
+  form, one parameter vector for every node;
+- B1's per-node form, ``<model>_node_step_v``: ``build_pallas_ode_step``
   with ``node_params``, a node-aligned ``[NP, n]`` parameter field;
-- B7, ``<model>_grl_multi_step_v``: ``build_pallas_multi_ode_step``, each
+- B7, ``<model>_multi_step_v``: ``build_pallas_multi_ode_step``, each
   node stepping with the parameter set of its model index (the transmural
   endo/mid/epi layers); a node with no model keeps its states with V
   injected.
 
+B1's forms inject V into the model's own voltage row
+(:attr:`IonicModel.v_index`: 0 for TP06 and ToR-ORd, 1 for FHN).  B7 works
+on ``make_multi_ode``'s storage layout, where every model's voltage is row
+0 and its own row 0 sits in the voltage's row (the JAX kernel's ``swaps``),
+so B7 injects into row 0.
+
 All update a ``(S, n)`` state tensor in place: on a CUDA tensor they
-launch the hand-written kernels ``csrc/<model>_grl{,_node,_multi}.cu``
-(one copy of each model's formulas, ``csrc/tp06.cuh`` and
-``csrc/torord.cuh``); on a CPU tensor they run their plain PyTorch twins.
-The JAX kernels trace any jnp model; these are written for the two models
-in :data:`IONIC_MODELS`, which :func:`ionic_model` looks up by the model's
-``generalized_rush_larsen`` step, so the solvers pick kernels by model.
-Any other model raises ``NotImplementedError``.
+launch the hand-written kernels (``csrc/tp06_grl{,_node,_multi}.cu``,
+``csrc/torord_grl{,_node,_multi}.cu``, ``csrc/fhn_{step,node,multi}.cu``;
+one copy of each model's formulas in ``csrc/tp06.cuh``,
+``csrc/torord.cuh`` and ``csrc/fhn.cuh``); on a CPU tensor they run their
+plain PyTorch twins.  The JAX kernels trace any jnp model; these are
+written for the models in :data:`IONIC_MODELS`, which :func:`ionic_model`
+looks up by the model's ``generalized_rush_larsen`` step, so the solvers
+pick kernels by model.  Any other model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .._build import check, load_library, require_cuda_f32, require_cuda_i32, stream_ptr
+from ..models import fitzhughnagumo as fhn
 from ..models import tentusscher_panfilov_2006 as tp06
 from ..models import torord_dyncl as torord
 
@@ -41,7 +49,7 @@ __all__ = [
     "IonicModel",
     "IONIC_MODELS",
     "ionic_model",
-    "V_INDEX",
+    "voltage_row",
     "model_index_from_masks",
     "tp06_grl_step_v",
     "tp06_grl_step_v_twin",
@@ -53,10 +61,17 @@ __all__ = [
     "torord_grl_node_step_v",
     "torord_grl_multi_step_v",
     "torord_grl_multi_step_v_twin",
+    "fhn_step_v",
+    "fhn_step_v_twin",
+    "fhn_node_step_v",
+    "fhn_multi_step_v",
+    "fhn_multi_step_v_twin",
 ]
 
-V_INDEX = 0  # row V of both models' states
-assert tp06.state_index("V") == torord.state_index("v") == V_INDEX
+
+def voltage_row(model: ModuleType) -> int:
+    """The row of ``model``'s states that holds the membrane voltage."""
+    return model.state_index("V" if "V" in model._STATE_NAMES else "v")
 
 
 def _time(t):
@@ -64,34 +79,47 @@ def _time(t):
 
 
 def _b1_twin(model: ModuleType) -> Callable:
+    vi = voltage_row(model)
+
     def twin(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters) -> torch.Tensor:
         """Plain PyTorch twin of B1 and of its per-node form:
-        ``states[V] = v``, then one GRL step with the parameter vector or
-        the ``[NP, n]`` field ``parameters``, in place.  ``t`` is a float,
-        or a 0-d tensor on the states' device (a step captured in a CUDA
-        graph)."""
+        ``states[V] = v`` (the model's voltage row), then one GRL step with
+        the parameter vector or the ``[NP, n]`` field ``parameters``, in
+        place.  ``t`` is a float, or a 0-d tensor on the states' device (a
+        step captured in a CUDA graph)."""
         s = states.clone()
-        s[V_INDEX] = v
+        s[vi] = v
         states.copy_(model.generalized_rush_larsen(s, _time(t), parameters, float(dt)))
         return states
 
     return twin
 
 
+def _swap_rows(x: torch.Tensor, vi: int) -> torch.Tensor:
+    """``x`` with rows 0 and ``vi`` exchanged (storage <-> model layout, an
+    involution), by slices alone, so a CUDA graph can capture it."""
+    return x if vi == 0 else torch.cat([x[vi : vi + 1], x[1:vi], x[:1], x[vi + 1 :]])
+
+
 def _b7_twin(model: ModuleType) -> Callable:
+    vi = voltage_row(model)
+
     def twin(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
              table) -> torch.Tensor:
-        """Plain PyTorch twin of B7: ``states[V] = v``; then the GRL step
-        with every row of ``table`` over all nodes, each kept where
-        ``index`` selects it (the masked composition of
-        ``make_multi_ode``), in place.  ``t`` as for B1's twin."""
+        """Plain PyTorch twin of B7 on ``make_multi_ode``'s storage layout:
+        ``states[0] = v``; then the GRL step with every row of ``table``
+        over all nodes, in the model's own row order, each kept where
+        ``index`` selects it (the masked composition of ``make_multi_ode``),
+        in place.  ``t`` as for B1's twin."""
         table = np.asarray(table.detach().cpu().double() if isinstance(table, torch.Tensor) else table)
         s = states.clone()
-        s[V_INDEX] = v
+        s[0] = v
+        s_model = _swap_rows(s, vi)
         out = s
         for i in range(table.shape[0]):
             keep = index == i
-            out = torch.where(keep[None, :], model.generalized_rush_larsen(s, _time(t), table[i], float(dt)), out)
+            y = model.generalized_rush_larsen(s_model, _time(t), table[i], float(dt))
+            out = torch.where(keep[None, :], _swap_rows(y, vi), out)
         states.copy_(out)
         return states
 
@@ -125,7 +153,8 @@ def _b1(name: str, model: ModuleType, twin: Callable) -> Callable:
         return states
 
     step.__doc__ = (f"B1: one {model.__name__.rsplit('.', 1)[-1]} GRL step of ``states`` ({S}, n) in "
-                    f"place, with ``v`` (n,) replacing row V first (``v`` may be that row itself); "
+                    f"place, with ``v`` (n,) replacing row {voltage_row(model)} first (``v`` may be that "
+                    f"row itself); "
                     f"``parameters`` is the {NP}-entry host parameter vector.")
     return _named(step, name)
 
@@ -149,7 +178,7 @@ def _b1_node(name: str, model: ModuleType, twin: Callable) -> Callable:
         return states
 
     step.__doc__ = (f"B1's per-node form: one GRL step of ``states`` ({S}, n) in place, ``v`` (n,) "
-                    f"replacing row V first; node i reads parameter k from ``params[k, i]`` "
+                    f"replacing row {voltage_row(model)} first; node i reads parameter k from ``params[k, i]`` "
                     f"(a node-aligned ({NP}, n) field, float32 on the states' device).")
     return _named(step, name)
 
@@ -177,8 +206,9 @@ def _b7(name: str, model: ModuleType, twin: Callable) -> Callable:
         step.launches += 1
         return states
 
-    step.__doc__ = (f"B7: one multi-marker GRL step of ``states`` ({S}, n) in place: ``v`` (n,) "
-                    f"replaces row V of every node first (``v`` may be that row itself); node k "
+    step.__doc__ = (f"B7: one multi-marker GRL step of ``states`` ({S}, n), in make_multi_ode's storage "
+                    f"layout, in place: ``v`` (n,) replaces row 0 of every node first (``v`` may be that "
+                    f"row itself); node k "
                     f"steps with parameter set ``table[index[k]]`` (``table`` is (NM, {NP})), or "
                     f"keeps its states when ``index[k]`` is outside [0, NM).  On the card "
                     f"``index`` is int32 and ``table`` float32, both on the states' device.")
@@ -203,6 +233,12 @@ torord_grl_step_v = _b1("torord_grl_step_v", torord, torord_grl_step_v_twin)
 torord_grl_node_step_v = _b1_node("torord_grl_node_step_v", torord, torord_grl_step_v_twin)
 torord_grl_multi_step_v = _b7("torord_grl_multi_step_v", torord, torord_grl_multi_step_v_twin)
 
+fhn_step_v_twin = _b1_twin(fhn)
+fhn_multi_step_v_twin = _b7_twin(fhn)
+fhn_step_v = _b1("fhn_step_v", fhn, fhn_step_v_twin)
+fhn_node_step_v = _b1_node("fhn_node_step_v", fhn, fhn_step_v_twin)
+fhn_multi_step_v = _b7("fhn_multi_step_v", fhn, fhn_multi_step_v_twin)
+
 
 @dataclass(frozen=True)
 class IonicModel:
@@ -221,6 +257,11 @@ class IonicModel:
     def num_params(self) -> int:
         return len(self.module._PARAM_NAMES)
 
+    @property
+    def v_index(self) -> int:
+        """The model's voltage row, where B1's forms inject V."""
+        return voltage_row(self.module)
+
 
 IONIC_MODELS = {
     m.module.generalized_rush_larsen: m
@@ -229,6 +270,8 @@ IONIC_MODELS = {
                    tp06_grl_step_v_twin, tp06_grl_multi_step_v_twin),
         IonicModel("torord_dyncl", torord, torord_grl_step_v, torord_grl_node_step_v,
                    torord_grl_multi_step_v, torord_grl_step_v_twin, torord_grl_multi_step_v_twin),
+        IonicModel("fhn", fhn, fhn_step_v, fhn_node_step_v, fhn_multi_step_v, fhn_step_v_twin,
+                   fhn_multi_step_v_twin),
     )
 }
 
@@ -243,7 +286,7 @@ def ionic_model(fun: Callable) -> IonicModel:
             f"{getattr(fun, '__module__', '?')}.{getattr(fun, '__name__', fun)}: the port's ionic "
             "kernels run the generalized Rush-Larsen step of "
             + " or ".join(f"models.{m.module.__name__.rsplit('.', 1)[-1]}" for m in IONIC_MODELS.values())
-            + "; other models are not ported yet (ROADMAP A4, A8)"
+            + " (forward_euler is FitzHugh-Nagumo's); other models are not ported yet (ROADMAP A4, A8)"
         ) from None
 
 

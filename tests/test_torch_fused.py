@@ -192,7 +192,7 @@ def test_node_aligned_parameters_match_jax(route):
     js.solve((0.0, N_STEPS * DT), dt=DT)
     vec = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
     ts = dataclasses.replace(vec, parameters=field)
-    assert ts._node_params is not None and ts._node_params.shape == (54, n)
+    assert ts._multi is None and np.shape(ts.parameters) == (54, n)
     ts.solve((0.0, N_STEPS * DT), dt=DT)
     assert_same_run(ts, js)
     vec.solve((0.0, N_STEPS * DT), dt=DT)
@@ -216,7 +216,9 @@ def test_port_imports_neither_jax_nor_jax_package():
         "fenicsx_beat_tpu_torch.ecg, fenicsx_beat_tpu_torch.ops.cuda_stencil, "
         "fenicsx_beat_tpu_torch.benchmarks.ecg_scale, fenicsx_beat_tpu_torch.benchmarks.slab, "
         "fenicsx_beat_tpu_torch.single_cell, fenicsx_beat_tpu_torch.models.torord_dyncl, "
-        "fenicsx_beat_tpu_torch.models._common; "
+        "fenicsx_beat_tpu_torch.models._common, fenicsx_beat_tpu_torch.models.fitzhughnagumo, "
+        "fenicsx_beat_tpu_torch.bidomain, fenicsx_beat_tpu_torch.ops.spectral, "
+        "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
