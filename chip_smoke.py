@@ -105,12 +105,32 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    the field's largest distance over the float32 witnesses of
    ``tests/torch_bidomain_reference.py``), CG iterations per step within 1
    of the witnesses' range; each also on its twins on the card, printed
-   beside;
+   beside; the LV on its twins a second time, equal bit for bit (CG counts
+   and fields: B8's twin sums in a fixed order);
 14. ``demos/bidomain_ue.py``'s configuration (nx=48, FHN, Strang, 40 ms):
    every saved (t, v_max, max|u_e|) row within its field's float32
    tolerance of the JAX package's; then the same run with FHN's parameters as a uniform
    node-aligned field (B1's per-node form) and as one marker layer (B7),
-   each equal bit for bit to the vector run.
+   each equal bit for bit to the vector run;
+15. the runtime ``.ode`` path (``demos/custom_ode.py``): the port's copies
+   of the demo's inline FitzHugh-Nagumo and of a coverage source (every
+   construct of the gotran subset) loaded by ``odefile.load_ode``, each
+   model's library built by nvcc from ``csrc/ode_*.cu.in`` and its
+   generated body (seconds and registers printed), then loaded again
+   without a compile; the generated B1, per-node B1 and B7 of both sources
+   and both schemes (GRL1, forward Euler) against their twins at
+   n = 442,401 by FitzHugh-Nagumo's limits, timed; the generated forward
+   Euler against the hand-written FHN kernels (rows mapped); every form on
+   the dx=0.5 slab, the field and layer runs equal bit for bit to the
+   vector run; the custom-ODE path at full width (dx=0.1, the inline FHN's
+   GRL, Strang, a fixed 40 ms) on the kernels, on the twins and on both
+   from states one ulp away: v at every node within 3x that noise, the
+   generated B1 and B2-B4 launched; the demo's dx=0.5 configuration on
+   the kernels against the JAX package's float64 values, within 3x the
+   gaps of float32 witnesses on the CPU (``tests/torch_ode_reference.py``)
+   and on the card, and against its twins at every node; the bidomain
+   demo on the generated forward Euler against phase 14's hand-written
+   run, row by row.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -290,6 +310,52 @@ JAX_BIDOMAIN_DEMO = [
     (34.0, 17.27149230199026, 27.860031886175395), (36.0, 16.44708690934611, 27.047697950291116),
     (38.0, 15.64618107737431, 26.249036416487815), (40.0, 14.864500259765705, 25.46061169317759),
 ]
+
+# The runtime .ode path (demos/custom_ode.py): the port's own copies of the
+# gotran sources, loaded by fenicsx_beat_tpu_torch.odefile.load_ode; each
+# gets B1, B1's per-node form and B7 for its GRL1 and forward-Euler steps,
+# built by nvcc at the first launch.  The inline FitzHugh-Nagumo is the
+# demo's model; the coverage source uses every construct of the gotran
+# subset.  For each, the ranges the one-step checks draw every state from,
+# the parameter sets of the per-node and multi-marker checks, and the
+# states one beat starts from (inline FHN: depolarized past threshold, so
+# most cells fire; coverage: its own 1-3 ms stimulus).
+ODE_SOURCES = {
+    "fhn_inline": dict(ranges={"v": (-90.0, 40.0), "w": (0.0, 60.0)}, sets=[{}, {"b": 0.02}, {"c_3": 1.5}],
+                       rest={"v": (-85.0, -40.0)}),
+    "coverage": dict(ranges={"h": (0.05, 0.95), "V": (-90.0, 30.0), "c": (0.5, 4.0), "n": (0.0, 1.0)},
+                     sets=[{}, {"g": 1.0}, {"k_c": 0.03}], rest={"V": (-82.0, -78.0)}),
+}
+ODE_SCHEMES = {"grl": "generalized_rush_larsen", "fe": "forward_euler"}
+ODE_BEAT_STEPS = 1_000  # 50 ms at dt 0.05: each generated model's upstroke and more
+ODE_DX = 0.1  # the custom-ODE path at the main path's width (442,401 nodes)
+ODE_T = 40.0  # a fixed horizon: the inline FHN's probes never fire on the slab
+# The custom-ODE paths, kernel run vs twin run: max|v_k - v_w| at every node
+# within 3x float32's noise there, which the phases measure from runs of the
+# kernels and of the twins started from states one ulp away.
+ODE_NOISE_FACTOR = 3.0
+# demos/custom_ode.py's configuration (dx=0.5, the inline FHN's GRL, Strang,
+# dt=0.05, 40 ms): v_max and v at P1-P9 of the JAX package's generated
+# module in float64 on the CPU, and each value's largest distance from it
+# over four float32 CPU witnesses of the port (its twins, from the initial
+# states and from three one ulp away), from
+#   JAX_PLATFORMS=cpu python tests/torch_ode_reference.py
+# The card's kernel run is held to three times each value's largest
+# distance over these and the card's own float32 runs: the twins from the
+# initial states, and twins and kernels from states one ulp away
+# (ODE_DEMO_SEEDS); at least three float32 ulps of the value.
+JAX_CUSTOM_ODE_DX05 = {
+    "v_max": -12.68717626562431, "v_P1": -12.68717626562431, "v_P2": -84.99999954330853,
+    "v_P3": -84.99999997385451, "v_P4": -84.99999999998884, "v_P5": -81.45396470003766, "v_P6": -85.00001478237856,
+    "v_P7": -84.99999999861613, "v_P8": -84.99999999965019, "v_P9": -85.00029564453423,
+}
+JAX_CUSTOM_ODE_DX05_CPU_GAP = {
+    "v_max": 0.11180253991768296, "v_P1": 0.11180253991768296, "v_P2": 0.0006947315938106158,
+    "v_P3": 0.0001525617451392236, "v_P4": 0.000785827647874271, "v_P5": 0.013405312830627736,
+    "v_P6": 0.000526904633161962, "v_P7": 0.000770570231523493, "v_P8": 0.00020599330252935033,
+    "v_P9": 0.0006809179657665254,
+}
+ODE_DEMO_SEEDS = (1, 2, 3)
 
 SOURCES = {
     "tp06_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl.cu",
@@ -1334,7 +1400,11 @@ def phase_bidomain_references() -> None:
     on the kernels, held to the JAX package's float64 values within the
     tolerances of ``tests/torch_bidomain_reference.py``; each also on its
     twins on the card, whose distance from JAX is printed beside: a kernel
-    that strays shows as a kernel run further from JAX than its twin run."""
+    that strays shows as a kernel run further from JAX than its twin run.
+    The LV runs on its twins twice, and the two runs must be equal bit for
+    bit (B8's twin sums in a fixed order)."""
+    import torch
+
     from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
 
     def slab(use_kernels):
@@ -1343,9 +1413,14 @@ def phase_bidomain_references() -> None:
         r["cg_iters_all_steps"] = solver.cg_iterations / solver.steps  # 0-15 ms, as the reference counts
         return r
 
+    lv_twins = []
+
     def lv(use_kernels):
-        r = bs.run_lv(LV_CHECK_PSIZE, dt=DT, T_warm=0.0, T_timed=10.0, device=DEVICE, use_kernels=use_kernels)
+        r, solver = bs.run_lv(LV_CHECK_PSIZE, dt=DT, T_warm=0.0, T_timed=10.0, device=DEVICE,
+                              use_kernels=use_kernels)
         r["cg_iters_all_steps"] = r["cg_iters_per_step"]  # no warm-up: the timed window is the run
+        if not use_kernels:
+            lv_twins.append((r, solver.states.clone(), solver.u_e.clone()))
         return r
 
     wrappers = kernel_wrappers()
@@ -1370,6 +1445,16 @@ def phase_bidomain_references() -> None:
         require(all(gaps[k] <= tol[k] for k in tol), f"bidomain {tag} within its float32 tolerances of JAX")
         require(lo - 1 <= r["cg_iters_all_steps"] <= hi + 1,
                 f"bidomain {tag}: CG iterations per step within 1 of the float32 witnesses'")
+    # B8's twin sums each row in a fixed order (no float atomics): a second
+    # twin run of the LV repeats the first bit for bit
+    lv(False)
+    (r1, s1, u1), (r2, s2, u2) = lv_twins
+    same = (r1["chunk_iters"] == r2["chunk_iters"] and r1["cg_iters_per_step"] == r2["cg_iters_per_step"]
+            and torch.equal(s1, s2) and torch.equal(u1, u2))
+    print(f"[bidomain_ref] LV on its twins, two runs: CG per step {r1['cg_iters_per_step']:.4f} and "
+          f"{r2['cg_iters_per_step']:.4f}, per-chunk worst {r1['chunk_iters']} and {r2['chunk_iters']}; states and "
+          f"u_e equal bit for bit: {same}")
+    require(same, "two twin runs of the bidomain LV repeat their CG counts and fields bit for bit")
     require(launches["slab"].get("stencil_spmv", 0) > 0 and launches["slab"].get("tp06_grl_step_v", 0) > 0,
             "the bidomain slab runs stencil_spmv and tp06_grl_step_v")
     require(launches["LV"].get("csr_spmv", 0) > 0 and launches["LV"].get("tp06_grl_step_v", 0) > 0,
@@ -1381,7 +1466,8 @@ def phase_bidomain_demo() -> dict:
     the DCT): the per-save rows held to the JAX package's float64 rows; then
     the same run with FHN's parameters as a uniform node-aligned field (B1's
     per-node form) and as one marker layer (B7), each equal bit for bit to
-    the vector run.  Returns the launches of each kernel in its run."""
+    the vector run.  Returns the launches of each kernel in its run, and
+    the rows."""
     import numpy as np
     import torch
 
@@ -1429,6 +1515,401 @@ def phase_bidomain_demo() -> dict:
               f"fhn_step_v {wrappers['fhn_step_v'].launches}")
         require(same and launches[name] > 0 and wrappers["fhn_step_v"].launches == 0,
                 f"the demo on {name} equals the vector run bit for bit")
+    return launches, res["rows"]
+
+
+def ode_source(name: str) -> tuple[str, str]:
+    """(template, TPU kernel it replaces) of a generated model's kernel."""
+    form = "multi" if "_multi_" in name else "node" if "_node_" in name else "step"
+    return (f"fenicsx_beat_tpu_torch/csrc/ode_{form}.cu.in",
+            "fenicsx_beat_tpu/ops/pallas_ode.py:" + ("325" if form == "multi" else "89"))
+
+
+def ode_specs(ode: dict) -> dict:
+    """``{(source, scheme): IonicModel}`` of the loaded generated models."""
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    return {(name, sch): cuda_ode.ionic_model(getattr(m, fn)) for name, m in ode.items()
+            for sch, fn in ODE_SCHEMES.items()}
+
+
+def ode_wrappers(ode: dict) -> dict:
+    return {w.__name__: w for spec in ode_specs(ode).values()
+            for w in (spec.step, spec.node_step, spec.multi_step)}
+
+
+def ode_ops_per_node(cuda_source: str, scheme: str) -> int:
+    """Operations of one node's step, counted from the generated body's
+    function for ``scheme``: each arithmetic operator, comparison, select
+    and function call once."""
+    import re
+
+    body = cuda_source[cuda_source.index(f"void {scheme}_node("):]
+    body = body[body.index("{"): body.index("\n}\n")]
+    expr = " ".join(line.split("=", 1)[1] for line in body.splitlines() if " = " in line and "row[" not in line)
+    expr = re.sub(r"\d+\.\d+e[+-]\d+F", "c", expr)  # literals, whose exponent signs are no operations
+    return len(re.findall(r"[-+*/?]|[<>]=?|==|!=|&&|\|\||\b\w+f\(", expr))
+
+
+def phase_ode_build() -> dict:
+    """Load the port's copies of the inline FitzHugh-Nagumo and the coverage
+    source; build each model's library (nvcc, three templates with the
+    generated body) and load it a second time, which must not compile.
+    Returns ``{source: module}``."""
+    import sympy
+
+    from fenicsx_beat_tpu_torch import _build, odefile
+
+    print(f"[ode] sympy {sympy.__version__}")
+    ode = {}
+    for name in ODE_SOURCES:
+        tic = time.perf_counter()
+        m = odefile.load_ode(odefile.ODES / f"{name}.ode")
+        gen_s = time.perf_counter() - tic
+        tic = time.perf_counter()
+        kl = _build.load_model_library(m.cuda_source)
+        load_s = time.perf_counter() - tic
+        tic = time.perf_counter()
+        again = _build.load_model_library.__wrapped__(m.cuda_source)  # past the in-process cache
+        again_s = time.perf_counter() - tic
+        print(f"[ode] {name}: {m.num_states} states, {m.num_parameters} parameters, {len(m.code.splitlines())} "
+              f"torch lines, {len(m.cuda_source.splitlines())} CUDA lines, generated in {gen_s:.2f} s; "
+              f"{kl.path.name}: nvcc {kl.build_seconds:.1f} s (loaded in {load_s:.1f} s); "
+              f"second load {again_s:.3f} s, compiled {again.build_seconds:.1f} s")
+        require(again.build_seconds == 0.0 and again.path == kl.path, f"a second load of {name} compiles nothing")
+        entry = None
+        for line in kl.compiler_output.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line and entry is not None and "finalize" not in entry:
+                form = "multi" if "multi" in entry else "node" if "node_step" in entry else "step"
+                scheme = "fe" if "ILi1E" in entry else "grl"
+                print(f"[ode]   {name} {scheme} {form}: {line.strip()}")
+            elif "spill" in line and entry is not None and "finalize" not in entry:
+                require(" 0 bytes spill stores" in line, f"{name}'s kernels do not spill")
+        ode[name] = m
+    return ode
+
+
+def phase_ode_kernels(ode: dict) -> dict:
+    """The generated B1, B1's per-node form and B7 of each source and scheme
+    against their twins at the main path's width (n = 442,401), through
+    ``kernel_check.ionic_form_checks`` with FitzHugh-Nagumo's limits: per
+    state row, one step with the stimulus window off and on (t = 0.5 and
+    2.0) and two dt, one beat of every cell; the per-node form on a uniform
+    field gives B1's bits; nodes of no layer keep their states exactly.
+    Times each kernel beside its twin and its bound."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+
+    n, f32 = N_MAIN, 4
+    rows, dev_us = {}, {}
+    for (name, sch), spec in ode_specs(ode).items():
+        m, cfg = ode[name], ODE_SOURCES[name]
+        names = list(m._STATE_NAMES)
+        rng = np.random.default_rng(11)
+        states = np.stack([rng.uniform(*cfg["ranges"][x], n) for x in names])
+        v = rng.uniform(*cfg["ranges"][names[spec.v_index]], n)
+        table = np.stack([m.init_parameter_values(**kw) for kw in cfg["sets"]])
+
+        def rest(r, m=m, names=names, cfg=cfg):
+            x = np.tile(m.init_state_values()[:, None], (1, n))
+            for state, (lo, hi) in cfg["rest"].items():
+                x[names.index(state)] = r.uniform(lo, hi, n)
+            return x
+
+        tic = time.perf_counter()
+        out = kc.ionic_form_checks(spec, states, v, table, rest, rng, device=DEVICE, beat_steps=ODE_BEAT_STEPS)
+        took = time.perf_counter() - tic
+        require(out["uniform_bits"], f"{spec.node_step.__name__} on a uniform field gives {spec.step.__name__}'s bits")
+        errs = {}
+        for form, res in out["forms"].items():
+            step_abs, worst, beat = 0.0, 0.0, 0.0
+            for (t, dt, g), (a, e) in res["step"].items():
+                if g == "no layer":
+                    require(a == 0.0, f"{form} leaves the nodes of no layer as they were, V injected")
+                    continue
+                require(bool((e <= kc.IONIC_STEP_TOL).all()), f"{form} one-step increments agree, t={t}, {g}")
+                step_abs, worst = max(step_abs, a), max(worst, float(e.max()))
+            for g, (a, e) in res["beat"].items():
+                require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{form} agrees with its twin over one beat, {g}")
+                beat = max(beat, float(e.max()))
+            print(f"[ode] {form}: one step, worst row |k-w| beyond 1 ulp / max|increment| {worst:.2e} (limit "
+                  f"{kc.IONIC_STEP_TOL:g}); one beat ({ODE_BEAT_STEPS} steps), worst row max|k-w| / excursion "
+                  f"{beat:.2e} (limit {kc.IONIC_BEAT_TOL:g}); rows {res['rows']}")
+            errs[form] = (step_abs, worst)
+        print(f"[ode] {spec.name} checks: {took:.1f} s")
+
+        x = out["inputs"]
+        scratch, storage, vk, field, p0 = x["S0"].clone(), x["S0_storage"].clone(), x["v"], x["field"], table[0]
+        S, NP = m.num_states, m.num_parameters
+        b1_bytes = 2 * S * n * f32  # every row written, every row but V's read, and the injected v
+        ops = ode_ops_per_node(m.cuda_source, sch) * n
+        b7, b7_twin = x["b7"], x["b7_twin"]
+        calls = {
+            spec.step.__name__: (lambda: spec.step(scratch, vk, 2.0, 0.025, p0),
+                                 lambda: spec.step_twin(scratch, vk, 2.0, 0.025, p0), b1_bytes),
+            spec.node_step.__name__: (lambda: spec.node_step(scratch, vk, 2.0, 0.025, field),
+                                      lambda: spec.step_twin(scratch, vk, 2.0, 0.025, field),
+                                      b1_bytes + NP * n * f32),
+            spec.multi_step.__name__: (lambda: b7(storage, vk, 2.0, 0.025, None),
+                                       lambda: b7_twin(storage, vk, 2.0, 0.025, None), b1_bytes + n * 4),
+        }
+        for form, (kern, twin, nbytes) in calls.items():
+            rows[form] = row(errs[form], time_ms(kern), time_ms(twin), bound(nbytes, ops), None)
+            dev_us[form] = device_us_per_call(kern)
+    torch.cuda.synchronize()
+    print("[ode] device time per call (torch.profiler, us): " + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
+    print_rows(rows)
+    return rows
+
+
+def phase_ode_vs_fhn(ode: dict) -> None:
+    """The generated inline FHN's forward Euler against the hand-written
+    FitzHugh-Nagumo kernels (fhn_step_v, fhn_node_step_v, fhn_multi_step_v)
+    on the same 442,401 nodes: the same formulas in another association
+    order, the rows mapped (v, w against s, v; both B7 layouts hold v in
+    row 0), the hand-written model's stimulus off.  Held by the one-step
+    limit per row; the largest difference printed in float32 ulps."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.models import fitzhughnagumo as fhn
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    n = N_MAIN
+    m = ode["fhn_inline"]
+    spec = cuda_ode.ionic_model(m.forward_euler)
+    rng = np.random.default_rng(13)
+    sets = ODE_SOURCES["fhn_inline"]["sets"]
+    gen_table = np.stack([m.init_parameter_values(**kw) for kw in sets])
+    hand_table = np.stack([fhn.init_parameter_values(stim_amplitude=0.0, **kw) for kw in sets])
+    S = torch.tensor(np.stack([rng.uniform(-90.0, 40.0, n), rng.uniform(0.0, 60.0, n)]), dtype=torch.float32,
+                     device=DEVICE)
+    v = torch.tensor(rng.uniform(-90.0, 40.0, n), dtype=torch.float32, device=DEVICE)
+    which = rng.integers(0, len(sets), n)
+    index = torch.as_tensor(which.astype(np.int32), device=DEVICE)
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=DEVICE)
+
+    def flipped(hand_step, args):  # the hand-written kernel on the generated model's row order
+        def step(w, v_, t, dt, p):
+            h = w.flip(0).contiguous()
+            hand_step(h, v_, *args(t, dt))
+            w.copy_(h.flip(0))
+        return step
+
+    pairs = {
+        "fhn_step_v": (lambda k, v_, t, dt, p: spec.step(k, v_, t, dt, gen_table[0]),
+                       flipped(cuda_ode.fhn_step_v, lambda t, dt: (t, dt, hand_table[0]))),
+        "fhn_node_step_v": (lambda k, v_, t, dt, p: spec.node_step(k, v_, t, dt, on(gen_table[which].T)),
+                            flipped(cuda_ode.fhn_node_step_v, lambda t, dt: (t, dt, on(hand_table[which].T)))),
+        "fhn_multi_step_v": (lambda k, v_, t, dt, p: spec.multi_step(k, v_, index, t, dt, on(gen_table)),
+                             lambda w, v_, t, dt, p: cuda_ode.fhn_multi_step_v(w, v_, index, t, dt, on(hand_table))),
+    }
+    for hand, (gen_step, hand_step) in pairs.items():
+        worst, ulps = 0.0, 0.0
+        for t in (0.5, 2.0):
+            for dt in (0.025, 0.05):
+                a, e = kc.ionic_step_errors(gen_step, hand_step, S, v, t, dt, None, v_index=0)
+                k, w = S.clone(), S.clone()
+                gen_step(k, v, t, dt, None)
+                hand_step(w, v, t, dt, None)
+                top = w.abs().amax(dim=1, keepdim=True)  # each row's largest value
+                ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+                ulps = max(ulps, float(((k - w).abs() / ulp).max()))
+                require(bool((e <= kc.IONIC_STEP_TOL).all()),
+                        f"the generated forward Euler agrees with {hand} per row, t={t}, dt={dt}")
+                worst = max(worst, float(e.max()))
+        print(f"[ode] {spec.name} vs {hand}: worst row |gen - hand| beyond 1 ulp / max|increment| {worst:.2e} "
+              f"(limit {kc.IONIC_STEP_TOL:g}); largest difference {ulps:.1f} float32 ulps of its row's largest value")
+
+
+def _timed_run(build, seed: int | None, T: float, dt: float):
+    """``build()``'s solver run over (0, T), from states moved by one ulp
+    at random when ``seed`` is given; (solver, seconds of the run)."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.bidomain_scale import perturb_states
+
+    solver = build()
+    if seed is not None:
+        perturb_states(solver, seed)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    solver.solve((0.0, T), dt=dt)
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - tic
+
+
+def phase_ode_main(ode: dict) -> dict:
+    """The custom-ODE path at full width: the Niederer slab at dx=0.1
+    (442,401 nodes) with the generated inline FHN's GRL, Strang, dt=0.05,
+    a fixed 40 ms, through ``benchmarks/niederer.py:_build_solver(model=)``:
+    on the kernels (launch counts zeroed before, read after: the generated
+    B1, B2, B3 and B4 > 0), on the twins, and on both from states one ulp
+    away (float32's noise: the larger distance of such a run to its own).
+    v at every node of the kernel run within 3x that noise of the twin
+    run; max|v|, the share of nodes above 0 mV, CG iterations and host
+    syncs per step, ms/s."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    m = ode["fhn_inline"]
+    wrappers = {**kernel_wrappers(), **ode_wrappers(ode)}
+
+    def build(use_kernels=True):
+        return _build_solver(dx=ODE_DX, theta=0.5, model=m, device=DEVICE, use_kernels=use_kernels)
+
+    tic = time.perf_counter()
+    zero_launches(wrappers)
+    k, wall = _timed_run(build, None, ODE_T, DT)
+    launches = {name: w.launches for name, w in wrappers.items() if w.launches}
+    setup_and_run = time.perf_counter() - tic
+    w, _ = _timed_run(lambda: build(False), None, ODE_T, DT)
+    k2, _ = _timed_run(build, 1, ODE_T, DT)
+    w2, _ = _timed_run(lambda: build(False), 1, ODE_T, DT)
+    vk, vw, vk2, vw2 = (s.v.double() for s in (k, w, k2, w2))
+    gap = float((vk - vw).abs().max())
+    noise_k, noise_w = float((vk - vk2).abs().max()), float((vw - vw2).abs().max())
+    noise = max(noise_k, noise_w)
+    steps = round(ODE_T / DT)
+    print(f"[ode_main] dx={ODE_DX} custom ODE ({m.__name__} GRL), {k._n} nodes, {ODE_T:g} ms: ms_per_s="
+          f"{ODE_T / wall:.3f} (setup and run {setup_and_run:.1f} s), CG per step {k.cg_iterations / steps:.3f}, "
+          f"host syncs per step {k.host_syncs / steps:.3f}; max|v| {float(vk.abs().max()):.4f} mV, v_max "
+          f"{float(vk.max()):.4f} mV, share of nodes above 0 mV {float((vk > 0).double().mean()):.3e}; "
+          f"kernels vs twins max|dv| {gap:.3e} mV, float32 noise (runs from states one ulp away: kernels "
+          f"{noise_k:.3e}, twins {noise_w:.3e} mV; limit {ODE_NOISE_FACTOR:g}x the larger, {gap / noise:.2f}x); "
+          f"launches {json.dumps(launches)}")
+    require(bool(torch.isfinite(k.states).all() and torch.isfinite(w.states).all()), "the custom-ODE run is finite")
+    require(gap <= ODE_NOISE_FACTOR * noise, "the custom-ODE kernel run within 3x float32's noise of its twin run")
+    grl = cuda_ode.ionic_model(m.generalized_rush_larsen).step.__name__
+    for name in (grl, "stencil_spmv_sym", "cg_update", "axpy"):
+        require(launches.get(name, 0) > 0, f"{name} launched on the custom-ODE path")
+    return {grl: launches.get(grl, 0)}
+
+
+def phase_ode_demo(ode: dict) -> None:
+    """demos/custom_ode.py's configuration (the slab at dx=0.5, the inline
+    FHN's GRL, Strang, dt=0.05, 40 ms) on the kernels: v_max and v at
+    P1-P9 within 3x each value's largest gap to the JAX package's float64
+    values over the float32 witnesses (the CPU's of
+    ``tests/torch_ode_reference.py``; the card's twins from the initial
+    states, twins and kernels from states one ulp away); and v at every
+    node within 3x float32's noise (the largest distance of a run from
+    one ulp away to its own run, kernels or twins) of the twin run."""
+    import numpy as np
+
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver, benchmark_points
+
+    def build(use_kernels=True):
+        return _build_solver(dx=0.5, theta=0.5, model=ode["fhn_inline"], device=DEVICE, use_kernels=use_kernels)
+
+    v = {}
+    for seed in (None, *ODE_DEMO_SEEDS):
+        for route, use_kernels in (("kernels", True), ("twins", False)):
+            s, _ = _timed_run(lambda: build(use_kernels), seed, ODE_T, DT)
+            v[route if seed is None else f"{route}+{seed}"] = s.v.double().cpu().numpy()
+    coords = np.asarray(s.mesh.geometry.x)
+    nodes = [int(np.argmin(((coords - np.array(p)) ** 2).sum(axis=1))) for p in benchmark_points().values()]
+    got = {tag: {"v_max": float(x.max()), **{f"v_P{i + 1}": float(x[k]) for i, k in enumerate(nodes)}}
+           for tag, x in v.items()}
+    witnesses = [tag for tag in got if tag != "kernels"]
+    for key, ref in JAX_CUSTOM_ODE_DX05.items():
+        card = max(abs(got[tag][key] - ref) for tag in witnesses)
+        ulps = 3.0 * float(np.spacing(np.float32(abs(ref))))
+        tol = max(3.0 * max(JAX_CUSTOM_ODE_DX05_CPU_GAP[key], card), ulps)
+        gap = abs(got["kernels"][key] - ref)
+        print(f"[ode_demo] {key} {got['kernels'][key]:.6f} mV (JAX float64 {ref:.6f}, gap {gap:.3e}; twins on the "
+              f"card gap {abs(got['twins'][key] - ref):.3e}; largest gap of the card's witnesses {card:.3e}, of "
+              f"the CPU's {JAX_CUSTOM_ODE_DX05_CPU_GAP[key]:.3e}; limit {tol:.3e})")
+        require(gap <= tol, f"the dx=0.5 custom-ODE demo's {key} within its float32 tolerance of JAX")
+    gap = float(np.abs(v["kernels"] - v["twins"]).max())
+    noise = max(float(np.abs(v[route] - v[f"{route}+{seed}"]).max())
+                for route in ("kernels", "twins") for seed in ODE_DEMO_SEEDS)
+    print(f"[ode_demo] kernels vs twins max|dv| {gap:.3e} mV at every node, float32 noise (runs from states one "
+          f"ulp away) {noise:.3e} mV (limit {ODE_NOISE_FACTOR:g}x)")
+    require(gap <= ODE_NOISE_FACTOR * noise, "the dx=0.5 custom-ODE kernel run within 3x float32's noise of its twins")
+
+
+def phase_ode_bidomain(ode: dict, hand_rows: list) -> dict:
+    """demos/bidomain_ue.py's configuration (nx=48, Strang, dt=0.1, 40 ms)
+    on the generated inline FHN's forward Euler: every saved (t, v_max,
+    max|u_e|) row within phase 14's tolerance (3x the float32 witnesses'
+    largest stray per field) of the hand-written FHN run's row."""
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    m = ode["fhn_inline"]
+    spec = cuda_ode.ionic_model(m.forward_euler)
+    spec.step.launches = 0
+    res = bs.run_demo(nx=48, T=40.0, dt=0.1, device=DEVICE, ode_fun=m.forward_euler,
+                      init_states=m.init_state_values(), parameters=m.init_parameter_values(), v_index=0)
+    launches = spec.step.launches
+    stray_v, stray_u = JAX_BIDOMAIN_DEMO_STRAY["v_max"], JAX_BIDOMAIN_DEMO_STRAY["u_e_max_abs"]
+    gaps = [max(abs(vm - vh) / abs(vh) / stray_v, abs(um - uh) / abs(uh) / stray_u)
+            for (_, vm, um), (_, vh, uh) in zip(res["rows"], hand_rows)]
+    print(f"[ode_bidomain] demo on {spec.step.__name__}: status {res['status']}, ms_per_s={res['ms_per_s']:.3f}, "
+          f"CG per step {res['cg_iters_per_step']:.3f}; launches {launches}; largest relative gap to the "
+          f"hand-written run {max(gaps):.3f}x the witnesses' stray (limit 3x); last row {res['rows'][-1]}, "
+          f"hand-written {hand_rows[-1]}")
+    require(res["status"] == "OK" and res["finite"] and len(gaps) == len(hand_rows) > 0,
+            "the bidomain demo on the generated FE converged, finite, every save made")
+    require(max(gaps) <= 3.0, "the bidomain demo on the generated FE within phase 14's tolerance of the hand-written")
+    require(launches > 0, f"{spec.step.__name__} launched in the bidomain demo")
+    return {spec.step.__name__: launches}
+
+
+def phase_ode_paths(ode: dict) -> dict:
+    """Each generated form on a solver path: the slab at dx=0.5, Strang,
+    5 ms, for each source and scheme on B1 (the parameter vector), on B1's
+    per-node form (the vector as a uniform node-aligned field) and on B7
+    (one marker layer over every node); the field and layer runs equal the
+    vector run bit for bit.  Returns each form's launches in its run (the
+    custom-ODE path's and the bidomain demo's B1 counts come from those
+    runs)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver
+
+    wrappers = ode_wrappers(ode)
+    launches = {}
+    for (name, sch), spec in ode_specs(ode).items():
+        m = ode[name]
+        fun = getattr(m, ODE_SCHEMES[sch])
+        ref = _build_solver(dx=0.5, theta=0.5, model=m, scheme=ODE_SCHEMES[sch], device=DEVICE)
+        n = ref._n
+        p = np.asarray(ref.parameters)
+        variants = {
+            spec.step.__name__: {},
+            spec.node_step.__name__: dict(parameters=np.tile(p[:, None], (1, n))),
+            spec.multi_step.__name__: dict(ode_fun={1: fun}, init_states={1: m.init_state_values()},
+                                           parameters={1: p}, v_index={1: spec.v_index},
+                                           ode_markers=np.ones(n, dtype=np.int64)),
+        }
+        base = None
+        for form, kw in variants.items():
+            solver = dataclasses.replace(ref, **kw) if kw else ref
+            zero_launches(wrappers)
+            solver.solve((0.0, 5.0), dt=DT)
+            launches[form] = wrappers[form].launches
+            v = solver.v.clone()
+            if base is None:
+                base = v
+            same = torch.equal(v, base) and bool(torch.isfinite(solver.states).all())
+            print(f"[ode_paths] {form}: dx=0.5, 5 ms, launches {launches[form]}, v_max {float(v.max()):.4f} mV, "
+                  f"v equal to the vector run: {same}")
+            require(same and launches[form] > 0, f"{form} runs the slab, equal bit for bit to the vector run")
     return launches
 
 
@@ -1819,11 +2300,19 @@ def main() -> int:
     del ecg_scale
     phase_bidomain_slab()
     phase_bidomain_references()
-    launches.update(phase_bidomain_demo())
+    demo_launches, demo_rows = phase_bidomain_demo()
+    launches.update(demo_launches)
+    ode = phase_ode_build()
+    rows.update(phase_ode_kernels(ode))
+    phase_ode_vs_fhn(ode)
+    launches.update(phase_ode_paths(ode))
+    launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
+    phase_ode_demo(ode)
+    launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
 
     kernels = []
     for name, r in rows.items():
-        source, replaces = SOURCES[name]
+        source, replaces = SOURCES[name] if name in SOURCES else ode_source(name)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -6,8 +6,11 @@ shared library with a plain C interface, bound with :mod:`ctypes` (no
 PyTorch headers in the build, so it takes seconds, not minutes).  The
 library goes to ``build/torch_kernels/libfbt_kernels-<hash>.so`` beside
 the package, keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one is loaded as it is.  Nothing here runs at
-import time; a build failure raises.
+rebuilds and an unchanged one is loaded as it is.  A model that
+``odefile.load_ode`` generated gets a library of its own
+(:func:`load_model_library`): the templates ``csrc/ode_*.cu.in`` with its
+node body, keyed by a hash of body, templates and flags.  Nothing here runs
+at import time; a build failure raises.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "KernelLibrary", "load_library", "NVCC_FLAGS", "check", "require_cuda_f32",
-    "require_cuda_i32", "stream_ptr", "num_blocks",
+    "KernelLibrary", "load_library", "load_model_library", "model_symbol", "NVCC_FLAGS",
+    "check", "require_cuda_f32", "require_cuda_i32", "stream_ptr", "num_blocks",
 ]
 
 _CSRC = Path(__file__).with_name("csrc")
@@ -45,7 +48,7 @@ NVCC_FLAGS = [
 # multiply-adds, whose placement the compiler chooses per kernel.  B1's
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
-_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "fhn_")
+_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "fhn_", "ode_")
 
 
 def _nvcc_flags(src: Path) -> list[str]:
@@ -121,6 +124,60 @@ def _source_tag(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(sources: list[Path], out: Path, workdir: Path, include: list[Path]) -> tuple[float, str]:
+    """Compile ``sources`` (one nvcc each, all started together) and link
+    them into the shared library ``out``, renamed into place at the end,
+    so a process that builds the same library at the same time never
+    loads half a file.  Returns (seconds, the compiler's report); raises
+    on a failed compile or link."""
+    nvcc = _nvcc()
+    incs = [f"-I{d}" for d in include]
+    tic = time.perf_counter()
+    objs, procs = [], []
+    for src in sources:
+        obj = workdir / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *_nvcc_flags(src), *incs, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = [], []
+    try:
+        for src, proc in zip(sources, procs):
+            text, _ = proc.communicate(timeout=600)
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+    finally:
+        for proc in procs:  # none outlives a failed or timed-out build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    tmp = workdir / out.name
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True, timeout=600,
+    )
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    seconds = time.perf_counter() - tic
+    os.replace(tmp, out)
+    return seconds, log
+
+
+def _bind(out: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(out))
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Compile (if needed) and load the kernel library; raises on failure."""
@@ -132,48 +189,58 @@ def load_library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not out.is_file():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
-            tic = time.perf_counter()
-            objs, procs = [], []
-            for src in sources:
-                obj = Path(td) / f"{src.stem}.o"
-                objs.append(obj)
-                procs.append(subprocess.Popen(
-                    [nvcc, *_nvcc_flags(src), "-c", "-o", str(obj), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                ))
-            logs, failed = [], []
-            try:
-                for src, proc in zip(sources, procs):
-                    text, _ = proc.communicate(timeout=600)
-                    logs.append(f"== {src.name}\n{text}")
-                    if proc.returncode != 0:
-                        failed.append(f"{src.name} ({proc.returncode})")
-            finally:
-                for proc in procs:  # none outlives a failed or timed-out build
-                    if proc.poll() is None:
-                        proc.kill()
-                        proc.wait()
-            log = "".join(logs)
-            if failed:
-                raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
-            tmp = Path(td) / out.name
-            link = subprocess.run(
-                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                capture_output=True, text=True, timeout=600,
-            )
-            log += link.stdout + link.stderr
-            if link.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
-            seconds = time.perf_counter() - tic
-            os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    return KernelLibrary(lib=lib, path=out, build_seconds=seconds, compiler_output=log)
+            seconds, log = _compile(sources, out, Path(td), [])
+    return KernelLibrary(lib=_bind(out, _SIGNATURES), path=out, build_seconds=seconds, compiler_output=log)
+
+
+# A generated ionic model's kernels (odefile.py): three hand-written
+# templates, each instantiated with the model's node body, as B1, B1's
+# per-node form and B7, each for GRL1 and forward Euler.
+_MODEL_TEMPLATES = ("ode_step.cu.in", "ode_node.cu.in", "ode_multi.cu.in")
+_MODEL_FORMS = {"step_v": _GRL_STEP, "node_step_v": _GRL_NODE_STEP, "multi_step_v": _GRL_MULTI_STEP}
+_MODEL_SCHEMES = ("grl", "fe")
+
+
+def model_symbol(body: str) -> str:
+    """The C symbol prefix of the kernels of the node body ``body``:
+    ``ode_<hash>`` of the body, the templates, ``common.cuh`` and the
+    flags, so libraries of two models, or of two versions of one, never
+    share a name."""
+    h = hashlib.sha256(body.encode())
+    for name in (*_MODEL_TEMPLATES, "common.cuh"):
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_nvcc_flags(Path(_MODEL_TEMPLATES[0][: -len(".in")]))).encode())
+    return f"ode_{h.hexdigest()[:16]}"
+
+
+@functools.lru_cache(maxsize=None)
+def load_model_library(body: str) -> KernelLibrary:
+    """Compile (if needed) and load the kernels of a generated model's node
+    body (``module.cuda_source``) into
+    ``build/torch_kernels/libfbt_<symbol>.so``: the three templates of
+    ``csrc/`` with the body included, one nvcc each, built as the ionic
+    sources are (``-fmad=false``).  The C entry points are
+    ``<symbol>_<scheme>_<form>`` for the schemes ``grl`` and ``fe`` and the
+    forms ``step_v``, ``node_step_v`` and ``multi_step_v``.  Raises on a
+    failed build."""
+    sym = model_symbol(body)
+    out = _BUILD_DIR / f"libfbt_{sym}.so"
+    seconds, log = 0.0, ""
+    if not out.is_file():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
+            work = Path(td)
+            (work / "ode_body.cuh").write_text(body)
+            sources = []
+            for name in _MODEL_TEMPLATES:
+                src = work / name[: -len(".in")]
+                src.write_text((_CSRC / name).read_text().replace("@SYM@", sym))
+                sources.append(src)
+            seconds, log = _compile(sources, out, work, [_CSRC])
+    signatures = {f"{sym}_{scheme}_{form}": sig for scheme in _MODEL_SCHEMES for form, sig in _MODEL_FORMS.items()}
+    return KernelLibrary(lib=_bind(out, signatures), path=out, build_seconds=seconds, compiler_output=log)
 
 
 def check(err: int, name: str) -> None:

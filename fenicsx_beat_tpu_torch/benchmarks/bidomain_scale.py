@@ -290,9 +290,10 @@ def run_slab(dx: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 
 
 def run_lv(psize: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 10.0,
            scheme: str = "monolithic", gs_u_rtol: float | None = None, device=None,
-           use_kernels: bool = True) -> dict:
+           use_kernels: bool = True) -> tuple[dict, BidomainSolver]:
     """The bidomain LV at ``psize`` with the Jacobi u-block preconditioner
-    (the JAX script's AMG rows wait for AMG's port); one row."""
+    (the JAX script's AMG rows wait for AMG's port); one row, and the
+    solver it ran."""
     case = f"lv_ps{psize:g}_jacobi" + ("" if scheme == "monolithic" else f"_{scheme}")
     tic = _time.perf_counter()
     bi = lv_solver(psize, device=device, scheme=scheme, gs_u_rtol=gs_u_rtol, use_kernels=use_kernels)
@@ -301,14 +302,17 @@ def run_lv(psize: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float =
     setup_s = _time.perf_counter() - tic
     _reset_peak(dev)
     timed = timed_solve(bi, T_warm, T_timed, dt)
-    return _row(bi, case, setup_s, dt, T_timed, timed, _peak_gib(dev))
+    return _row(bi, case, setup_s, dt, T_timed, timed, _peak_gib(dev)), bi
 
 
-def run_demo(nx: int = 48, T: float = 40.0, dt: float = 0.1, device=None, use_kernels: bool = True) -> dict:
+def run_demo(nx: int = 48, T: float = 40.0, dt: float = 0.1, device=None, use_kernels: bool = True,
+             **model) -> dict:
     """``demos/bidomain_ue.py`` on the port: the per-save ``(t, v_max,
-    max|u_e|)`` rows it prints, the status, and the run's timing."""
+    max|u_e|)`` rows it prints, the status, and the run's timing.
+    ``model`` replaces the demo's FitzHugh-Nagumo (``ode_fun``,
+    ``init_states``, ``parameters``, ``v_index``)."""
     tic = _time.perf_counter()
-    bi = demo_solver(nx, device=device, use_kernels=use_kernels)
+    bi = demo_solver(nx, device=device, use_kernels=use_kernels, **model)
     dev = bi.device
     _sync(dev)
     setup_s = _time.perf_counter() - tic
@@ -355,7 +359,8 @@ def main(argv=None) -> int:
     for dx in args.dx:
         print(json.dumps(run_slab(dx, dt=args.dt, scheme=args.scheme, gs_u_rtol=args.gs_u_rtol or None)))
     if not args.skip_lv:
-        print(json.dumps(run_lv(args.lv_psize, dt=args.dt, scheme=args.scheme, gs_u_rtol=args.gs_u_rtol or None)))
+        row, _ = run_lv(args.lv_psize, dt=args.dt, scheme=args.scheme, gs_u_rtol=args.gs_u_rtol or None)
+        print(json.dumps(row))
     if args.demo:
         print(json.dumps(run_demo()))
     return 0

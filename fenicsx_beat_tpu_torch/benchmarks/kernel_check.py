@@ -21,8 +21,9 @@ slow rows by thousands of ulps.  On the card the beat check replays its
 twin step as a CUDA graph: the twins are a thousand small kernels a step,
 bound by the host's launches.
 
-:func:`fhn_checks` runs FitzHugh-Nagumo's three forms so, by step and by
-beat.
+:func:`ionic_form_checks` runs the three forms of one model so, by step
+and by beat: :func:`fhn_checks` for FitzHugh-Nagumo, and the same for any
+model that ``odefile.load_ode`` generated.
 
 Usage, on a machine with a CUDA card::
 
@@ -217,37 +218,35 @@ def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters,
     return step
 
 
-def fhn_checks(n: int = 442_401, device="cuda", beat_steps: int = BEAT_STEPS) -> dict:
-    """FitzHugh-Nagumo's three kernel forms against their twins on ``n``
-    nodes: B1 (one parameter vector), B1's per-node form (a field mixing
-    three parameter sets) and B7 (the same three sets as layers, 2% of the
-    nodes in none, on ``make_multi_ode``'s storage layout, V in row 0).
+def ionic_form_checks(ionic, states, v, table, rest, rng, device="cuda", beat_steps: int = BEAT_STEPS) -> dict:
+    """The three kernel forms of ``ionic`` (an :class:`~..ops.cuda_ode.IonicModel`)
+    against their twins on ``n`` nodes: B1 (parameter set ``table[0]``),
+    B1's per-node form (a field mixing the sets of ``table``) and B7 (the
+    same sets as layers, 2% of the nodes in none, on ``make_multi_ode``'s
+    storage layout: the voltage in row 0, row 0 in the voltage's row).
 
-    Each form runs :func:`ionic_step_errors_by_group` from random states (s
-    in [0, 60], v in [-90, 40] mV) at t = 0.5 (the stimulus on) and 2.0
-    (off) and dt = 0.025 and 0.05, and :func:`ionic_beat_errors_by_group`
-    over one paced beat of every cell from rest (the model's own 0-1 ms
-    stimulus).  Returns ``{"forms": {name: {"rows": state names in the
-    form's row order, "step": {(t, dt, group): (max abs, per-row error)},
-    "beat": {group: (max abs, per-row error)}}}, "uniform_bits": B1's
-    per-node form on a uniform field gives B1's bits, "inputs": the
+    ``states`` [S, n] and ``v`` [n] are the one-step check's states and
+    injected voltage in the model's row order; ``rest(rng)`` gives the
+    [S, n] states one beat starts from.  Each form runs
+    :func:`ionic_step_errors_by_group` at t = 0.5 and 2.0 (the stimulus
+    window of FHN and of the coverage source on at one, off at the other)
+    and dt = 0.025 and 0.05, and :func:`ionic_beat_errors_by_group` over ``beat_steps``
+    steps of every cell.  Returns ``{"forms": {name: {"rows": state names
+    in the form's row order, "step": {(t, dt, group): (max abs, per-row
+    error)}, "beat": {group: (max abs, per-row error)}}}, "uniform_bits":
+    B1's per-node form on a uniform field gives B1's bits, "inputs": the
     tensors, for timing}``."""
     import numpy as np
 
-    from ..models import fitzhughnagumo as fhn
-    from ..ops import cuda_ode
-
-    rng = np.random.default_rng(5)
     dev = torch.device(device)
+    n, vi = v.shape[0], ionic.v_index
 
     def on(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.float32).contiguous()
 
-    S0 = on(np.stack([rng.uniform(0.0, 60.0, n), rng.uniform(-90.0, 40.0, n)]))
-    S0_storage = S0.flip(0).contiguous()  # make_multi_ode's layout: v in row 0, s in row 1
-    v = on(rng.uniform(-90.0, 40.0, n))
-    table = np.stack([fhn.init_parameter_values(), fhn.init_parameter_values(b=0.02),
-                      fhn.init_parameter_values(a=0.1, c_3=1.5)])
+    perm = np.arange(states.shape[0])
+    perm[[0, vi]] = [vi, 0]  # the model's rows <-> make_multi_ode's storage (an involution)
+    S0, S0_storage, v_k = on(states), on(states[perm]), on(v)
     table_k = on(table)
     sets = rng.integers(0, len(table), n)
     field = on(table[sets].T)
@@ -256,36 +255,60 @@ def fhn_checks(n: int = 442_401, device="cuda", beat_steps: int = BEAT_STEPS) ->
     layers = {f"set {i}": torch.nonzero(index == i).flatten() for i in range(len(table))}
 
     def b7(S, v_, t, dt, p):
-        return cuda_ode.fhn_multi_step_v(S, v_, index, t, dt, table_k)
+        return ionic.multi_step(S, v_, index, t, dt, table_k)
 
     def b7_twin(S, v_, t, dt, p):
-        return cuda_ode.fhn_multi_step_v_twin(S, v_, index, t, dt, table)
+        return ionic.multi_step_twin(S, v_, index, t, dt, table)
 
-    names = fhn._STATE_NAMES
+    names = list(ionic.module._STATE_NAMES)
     forms = {  # step, twin, parameters, groups, states, voltage row
-        "fhn_step_v": (cuda_ode.fhn_step_v, cuda_ode.fhn_step_v_twin, table[0], {"all": None}, S0, 1),
-        "fhn_node_step_v": (cuda_ode.fhn_node_step_v, cuda_ode.fhn_step_v_twin, field, set_groups, S0, 1),
-        "fhn_multi_step_v": (b7, b7_twin, None, {**layers, "no layer": torch.nonzero(index < 0).flatten()},
-                             S0_storage, 0),
+        ionic.step.__name__: (ionic.step, ionic.step_twin, table[0], {"all": None}, S0, vi),
+        ionic.node_step.__name__: (ionic.node_step, ionic.step_twin, field, set_groups, S0, vi),
+        ionic.multi_step.__name__: (b7, b7_twin, None, {**layers, "no layer": torch.nonzero(index < 0).flatten()},
+                                    S0_storage, 0),
     }
     out = {}
-    for name, (step, twin, p, groups, S, vi) in forms.items():
-        res = {"rows": names if vi == 1 else names[::-1], "step": {}}
+    for name, (step, twin, p, groups, S, row_v) in forms.items():
+        storage = S is S0_storage
+        res = {"rows": [names[k] for k in perm] if storage else names, "step": {}}
         for t in (0.5, 2.0):
             for dt in (0.025, 0.05):
-                for g, e in ionic_step_errors_by_group(step, twin, S, v, t, dt, p, groups, vi).items():
+                for g, e in ionic_step_errors_by_group(step, twin, S, v_k, t, dt, p, groups, row_v).items():
                     res["step"][(t, dt, g)] = e
-        rest = np.stack([np.zeros(n), -85.0 + 0.5 * rng.standard_normal(n)])
+        r = rest(rng)
         beat_groups = {g: x for g, x in groups.items() if g != "no layer"}
-        res["beat"] = ionic_beat_errors_by_group(step, twin, on(rest if vi == 1 else rest[::-1]), p, beat_groups,
-                                                 n_steps=beat_steps, v_index=vi)
+        res["beat"] = ionic_beat_errors_by_group(step, twin, on(r[perm] if storage else r), p, beat_groups,
+                                                 n_steps=beat_steps, v_index=row_v)
         out[name] = res
     uniform = on(np.tile(table[1][:, None], (1, n)))
     a, b = S0.clone(), S0.clone()
-    cuda_ode.fhn_step_v(a, v, 0.5, 0.05, table[1])
-    cuda_ode.fhn_node_step_v(b, v, 0.5, 0.05, uniform)
-    inputs = dict(S0=S0, S0_storage=S0_storage, v=v, table=table, field=field, b7=b7, b7_twin=b7_twin)
+    ionic.step(a, v_k, 0.5, 0.05, table[1])
+    ionic.node_step(b, v_k, 0.5, 0.05, uniform)
+    inputs = dict(S0=S0, S0_storage=S0_storage, v=v_k, table=table, field=field, b7=b7, b7_twin=b7_twin)
     return {"forms": out, "uniform_bits": bool(torch.equal(a, b)), "inputs": inputs}
+
+
+def fhn_checks(n: int = 442_401, device="cuda", beat_steps: int = BEAT_STEPS) -> dict:
+    """FitzHugh-Nagumo's three kernel forms through :func:`ionic_form_checks`:
+    random states (s in [0, 60], v in [-90, 40] mV) at t = 0.5 (the
+    stimulus on) and 2.0 (off); three parameter sets; one paced beat of
+    every cell from rest (the model's own 0-1 ms stimulus)."""
+    import numpy as np
+
+    from ..models import fitzhughnagumo as fhn
+    from ..ops import cuda_ode
+
+    rng = np.random.default_rng(5)
+    states = np.stack([rng.uniform(0.0, 60.0, n), rng.uniform(-90.0, 40.0, n)])
+    v = rng.uniform(-90.0, 40.0, n)
+    table = np.stack([fhn.init_parameter_values(), fhn.init_parameter_values(b=0.02),
+                      fhn.init_parameter_values(a=0.1, c_3=1.5)])
+
+    def rest(r):
+        return np.stack([np.zeros(n), -85.0 + 0.5 * r.standard_normal(n)])
+
+    return ionic_form_checks(cuda_ode.ionic_model(fhn.forward_euler), states, v, table, rest, rng,
+                             device=device, beat_steps=beat_steps)
 
 
 def kernel_check(dx: float = 0.5, dt: float = 0.05, n_steps: int = 40, device="cuda") -> dict:

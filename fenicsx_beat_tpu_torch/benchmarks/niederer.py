@@ -1,5 +1,9 @@
 """Niederer 2011 benchmark (20x7x3 mm TP06 slab) on the port's fused solver.
 
+The ionic model is TP06 GRL unless the caller names another ``model`` and
+``scheme`` (a gotran model loaded at run time by ``odefile.load_ode``, as
+``benchmarks/custom_ode.py`` does), as in the JAX function.
+
 Port of ``fenicsx_beat_tpu/benchmarks/niederer.py``: S1 stimulus in a
 1.5 mm corner cube, Niederer conductivities (g_il=0.17, g_it=0.019,
 g_el=0.62, g_et=0.24 S/m, chi=1400/cm, C_m=1 uF/cm^2, amplitude
@@ -131,10 +135,17 @@ def _build_solver(
     device=None,
     dtype=None,
     probe_points: np.ndarray | None = None,
+    scheme: str = "generalized_rush_larsen",
+    model=None,
     **solver_kwargs,
 ) -> FusedMonodomainSolver:
-    """Niederer-configuration solver (slab, S1 corner cube, TP06 GRL) on
-    ``device``: the card when None (:func:`~..config.resolve_device`)."""
+    """Niederer-configuration solver (slab, S1 corner cube) on ``device``:
+    the card when None (:func:`~..config.resolve_device`).  The ionic model
+    is TP06 unless ``model`` names another (a hand-written port model or
+    one that ``odefile.load_ode`` generated), stepped by its ``scheme``,
+    from its initial states, with its own pacing stimulus set to zero
+    under either name (``stim_amplitude``, ``i_Stim_Amplitude``), V in its
+    row of ``V`` or ``v``: JAX's ``_build_solver``."""
     mesh_unit = "mm"
     geo = get_3D_slab_geometry(None, dx=dx, Lx=LX, Ly=LY, Lz=LZ)
     mesh = geo.mesh
@@ -164,14 +175,23 @@ def _build_solver(
         duration=2.0,
     )
     M = define_conductivity_tensor(f0=geo.f0, **conductivities)
+    model = model or tp06
+    # zero the model's own pacing stimulus (its name differs per model family)
+    for key in ("stim_amplitude", "i_Stim_Amplitude"):
+        try:
+            parameters = model.init_parameter_values(**{key: 0.0})
+            break
+        except KeyError:
+            continue
+    else:
+        parameters = model.init_parameter_values()
     return FusedMonodomainSolver(
         mesh=mesh,
         M=M,
-        ode_fun=tp06.generalized_rush_larsen,
-        init_states=tp06.init_state_values(),
-        # zero the model's own pacing stimulus
-        parameters=tp06.init_parameter_values(stim_amplitude=0.0),
-        v_index=tp06.state_index("V"),
+        ode_fun=getattr(model, scheme),
+        init_states=model.init_state_values(),
+        parameters=parameters,
+        v_index=model.state_index("V" if "V" in model._STATE_NAMES else "v"),
         I_s=I_s,
         theta=theta,
         C_m=C_m,
@@ -192,13 +212,16 @@ def run_niederer_benchmark(
     dt: float = 0.05,
     T: float = 100.0,
     theta: float = 1.0,
+    scheme: str = "generalized_rush_larsen",
+    model=None,
     device=None,
     dtype=None,
     check_interval_ms: float = 20.0,
     **solver_kwargs,
 ) -> NiedererResult:
     """Run the benchmark on the port's fused solver, on the card unless
-    ``device`` names the CPU.
+    ``device`` names the CPU; ``model`` and ``scheme`` as
+    :func:`_build_solver` takes them.
 
     Chunks of ``check_interval_ms`` run back to back with the probe readout
     fused into each chunk; the timed horizon is the full ``T`` and ends with
@@ -209,6 +232,8 @@ def run_niederer_benchmark(
     solver = _build_solver(
         dx=dx,
         theta=theta,
+        scheme=scheme,
+        model=model,
         device=device,
         dtype=dtype,
         probe_points=np.array(list(points.values())),

@@ -22,7 +22,8 @@ Two operator paths, chosen by the assembly as in JAX
   counts match the JAX solver's.
 
 The ionic model is TP06 or ToR-ORd dynCl generalized Rush-Larsen (V in
-row 0) or FitzHugh-Nagumo forward Euler (V in row 1), and the solver takes
+row 0), FitzHugh-Nagumo forward Euler (V in row 1), or either step of a
+model that ``odefile.load_ode`` generated (V in its row), and the solver takes
 its kernels from the model's entry in
 :data:`~.ops.cuda_ode.IONIC_MODELS` (:func:`~.splitting.ionic_layer`,
 shared with the bidomain solver): B1 for one parameter vector, B1's
@@ -36,9 +37,9 @@ PyTorch twin, which is how the port is held against the JAX solver;
 ``use_kernels=False`` selects the twins on any device (the kernel check's
 reference on the card); there is no silent switch between the two.
 
-Scope of this port: TP06, ToR-ORd dynCl and FitzHugh-Nagumo (one
-parameter vector, a per-node parameter field, or one vector per marker of
-one model), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
+Scope of this port: TP06, ToR-ORd dynCl, FitzHugh-Nagumo and generated
+models (one parameter vector, a per-node parameter field, or one vector
+per marker of one model), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
 Everything else the JAX solver offers (merged Strang, other models,
 markers that mix models, per-marker parameter fields, non-TimeWindow
 stimuli) raises ``NotImplementedError``.  The node axis is not padded.

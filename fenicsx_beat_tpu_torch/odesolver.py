@@ -5,10 +5,10 @@ Port of ``make_multi_ode`` from ``fenicsx_beat_tpu/odesolver.py`` (the
 marker value, each stepping the nodes that carry its marker.  The rest of
 that module (the OO ODE solvers) is not ported yet.
 
-The composed step's markers all run one ported model, TP06 or ToR-ORd
-dynCl generalized Rush-Larsen (:data:`~.ops.cuda_ode.IONIC_MODELS`): on the
-card it is that model's multi-marker ionic kernel (B7,
-``csrc/tp06_grl_multi.cu`` or ``csrc/torord_grl_multi.cu``, through
+The composed step's markers all run one step of one ported model
+(:data:`~.ops.cuda_ode.IONIC_MODELS`: TP06, ToR-ORd dynCl, FitzHugh-Nagumo,
+or a model that ``odefile.load_ode`` generated): on the card it is that
+model's multi-marker ionic kernel (B7, found through
 :func:`~.ops.cuda_ode.ionic_model`).  Other models, and markers that mix
 models, raise ``NotImplementedError`` until they are ported (ROADMAP A4,
 A8, B7).

@@ -18,8 +18,8 @@ TPU format's COO tail stay in their rows, and the product equals the JAX
 kernel's plus its tail.
 
 On a CUDA tensor :func:`csr_spmv` launches the kernel; on a CPU tensor it
-runs the plain PyTorch twin :func:`csr_spmv_twin` (gather, multiply and
-``index_add_`` over the CSR triplets, in the tensor's own dtype).
+runs the plain PyTorch twin :func:`csr_spmv_twin` (gather, multiply and a
+fixed-order segment sum per row, in the tensor's own dtype).
 """
 
 from __future__ import annotations
@@ -83,7 +83,6 @@ class CSRMatrix:
     vals: torch.Tensor
     shape: tuple[int, int]
     diag: torch.Tensor | None = None
-    _rows: torch.Tensor | None = None  # int64 row of each entry, for the twin
 
     @classmethod
     def from_operator(cls, A) -> "CSRMatrix":
@@ -159,25 +158,22 @@ class CSRMatrix:
             diag = ca * diag + (cb * other.diag if other is not None else 0.0)
         return replace(self, vals=vals, diag=diag)
 
-    def row_of_entries(self) -> torch.Tensor:
-        """The row of every stored entry (int64), built once."""
-        if self._rows is None or self._rows.device != self.cols.device:
-            counts = (self.indptr[1:] - self.indptr[:-1]).long()
-            self._rows = torch.repeat_interleave(
-                torch.arange(self.shape[0], device=self.cols.device), counts
-            )
-        return self._rows
-
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return csr_spmv(self, x)
 
 
 def csr_spmv_twin(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin: ``y = index_add(rows, vals * x[cols])`` (the
-    gather as ``index_select``: the same values, and on the CPU it does not
-    take the multi-threaded advanced-indexing path, 100x slower there)."""
-    y = torch.zeros(A.shape[0], dtype=x.dtype, device=x.device)
-    return y.index_add_(0, A.row_of_entries(), A.vals.to(x.dtype) * torch.index_select(x, 0, A.cols.long()))
+    """Plain PyTorch twin: each row's products ``vals * x[cols]`` summed by
+    a segment sum over ``indptr``, with no atomics, so its order is fixed
+    on every device: on the CPU the entries one after another in CSR
+    order (bit for bit what ``index_add_`` over the row of each entry
+    gave), on the card one block per row in a fixed tree, the same bits
+    run after run (``index_add_`` there adds with float atomics, in an
+    order that changes between runs).  The gather is ``index_select``: on
+    the CPU it does not take the multi-threaded advanced-indexing path,
+    100x slower there."""
+    prod = A.vals.to(x.dtype) * torch.index_select(x, 0, A.cols.long())
+    return torch.segment_reduce(prod, "sum", offsets=A.indptr, unsafe=True)
 
 
 def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -25,10 +25,15 @@ launch the hand-written kernels (``csrc/tp06_grl{,_node,_multi}.cu``,
 ``csrc/torord_grl{,_node,_multi}.cu``, ``csrc/fhn_{step,node,multi}.cu``;
 one copy of each model's formulas in ``csrc/tp06.cuh``,
 ``csrc/torord.cuh`` and ``csrc/fhn.cuh``); on a CPU tensor they run their
-plain PyTorch twins.  The JAX kernels trace any jnp model; these are
-written for the models in :data:`IONIC_MODELS`, which :func:`ionic_model`
-looks up by the model's ``generalized_rush_larsen`` step, so the solvers
-pick kernels by model.  Any other model raises ``NotImplementedError``.
+plain PyTorch twins.  The JAX kernels trace any jnp model.  Here the
+models in :data:`IONIC_MODELS` have kernels, which :func:`ionic_model`
+looks up by the model's step function, so the solvers pick kernels by
+model: the three hand-written ones by their ``generalized_rush_larsen``,
+and every model that ``odefile.load_ode`` generates by both of its steps
+(:func:`register_model`: GRL1 and forward Euler, the JAX kernel runs
+either), whose kernels are the templates ``csrc/ode_{step,node,multi}.cu.in``
+with the model's own node body, built at the first launch.  Any other model
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._build import check, load_library, require_cuda_f32, require_cuda_i32, stream_ptr
+from .._build import (
+    check, load_library, load_model_library, model_symbol, require_cuda_f32, require_cuda_i32, stream_ptr,
+)
 from ..models import fitzhughnagumo as fhn
 from ..models import tentusscher_panfilov_2006 as tp06
 from ..models import torord_dyncl as torord
@@ -49,6 +56,7 @@ __all__ = [
     "IonicModel",
     "IONIC_MODELS",
     "ionic_model",
+    "register_model",
     "voltage_row",
     "model_index_from_masks",
     "tp06_grl_step_v",
@@ -78,8 +86,9 @@ def _time(t):
     return t if isinstance(t, torch.Tensor) else float(t)
 
 
-def _b1_twin(model: ModuleType) -> Callable:
+def _b1_twin(model: ModuleType, fun: Callable | None = None) -> Callable:
     vi = voltage_row(model)
+    fun = fun or model.generalized_rush_larsen
 
     def twin(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters) -> torch.Tensor:
         """Plain PyTorch twin of B1 and of its per-node form:
@@ -89,7 +98,7 @@ def _b1_twin(model: ModuleType) -> Callable:
         step captured in a CUDA graph)."""
         s = states.clone()
         s[vi] = v
-        states.copy_(model.generalized_rush_larsen(s, _time(t), parameters, float(dt)))
+        states.copy_(fun(s, _time(t), parameters, float(dt)))
         return states
 
     return twin
@@ -101,8 +110,9 @@ def _swap_rows(x: torch.Tensor, vi: int) -> torch.Tensor:
     return x if vi == 0 else torch.cat([x[vi : vi + 1], x[1:vi], x[:1], x[vi + 1 :]])
 
 
-def _b7_twin(model: ModuleType) -> Callable:
+def _b7_twin(model: ModuleType, fun: Callable | None = None) -> Callable:
     vi = voltage_row(model)
+    fun = fun or model.generalized_rush_larsen
 
     def twin(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
              table) -> torch.Tensor:
@@ -118,7 +128,7 @@ def _b7_twin(model: ModuleType) -> Callable:
         out = s
         for i in range(table.shape[0]):
             keep = index == i
-            y = model.generalized_rush_larsen(s_model, _time(t), table[i], float(dt))
+            y = fun(s_model, _time(t), table[i], float(dt))
             out = torch.where(keep[None, :], _swap_rows(y, vi), out)
         states.copy_(out)
         return states
@@ -132,7 +142,8 @@ def _shape_error(what: str, model: ModuleType, **shapes) -> ValueError:
                       f"{len(model._PARAM_NAMES)} parameters)")
 
 
-def _b1(name: str, model: ModuleType, twin: Callable) -> Callable:
+def _b1(name: str, model: ModuleType, twin: Callable, library: Callable = load_library,
+        symbol: str | None = None) -> Callable:
     S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
 
     def step(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, parameters) -> torch.Tensor:
@@ -145,7 +156,7 @@ def _b1(name: str, model: ModuleType, twin: Callable) -> Callable:
         params = np.ascontiguousarray(parameters, dtype=np.float32).reshape(-1)
         if params.shape[0] != NP:
             raise _shape_error("need the parameter vector", model, parameters=params.shape)
-        err = getattr(load_library().lib, name)(
+        err = getattr(library().lib, symbol or name)(
             states.data_ptr(), v.data_ptr(), n, float(t), float(dt), params.ctypes.data, stream_ptr(states),
         )
         check(err, name)
@@ -159,7 +170,8 @@ def _b1(name: str, model: ModuleType, twin: Callable) -> Callable:
     return _named(step, name)
 
 
-def _b1_node(name: str, model: ModuleType, twin: Callable) -> Callable:
+def _b1_node(name: str, model: ModuleType, twin: Callable, library: Callable = load_library,
+             symbol: str | None = None) -> Callable:
     S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
 
     def step(states: torch.Tensor, v: torch.Tensor, t: float, dt: float, params: torch.Tensor) -> torch.Tensor:
@@ -170,7 +182,7 @@ def _b1_node(name: str, model: ModuleType, twin: Callable) -> Callable:
         if states.shape[0] != S or v.shape != (n,) or params.shape != (NP, n):
             raise _shape_error("need (S, n), (n,) and (NP, n)", model, states=states.shape, v=v.shape,
                                params=params.shape)
-        err = getattr(load_library().lib, name)(
+        err = getattr(library().lib, symbol or name)(
             states.data_ptr(), v.data_ptr(), params.data_ptr(), n, float(t), float(dt), stream_ptr(states),
         )
         check(err, name)
@@ -183,7 +195,8 @@ def _b1_node(name: str, model: ModuleType, twin: Callable) -> Callable:
     return _named(step, name)
 
 
-def _b7(name: str, model: ModuleType, twin: Callable) -> Callable:
+def _b7(name: str, model: ModuleType, twin: Callable, library: Callable = load_library,
+        symbol: str | None = None) -> Callable:
     S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
 
     def step(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
@@ -198,7 +211,7 @@ def _b7(name: str, model: ModuleType, twin: Callable) -> Callable:
                                index=index.shape)
         if table.dim() != 2 or table.shape[1] != NP or table.shape[0] < 1:
             raise _shape_error("need the (NM, NP) table", model, table=table.shape)
-        err = getattr(load_library().lib, name)(
+        err = getattr(library().lib, symbol or name)(
             states.data_ptr(), v.data_ptr(), index.data_ptr(), n, float(t), float(dt),
             table.data_ptr(), table.shape[0], stream_ptr(states),
         )
@@ -276,8 +289,34 @@ IONIC_MODELS = {
 }
 
 
+def register_model(module: ModuleType, name: str) -> None:
+    """Register a model that :func:`~..odefile.load_ode` generated: for its
+    ``generalized_rush_larsen`` and its ``forward_euler``, an
+    :class:`IonicModel` (``<name>_grl`` and ``<name>_fe``) whose three
+    kernels launch the model's own library on the card
+    (:func:`~.._build.load_model_library` of ``module.cuda_source``, built
+    at the first launch) and run the module's steps as their twins on the
+    CPU."""
+    body = module.cuda_source
+    sym = model_symbol(body)
+
+    def library():
+        return load_model_library(body)
+
+    for scheme, fun in (("grl", module.generalized_rush_larsen), ("fe", module.forward_euler)):
+        base = f"{name}_{scheme}"
+        b1_twin, b7_twin = _b1_twin(module, fun), _b7_twin(module, fun)
+        IONIC_MODELS[fun] = IonicModel(
+            base, module,
+            _b1(f"{base}_step_v", module, b1_twin, library, f"{sym}_{scheme}_step_v"),
+            _b1_node(f"{base}_node_step_v", module, b1_twin, library, f"{sym}_{scheme}_node_step_v"),
+            _b7(f"{base}_multi_step_v", module, b7_twin, library, f"{sym}_{scheme}_multi_step_v"),
+            b1_twin, b7_twin,
+        )
+
+
 def ionic_model(fun: Callable) -> IonicModel:
-    """The ported model whose generalized Rush-Larsen step is ``fun``;
+    """The ported model whose ionic step is ``fun``;
     ``NotImplementedError`` for any other step."""
     try:
         return IONIC_MODELS[fun]
@@ -285,8 +324,9 @@ def ionic_model(fun: Callable) -> IonicModel:
         raise NotImplementedError(
             f"{getattr(fun, '__module__', '?')}.{getattr(fun, '__name__', fun)}: the port's ionic "
             "kernels run the generalized Rush-Larsen step of "
-            + " or ".join(f"models.{m.module.__name__.rsplit('.', 1)[-1]}" for m in IONIC_MODELS.values())
-            + " (forward_euler is FitzHugh-Nagumo's); other models are not ported yet (ROADMAP A4, A8)"
+            + " or ".join(f"models.{m.__name__.rsplit('.', 1)[-1]}" for m in (tp06, torord, fhn))
+            + " (forward_euler is FitzHugh-Nagumo's), or either step of a model that odefile.load_ode "
+            "generated; other models are not ported yet (ROADMAP A4, A8)"
         ) from None
 
 

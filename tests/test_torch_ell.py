@@ -9,6 +9,10 @@ package in f64 on the CPU (the port on the kernel's twin).
   other orders).
 - Rectangular operators, summed duplicates, dropped exact zeros, the
   shared-layout pair with ``combine``, and the device dispatch.
+- The twin's fixed summation order: on the CPU bit for bit the formula it
+  replaced (``index_add_`` over each entry's row, which the card runs with
+  float atomics), empty rows included; on the card, the same bits run
+  after run.
 """
 
 import jax.numpy as jnp
@@ -221,3 +225,27 @@ def test_kernel_matches_twin_on_card(cuda_device, lv_operators):
     assert float((yk - yt).abs().max()) <= 1e-4 * float(yt.abs().max())
     with pytest.raises(TypeError):
         cuda_ell.csr_spmv(A, x.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_twin_on_the_cpu_is_the_index_add_formula(dtype):
+    A = _random_csr(2000, 1500, 9, band=400, seed=11).tolil()
+    A[7, :] = 0.0  # an empty row, and a very long one
+    A[9, :1200] = np.random.default_rng(12).standard_normal(1200)
+    C = CSRMatrix.from_operator(A.tocsr()).to("cpu", dtype)
+    assert int(C.indptr[8] - C.indptr[7]) == 0 and int(C.indptr[10] - C.indptr[9]) >= 1200
+    x = torch.tensor(np.random.default_rng(13).standard_normal(1500) * 1e3, dtype=dtype)
+    rows = torch.repeat_interleave(torch.arange(2000), (C.indptr[1:] - C.indptr[:-1]).long())
+    old = torch.zeros(2000, dtype=dtype).index_add_(0, rows, C.vals * torch.index_select(x, 0, C.cols.long()))
+    assert torch.equal(cuda_ell.csr_spmv_twin(C, x), old)
+
+
+@pytest.mark.cuda
+def test_twin_repeats_its_bits_on_card(cuda_device, lv_operators):
+    _, (mass, stiff), _ = lv_operators
+    Cm, Ck = (C.to(cuda_device, torch.float32) for C in CSRMatrix.from_operator_pair(mass, stiff))
+    A = Cm.combine(1.0, Ck, 0.025)
+    x = torch.tensor(np.random.default_rng(14).uniform(-90, 40, A.shape[1]), dtype=torch.float32,
+                     device=cuda_device)
+    first = cuda_ell.csr_spmv_twin(A, x)
+    assert all(torch.equal(first, cuda_ell.csr_spmv_twin(A, x)) for _ in range(20))
