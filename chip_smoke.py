@@ -132,6 +132,33 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    demo on the generated forward Euler against phase 14's hand-written
    run, row by row.
 
+16. (run after 7, before the ECG) ToR-ORd dynCl + Land (52 states): each
+   celltype's single-cell steady
+   state (2 beats at BCL 1000 ms on Land's B1 with one node, the LV's
+   pre-pacing and B1's path) against the JAX package's float64 states;
+   Land's B1 and per-node form at n = 442,401 and B7 at the psize 0.1 LV's
+   layers against their twins by the one-step limits (ToR-ORd's slow rows
+   and Land's CaTrpn, TmB and Cd scaled) and over one paced beat of 4,096
+   cells, a uniform field giving B1's bits; the psize 0.3 Land LV's probes
+   within one dt of the JAX package's; Path L, the psize 0.1 LV with
+   pre-paced Land layers (30 ms timed, on until half the nodes fired; B7,
+   B8), the probes' active tension, then its layers as a per-node field
+   for 10 ms, equal bit for bit to the B7 run;
+17. B7's mixed-model form at n = 442,401 against its twin, per model's
+   nodes and state row: Path M's TP06 | Land split at x = 10 mm (union
+   [52, n]) and TP06 | FHN | no marker drawn node by node (the swaps; the
+   no-marker nodes bit for bit); one launch per model a step, blocks per
+   model, each launch's time against its bound; Path M, the two-model
+   Niederer slab at dx=0.1, Strang, 40 ms, through
+   ``benchmarks/mixed.py:run_mixed_slab`` on the kernels (ms/s, CG and
+   host syncs per step, P1-P9, launches per model, the share of blocks
+   two models cover); its 40 ms again on the kernels, on the twins and on
+   both from states one ulp away (v at every node within 3x that noise at
+   20 ms, the TP06 half's wave, and at 40 ms, the Land half's; the gap
+   over each half printed); the same at dx=0.5 against the
+   JAX package's float64 P1-P9 (``tests/torch_mixed_reference.py``), each
+   within one dt.
+
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -178,6 +205,17 @@ JAX_TORORD_LV_PSIZE03 = {
     "basal_endo": 2.5, "base_endo": 3.75, "mid_wall": -1.0,
 }
 JAX_TORORD_LV_PSIZE03_ACTIVATED = 0.25
+# The same with ToR-ORd dynCl + Land layers from init_state_values(), from
+#   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --psize 0.3 -T 30 --model torord_dyncl_land
+JAX_LAND_LV_PSIZE03 = {
+    "apex_endo": 2.05, "apical_endo": 1.3, "mid_endo": 1.65,
+    "basal_endo": 2.5, "base_endo": 3.65, "mid_wall": -1.0,
+}
+JAX_LV_PSIZE03_PROBES = {
+    "torord_dyncl": (JAX_TORORD_LV_PSIZE03, JAX_TORORD_LV_PSIZE03_ACTIVATED),
+    "torord_dyncl_land": (JAX_LAND_LV_PSIZE03, 0.25),
+}
+LV_TAGS = {"tp06": "lv", "torord_dyncl": "torord_lv", "torord_dyncl_land": "land_lv"}  # print tags
 # The slab demo (dx=0.05 bar, 3,636 nodes, 20 ms): activation times (ms) at
 # x = 0.3 and 0.7, float64 on the CPU, from
 #   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --slab 0.05 -T 20
@@ -213,6 +251,36 @@ JAX_STEADY = {
           0.9918523551, 0.0009159263064, 3.124387433e-05, 0.3167656376, 0.000163205505, 2.167477826e-65,
           5.207580671e-53],
 }
+# The same for ToR-ORd dynCl + Land (52 states; cai starts at Land's 1e-4;
+# XS, Zetas, Zetaw and Cd stay 0 unstretched), from
+#   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --steady-states --model torord_dyncl_land
+JAX_LAND_STEADY = {
+    0.0: [-89.71346313, 0.01099942657, 7.749076004e-05, 6.694099231e-05, 1.5500418, 1.548550129, 29.20697148,
+          29.20694682, 147.7130744, 147.713034, 12.39656764, 12.39692232, 0.0006566025064, 0.8467108495,
+          0.7008049828, 0.8467564031, 0.8466472995, 0.0001360116315, 0.5574859446, 0.3135656288,
+          0.0008919979828, 0.0004544727058, 0.999669654, 0.5998798862, 0.9996696506, 0.6643472815, 0.0,
+          0.9999999943, 0.9412891774, 0.9999999943, 0.9999007204, 0.9999853621, 0.9999999943, 0.9999999943,
+          0.0005496799955, 0.0009667253263, 0.0006509155205, 0.000791286891, 0.9928892423, 0.0002867204918,
+          9.637172037e-06, 0.2397057005, 0.0001591495384, 8.131076769e-77, 3.322264069e-62, 0.0001106248063,
+          0.0001669134894, 0.00917113803, 0.9995554259, 0.0, 0.0, 0.0],
+    1.0: [-89.84226968, 0.01105927912, 6.265937098e-05, 5.486656772e-05, 1.620200965, 1.617538307,
+          29.20821125, 29.20819294, 147.7023296, 147.7022948, 12.38693763, 12.38720944, 0.0006385987745,
+          0.8490379135, 0.7047426742, 0.8490745752, 0.8490000574, 0.0001327243608, 0.5628862759,
+          0.3205084195, 0.0008842863364, 0.0004505419185, 0.999676996, 0.999675334, 0.9996769958,
+          0.9996769044, 0.0, 0.9999999945, 0.9366960042, 0.9999999945, 0.9999066079, 0.9999815236,
+          0.9999999945, 0.9999999945, 0.0002540152791, 0.0004255096606, 0.0006431948188, 0.0007837357719,
+          0.9924869703, 0.000259836492, 8.670854023e-06, 0.2583656752, 0.0001568771973, 6.129026166e-76,
+          1.941591572e-61, 6.652523342e-05, 0.0001005883414, 0.006014090994, 0.9997322075, 0.0, 0.0, 0.0],
+    2.0: [-89.45799584, 0.01476531008, 7.515876139e-05, 6.232501718e-05, 1.594411604, 1.591422305,
+          29.21514633, 29.21512424, 147.6610474, 147.6610342, 12.44470173, 12.44509173, 0.000693804808,
+          0.8420019109, 0.6928883156, 0.8420220232, 0.8414112248, 0.0001427742398, 0.5355263803,
+          0.2769317416, 0.0009074933493, 0.0004623711078, 0.9996545475, 0.5291915894, 0.9996545438,
+          0.5817621263, 0.0, 0.9999999938, 0.8950977017, 0.9999999938, 0.9994605952, 0.9999284574,
+          0.9999999938, 0.9999999938, 0.0004168274266, 0.0008594820055, 0.0007068064567, 0.0008050849914,
+          0.9917837657, 0.000957628922, 3.273129719e-05, 0.3149525226, 0.0001637659441, 9.469421075e-65,
+          1.688614592e-52, 0.0001032954405, 0.0001552029207, 0.00863146661, 0.999586179, 0.0, 0.0, 0.0],
+}
+JAX_STEADY_STATES = {"torord_dyncl": JAX_STEADY, "torord_dyncl_land": JAX_LAND_STEADY}
 STEADY_V_TOL = 1.0  # mV
 STEADY_REL_TOL = 0.02  # every other state, relative to the JAX value
 # float32's smallest normal number: d, Jrel_np and Jrel_p rest below it in
@@ -248,9 +316,31 @@ TP06_OPS_PER_NODE = 400
 # helpers inlined (each operator and call once): about 1,570
 # add/mul/div/compare and 126 exp/log/sqrt/pow.
 TORORD_OPS_PER_NODE = 1_700
+# ToR-ORd dynCl + Land: ToR-ORd's, and Land's mechanics counted from
+# csrc/torord_land.cuh (about 70 add/mul/div/compare, 4 pow, 7 exp) and its
+# dcai (6 more)
+LAND_OPS_PER_NODE = TORORD_OPS_PER_NODE + 90
 # FitzHugh-Nagumo forward-Euler operations per node, counted from
 # csrc/fhn.cuh: 25 add/mul/div/neg and 3 compares.
 FHN_OPS_PER_NODE = 28
+IONIC_OPS_PER_NODE = {"tp06": TP06_OPS_PER_NODE, "torord_dyncl": TORORD_OPS_PER_NODE,
+                      "torord_dyncl_land": LAND_OPS_PER_NODE, "fhn": FHN_OPS_PER_NODE}
+# Path M, the two-model Niederer slab (benchmarks/mixed.py): TP06 on x < 10
+# mm, ToR-ORd dynCl + Land (endo) on the rest, Strang, dt=0.05, 40 ms, on B7's
+# mixed form; at dx=0.1 the kernel run is held to its twin run at every node
+# (3x float32's noise, measured as for the custom-ODE path)
+MIXED_DX, MIXED_T = 0.1, 40.0
+# The kernel-vs-twin comparison reads v at 20 ms (the wave reaches the Land
+# half: P9, at x = 10 mm, fires at 18.15 ms) and at 40 ms (Land's P3 and P7
+# fire at 33-34 ms): a twin run of the slab takes 61-78 s for 40 ms on an
+# H100 (0.51-0.65 ms/s)
+MIXED_TWIN_TIMES = (20.0, 40.0)
+# ... and at dx=0.5 (4,305 nodes) to the JAX package's P1-P9 in float64 on
+# the CPU, each within one dt (-1: not fired by 40 ms at this size), from
+#   JAX_PLATFORMS=cpu python tests/torch_mixed_reference.py --dx 0.5 -T 40
+JAX_MIXED_DX05 = {"P1": 1.2, "P2": -1.0, "P3": 36.25, "P4": -1.0, "P5": 13.95, "P6": -1.0, "P7": 35.3,
+                  "P8": -1.0, "P9": 25.8}
+JAX_MIXED_DX05_ACTIVATED = 0.7126596980255517
 # The bidomain Niederer slab (benchmarks/bidomain_scale.py): dx=0.1 at full
 # width, monolithic and Gauss-Seidel (its elliptic solve to 3e-4), 5 ms of
 # warm-up and a 10 ms timed window; the kernel run is held to the twin run.
@@ -385,6 +475,18 @@ SOURCES = {
     "fhn_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_step.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
     "fhn_node_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_node.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
     "fhn_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/fhn_multi.cu", "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    "torord_land_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_grl.cu",
+                               "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_land_grl_node_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_grl_node.cu",
+                                    "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_land_grl_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_grl_multi.cu",
+                                     "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    # B7's mixed-model form: each model's B7 kernel over its own blocks
+    # (the JAX kernel's active[model, block] table, pallas_ode.py:375-383)
+    "tp06_grl_multi_step_v[mixed]": ("fenicsx_beat_tpu_torch/csrc/tp06_grl_multi.cu",
+                                     "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    "torord_land_grl_multi_step_v[mixed]": ("fenicsx_beat_tpu_torch/csrc/torord_land_grl_multi.cu",
+                                            "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
 }
 
 
@@ -413,6 +515,13 @@ def time_ms(fn, launches: int = 20, reps: int = 7) -> float:
         runs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in runs) / launches
+
+
+def lv_layers(solver):
+    """The LV solver's B7 layer index (int32, one per node) and parameter
+    table on the card: its one model's launch."""
+    g = solver._ionic_groups[0]
+    return g.index, g.table
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -706,7 +815,7 @@ def phase_lv_setup():
     torch.cuda.synchronize()
     setup = time.perf_counter() - tic
     n = solver.V.ndofs
-    model = solver._multi[0]
+    model = lv_layers(solver)[0]
     print(f"[lv] psize {LV_PSIZE}: n={n} nodes, {solver.mesh.num_cells} cells, layers "
           f"(model index: count) {torch.bincount(model.long() + 1).tolist()[1:]}, "
           f"{solver._mass.nnz} operator entries, host setup {setup:.1f} s")
@@ -738,7 +847,7 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     layer_of = {i: f"celltype {CELLTYPES[m]:g}" for i, m in enumerate(sorted(CELLTYPES))}
 
     # B7: the LV's own layer index, every 97th node moved to "no layer"
-    model, table = solver._multi
+    model, table = lv_layers(solver)
     model = model.clone()
     model[::97] = -1
     groups = {name: torch.nonzero(model == i).flatten() for i, name in layer_of.items()}
@@ -775,7 +884,7 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     # one paced beat of BEAT_CELLS cells spread evenly over the LV, each
     # with its own layer's parameter set (the model's own pacing on)
     sample = torch.as_tensor(np.linspace(0, n - 1, BEAT_CELLS).astype(np.int64), device=dev)
-    model_b = solver._multi[0][sample].contiguous()
+    model_b = lv_layers(solver)[0][sample].contiguous()
     table_np = np.stack([tp06.init_parameter_values(celltype=CELLTYPES[m]) for m in sorted(CELLTYPES)])
     table_b = on_card(table_np)
     beat0 = on_card(np.tile(init[:, None], (1, BEAT_CELLS))
@@ -868,40 +977,45 @@ def phase_lv_parity() -> None:
     require(max(dev.values()) <= DT + 1e-6, "LV probe activation times within one dt of the JAX values")
 
 
-def phase_steady_states() -> tuple[dict, float]:
-    """Each ToR-ORd celltype's single-cell steady state on the card (the LV
-    demo's pre-pacing, B1 with one node), held to the JAX package's
-    float64 states; returns marker -> states and the pacing seconds."""
+def phase_steady_states(model: str = "torord_dyncl") -> tuple[dict, float, int]:
+    """Each celltype's single-cell steady state of ``model`` (ToR-ORd
+    dynCl, or ToR-ORd dynCl + Land) on the card (the LV demo's pre-pacing,
+    B1 with one node), held to the JAX package's float64 states; returns
+    marker -> states, the pacing seconds and B1's launches."""
     import tempfile
 
     import numpy as np
 
-    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES, PREPACE_BCL, PREPACE_BEATS, lv_steady_states
-    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
+    from fenicsx_beat_tpu_torch.benchmarks.lv import (
+        CELLTYPES, MODELS, PREPACE_BCL, PREPACE_BEATS, lv_steady_states,
+    )
     from fenicsx_beat_tpu_torch.ops import cuda_ode
 
-    names = tor._STATE_NAMES
+    m = MODELS[model]
+    names = m._STATE_NAMES
+    b1 = cuda_ode.ionic_model(m.generalized_rush_larsen).step
+    tag = "steady" if model == "torord_dyncl" else "land_steady"
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache:  # nothing cached: paced here
         tic = time.perf_counter()
-        steady = lv_steady_states(dt=DT, device=DEVICE, outdir=cache)
+        steady = lv_steady_states(dt=DT, device=DEVICE, outdir=cache, model=model)
         seconds = time.perf_counter() - tic
-    launches = cuda_ode.torord_grl_step_v.launches
+    launches = b1.launches
     steps = len(CELLTYPES) * PREPACE_BEATS * len(np.arange(0.0, PREPACE_BCL, DT))
-    print(f"[steady] {PREPACE_BEATS} beats at BCL {PREPACE_BCL} ms, dt={DT}, 3 celltypes: {seconds:.2f} s, "
-          f"{launches} torord_grl_step_v launches ({1e6 * seconds / steps:.1f} us per step)")
-    require(launches == steps, "every pacing step launched torord_grl_step_v")
+    print(f"[{tag}] {model}: {PREPACE_BEATS} beats at BCL {PREPACE_BCL} ms, dt={DT}, 3 celltypes: "
+          f"{seconds:.2f} s, {launches} {b1.__name__} launches ({1e6 * seconds / steps:.1f} us per step)")
+    require(launches == steps, f"every pacing step launched {b1.__name__}")
     for marker, y in steady.items():
         ct = CELLTYPES[marker]
-        ref = np.asarray(JAX_STEADY[ct])
+        ref = np.asarray(JAX_STEADY_STATES[model][ct])
         v_gap = abs(y[0] - ref[0])
         tiny = (np.abs(ref) < F32_MIN_NORMAL) & (np.abs(y) < F32_MIN_NORMAL)
         rel = np.where(tiny, 0.0, np.abs(y - ref) / np.maximum(np.abs(ref), 1e-300))
         rel[0] = 0.0
         worst = np.argsort(-rel)[:4]
-        print(f"[steady] celltype {ct:g}: |V - V_jax| {v_gap:.4e} mV (limit {STEADY_V_TOL:g}); max relative "
+        print(f"[{tag}] celltype {ct:g}: |V - V_jax| {v_gap:.4e} mV (limit {STEADY_V_TOL:g}); max relative "
               f"gap of the other states {rel.max():.3e} (limit {STEADY_REL_TOL:g}), largest "
               + ", ".join(f"{names[i]} {rel[i]:.2e}" for i in worst)
               + "; below float32's normal range in both: " + ", ".join(names[i] for i in np.nonzero(tiny)[0]))
@@ -909,46 +1023,52 @@ def phase_steady_states() -> tuple[dict, float]:
         require(v_gap <= STEADY_V_TOL, f"celltype {ct:g} steady V within {STEADY_V_TOL:g} mV of the JAX value")
         require(rel.max() <= STEADY_REL_TOL,
                 f"celltype {ct:g} steady states within {STEADY_REL_TOL:g} of the JAX values")
-    return steady, seconds
+    return steady, seconds, launches
 
 
-def phase_torord_lv_setup(steady: dict):
-    """The demo's own LV at full width: ToR-ORd layers from the pre-paced
-    steady states, its host setup timed."""
+def phase_torord_lv_setup(steady: dict, model: str = "torord_dyncl"):
+    """The demo's own LV at full width: ToR-ORd (or ToR-ORd + Land) layers
+    from the pre-paced steady states, its host setup timed."""
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks.lv import build_lv_solver, lv_probe_points
 
     tic = time.perf_counter()
     solver = build_lv_solver(
-        psize=LV_PSIZE, device=DEVICE, precond="jacobi", model="torord_dyncl", init_states=steady,
+        psize=LV_PSIZE, device=DEVICE, precond="jacobi", model=model, init_states=steady,
         probe_points=list(lv_probe_points(LV_PSIZE).values()),
     )
     torch.cuda.synchronize()
     setup = time.perf_counter() - tic
-    print(f"[torord_lv] psize {LV_PSIZE}: n={solver.V.ndofs} nodes, {solver.states.shape[0]} states, "
+    print(f"[{LV_TAGS[model]}] psize {LV_PSIZE}: n={solver.V.ndofs} nodes, {solver.states.shape[0]} states, "
           f"host setup {setup:.1f} s")
-    require(solver.V.ndofs == N_LV and solver._ionic.name == "torord_dyncl", "the ToR-ORd LV at full width")
+    require(solver.V.ndofs == N_LV and solver._ionic.name == model, f"the {model} LV at full width")
     return solver, setup
 
 
-def phase_torord_kernels(solver, seed: int = 3) -> dict:
-    """ToR-ORd's B1, its per-node form and B7 against their twins at the
-    full-width LV's shapes, B7 with the LV's own layers and table."""
+def phase_torord_kernels(solver, seed: int = 3, model: str = "torord_dyncl", n_b1: int | None = None) -> dict:
+    """B1, its per-node form and B7 of ToR-ORd dynCl (or of ToR-ORd dynCl +
+    Land: ``model``) against their twins: B1's forms at ``n_b1`` nodes (the
+    LV's when None), B7 at the full-width LV's shapes with the LV's own
+    layers and table."""
     import numpy as np
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
-    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES, MODELS
     from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
-    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
     from fenicsx_beat_tpu_torch.ops import cuda_ode
 
     rng = np.random.default_rng(seed)
     dev = torch.device(DEVICE)
+    tor = MODELS[model]
+    spec = cuda_ode.ionic_model(tor.generalized_rush_larsen)
+    b1n, noden, b7n = spec.step.__name__, spec.node_step.__name__, spec.multi_step.__name__
     n = solver.V.ndofs
+    n_b1 = n_b1 or n
     S_, NP, f32 = len(tor._STATE_NAMES), len(tor._PARAM_NAMES), 4
     names = tor._STATE_NAMES
+    ops = IONIC_OPS_PER_NODE[model]
 
     def on_card(a):
         return torch.as_tensor(np.asarray(a), device=dev).to(torch.float32).contiguous()
@@ -957,12 +1077,15 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
         return " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(names, e))
 
     init = tor.init_state_values()
-    states = np.tile(init[:, None], (1, n)) * (1 + 0.05 * rng.standard_normal((S_, n)))
-    states[0] = rng.uniform(-90.0, 40.0, n)
-    S0 = on_card(states)
-    v = on_card(rng.uniform(-90.0, 40.0, n))
+    S0 = on_card(kc.check_states(model, n_b1, rng))
+    v = on_card(rng.uniform(-90.0, 40.0, n_b1))
+    if n_b1 == n:
+        S0_lv, v_lv = S0, v
+    else:
+        S0_lv = on_card(kc.check_states(model, n, rng))
+        v_lv = on_card(rng.uniform(-90.0, 40.0, n))
     table = np.stack([tor.init_parameter_values(i_Stim_Amplitude=0.0, celltype=ct) for ct in kc.CELLTYPES])
-    state_sets = kc.step_check_states(S0, "torord_dyncl")
+    state_sets = kc.step_check_states(S0, model)
     rows = {}
 
     # B1 per celltype; its per-node form on each celltype's uniform field
@@ -972,40 +1095,37 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
         ct_err = torch.zeros(S_, dtype=torch.float64, device=dev)
         for _, S in state_sets:
             for dt in (0.025, 0.05):
-                a, e = kc.ionic_step_errors(cuda_ode.torord_grl_step_v, cuda_ode.torord_grl_step_v_twin,
-                                            S, v, 1.0, dt, table[i])
+                a, e = kc.ionic_step_errors(spec.step, spec.step_twin, S, v, 1.0, dt, table[i])
                 b1_abs, ct_err = max(b1_abs, a), torch.maximum(ct_err, e)
-        print(f"[kernels] torord_grl_step_v one step, celltype {ct:g}, all state sets and dt: per row "
+        print(f"[kernels] {b1n} one step, n={n_b1}, celltype {ct:g}, all state sets and dt: per row "
               f"|k-w| beyond 1 ulp / max|increment|: {per_row(ct_err)}")
         require(bool((ct_err <= kc.IONIC_STEP_TOL).all()),
-                f"torord_grl_step_v one-step increments agree with its twin, celltype {ct:g}")
+                f"{b1n} one-step increments agree with its twin, celltype {ct:g}")
         b1_err = torch.maximum(b1_err, ct_err)
-        uniform = on_card(np.tile(table[i][:, None], (1, n)))
+        uniform = on_card(np.tile(table[i][:, None], (1, n_b1)))
         a, b = S0.clone(), S0.clone()
-        cuda_ode.torord_grl_step_v(a, v, 1.0, DT, table[i])
-        cuda_ode.torord_grl_node_step_v(b, v, 1.0, DT, uniform)
-        require(torch.equal(a, b), f"torord_grl_node_step_v on a uniform field of celltype {ct:g} gives "
-                "torord_grl_step_v's bits")
+        spec.step(a, v, 1.0, DT, table[i])
+        spec.node_step(b, v, 1.0, DT, uniform)
+        require(torch.equal(a, b), f"{noden} on a uniform field of celltype {ct:g} gives {b1n}'s bits")
         del uniform
 
     # the per-node form on a field of mixed celltypes, per celltype's nodes
-    cts = rng.integers(0, len(kc.CELLTYPES), n)
+    cts = rng.integers(0, len(kc.CELLTYPES), n_b1)
     mixed = on_card(table[cts].T)
     groups = {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts == i)[0], device=dev)
               for i, ct in enumerate(kc.CELLTYPES)}
     node_abs, node_err = 0.0, {g: torch.zeros(S_, dtype=torch.float64, device=dev) for g in groups}
     for _, S in state_sets:
         for dt in (0.025, 0.05):
-            out = kc.ionic_step_errors_by_group(cuda_ode.torord_grl_node_step_v, cuda_ode.torord_grl_step_v_twin,
-                                                S, v, 1.0, dt, mixed, groups)
+            out = kc.ionic_step_errors_by_group(spec.node_step, spec.step_twin, S, v, 1.0, dt, mixed, groups)
             for g, (a, e) in out.items():
                 node_abs, node_err[g] = max(node_abs, a), torch.maximum(node_err[g], e)
     for g, e in node_err.items():
-        print(f"[kernels] torord_grl_node_step_v one step, mixed field, {g}: per row {per_row(e)}")
-        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"torord_grl_node_step_v one-step increments agree, {g}")
+        print(f"[kernels] {noden} one step, mixed field, {g}: per row {per_row(e)}")
+        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"{noden} one-step increments agree, {g}")
 
     # B7: the LV's own layer index and table, every 97th node in no layer
-    index, lv_table = solver._multi
+    index, lv_table = lv_layers(solver)
     index = index.clone()
     index[::97] = -1
     layer_of = {i: f"celltype {CELLTYPES[m]:g}" for i, m in enumerate(sorted(CELLTYPES))}
@@ -1014,23 +1134,22 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
     lv_table_np = lv_table.double().cpu().numpy()
 
     def b7(S, v, t, dt, p):
-        return cuda_ode.torord_grl_multi_step_v(S, v, index, t, dt, lv_table)
+        return spec.multi_step(S, v, index, t, dt, lv_table)
 
     def b7_twin(S, v, t, dt, p):
-        return cuda_ode.torord_grl_multi_step_v_twin(S, v, index, t, dt, lv_table_np)
+        return spec.multi_step_twin(S, v, index, t, dt, lv_table_np)
 
     b7_abs, b7_err = 0.0, {g: torch.zeros(S_, dtype=torch.float64, device=dev) for g in layer_of.values()}
-    for _, S in state_sets:
+    for _, S in kc.step_check_states(S0_lv, model):
         for dt in (0.025, 0.05):
-            for g, (a, e) in kc.ionic_step_errors_by_group(b7, b7_twin, S, v, 1.0, dt, None, b7_groups).items():
+            for g, (a, e) in kc.ionic_step_errors_by_group(b7, b7_twin, S, v_lv, 1.0, dt, None, b7_groups).items():
                 if g == "no layer":
-                    require(a == 0.0, "torord_grl_multi_step_v leaves the nodes of no layer as they were")
+                    require(a == 0.0, f"{b7n} leaves the nodes of no layer as they were")
                     continue
                 b7_abs, b7_err[g] = max(b7_abs, a), torch.maximum(b7_err[g], e)
     for g, e in b7_err.items():
-        print(f"[kernels] torord_grl_multi_step_v one step, {g} ({b7_groups[g].numel()} nodes): per row "
-              f"{per_row(e)}")
-        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"torord_grl_multi_step_v one-step increments agree, {g}")
+        print(f"[kernels] {b7n} one step, {g} ({b7_groups[g].numel()} nodes): per row {per_row(e)}")
+        require(bool((e <= kc.IONIC_STEP_TOL).all()), f"{b7n} one-step increments agree, {g}")
 
     # one paced beat (the model's own stimulus at 0-1 ms) of
     # TORORD_BEAT_CELLS cells per kernel: B1 in endo, the per-node form on
@@ -1041,18 +1160,17 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
     cts_b = rng.integers(0, len(kc.CELLTYPES), m)
     mixed_b = on_card(paced[cts_b].T)
     sample = torch.as_tensor(np.linspace(0, n - 1, m).astype(np.int64), device=dev)
-    index_b = solver._multi[0][sample].contiguous()
+    index_b = lv_layers(solver)[0][sample].contiguous()
     paced_layers = np.stack([tor.init_parameter_values(celltype=CELLTYPES[mk]) for mk in sorted(CELLTYPES)])
     paced_layers_b = on_card(paced_layers)
     beats = {
-        "torord_grl_step_v": (cuda_ode.torord_grl_step_v, cuda_ode.torord_grl_step_v_twin, paced[0],
-                              {"celltype 0": None}),
-        "torord_grl_node_step_v": (cuda_ode.torord_grl_node_step_v, cuda_ode.torord_grl_step_v_twin, mixed_b,
-                                   {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts_b == i)[0], device=dev)
-                                    for i, ct in enumerate(kc.CELLTYPES)}),
-        "torord_grl_multi_step_v": (
-            lambda S, v, t, dt, p: cuda_ode.torord_grl_multi_step_v(S, v, index_b, t, dt, paced_layers_b),
-            lambda S, v, t, dt, p: cuda_ode.torord_grl_multi_step_v_twin(S, v, index_b, t, dt, paced_layers),
+        b1n: (spec.step, spec.step_twin, paced[0], {"celltype 0": None}),
+        noden: (spec.node_step, spec.step_twin, mixed_b,
+                {f"celltype {ct:g}": torch.as_tensor(np.nonzero(cts_b == i)[0], device=dev)
+                 for i, ct in enumerate(kc.CELLTYPES)}),
+        b7n: (
+            lambda S, v, t, dt, p: spec.multi_step(S, v, index_b, t, dt, paced_layers_b),
+            lambda S, v, t, dt, p: spec.multi_step_twin(S, v, index_b, t, dt, paced_layers),
             None, {name: torch.nonzero(index_b == i).flatten() for i, name in layer_of.items()}),
     }
     for name, (step, twin, p, bgroups) in beats.items():
@@ -1064,56 +1182,58 @@ def phase_torord_kernels(solver, seed: int = 3) -> dict:
                   f"{took:.1f} s), max|k-w| {a:.3e}; per row max|k-w| / max excursion: {per_row(e)}")
             require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{name} agrees with its twin over one beat, {g}")
 
-    scratch = S0.clone()
+    scratch, scratch_lv = S0.clone(), S0_lv.clone()
     p0 = table[0]
-    b1_bytes = 2 * S_ * n * f32  # S - 1 rows and the injected v read, S rows written
-    rows["torord_grl_step_v"] = row(
+    b1_bytes = 2 * S_ * n_b1 * f32  # S - 1 rows and the injected v read, S rows written
+    rows[b1n] = row(
         (b1_abs, float(b1_err.max())),
-        time_ms(lambda: cuda_ode.torord_grl_step_v(scratch, v, 1.0, 0.025, p0)),
-        time_ms(lambda: cuda_ode.torord_grl_step_v_twin(scratch, v, 1.0, 0.025, p0), launches=5, reps=3),
-        bound(b1_bytes, TORORD_OPS_PER_NODE * n), None,
+        time_ms(lambda: spec.step(scratch, v, 1.0, 0.025, p0)),
+        time_ms(lambda: spec.step_twin(scratch, v, 1.0, 0.025, p0), launches=5, reps=3),
+        bound(b1_bytes, ops * n_b1), None,
     )
-    rows["torord_grl_node_step_v"] = row(
+    rows[noden] = row(
         (node_abs, max(float(e.max()) for e in node_err.values())),
-        time_ms(lambda: cuda_ode.torord_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
-        time_ms(lambda: cuda_ode.torord_grl_step_v_twin(scratch, v, 1.0, 0.025, mixed), launches=5, reps=3),
-        bound(b1_bytes + NP * n * f32, TORORD_OPS_PER_NODE * n), None,
+        time_ms(lambda: spec.node_step(scratch, v, 1.0, 0.025, mixed)),
+        time_ms(lambda: spec.step_twin(scratch, v, 1.0, 0.025, mixed), launches=5, reps=3),
+        bound(b1_bytes + NP * n_b1 * f32, ops * n_b1), None,
     )
-    rows["torord_grl_multi_step_v"] = row(
+    rows[b7n] = row(
         (b7_abs, max(float(e.max()) for e in b7_err.values())),
-        time_ms(lambda: b7(scratch, v, 1.0, 0.025, None)),
-        time_ms(lambda: b7_twin(scratch, v, 1.0, 0.025, None), launches=5, reps=3),
-        bound(b1_bytes + n * 4, TORORD_OPS_PER_NODE * n), None,
+        time_ms(lambda: b7(scratch_lv, v_lv, 1.0, 0.025, None)),
+        time_ms(lambda: b7_twin(scratch_lv, v_lv, 1.0, 0.025, None), launches=5, reps=3),
+        bound(2 * S_ * n * f32 + n * 4, ops * n), None,  # and the model index
     )
     dev_us = {
-        "torord_grl_step_v": device_us_per_call(lambda: cuda_ode.torord_grl_step_v(scratch, v, 1.0, 0.025, p0)),
-        "torord_grl_node_step_v": device_us_per_call(
-            lambda: cuda_ode.torord_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
-        "torord_grl_multi_step_v": device_us_per_call(lambda: b7(scratch, v, 1.0, 0.025, None)),
+        b1n: device_us_per_call(lambda: spec.step(scratch, v, 1.0, 0.025, p0)),
+        noden: device_us_per_call(lambda: spec.node_step(scratch, v, 1.0, 0.025, mixed)),
+        b7n: device_us_per_call(lambda: b7(scratch_lv, v_lv, 1.0, 0.025, None)),
     }
     torch.cuda.synchronize()
-    print("[kernels] device time per call (torch.profiler, us): "
+    print(f"[kernels] device time per call (torch.profiler, us; B1's forms at n={n_b1}, B7 at n={n}): "
           + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
     print_rows(rows)
     return rows
 
 
-def phase_torord_lv_parity() -> None:
-    from fenicsx_beat_tpu_torch.benchmarks.lv import run_lv
+def phase_torord_lv_parity(model: str = "torord_dyncl") -> None:
+    from fenicsx_beat_tpu_torch.benchmarks.lv import MODELS, run_lv
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
 
+    b7 = cuda_ode.ionic_model(MODELS[model].generalized_rush_larsen).multi_step.__name__
+    ref, ref_share = JAX_LV_PSIZE03_PROBES[model]
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
-    res = run_lv(psize=LV_CHECK_PSIZE, dt=DT, T=LV_T, device=DEVICE, precond="jacobi", model="torord_dyncl",
+    res = run_lv(psize=LV_CHECK_PSIZE, dt=DT, T=LV_T, device=DEVICE, precond="jacobi", model=model,
                  prepace=False)
-    dev = {k: abs(res.probes[k] - v) for k, v in JAX_TORORD_LV_PSIZE03.items()}
-    print(f"[torord_lv_parity] psize {LV_CHECK_PSIZE}, ToR-ORd layers unpaced: n={res.n_nodes}, probes "
+    dev = {k: abs(res.probes[k] - v) for k, v in ref.items()}
+    print(f"[{LV_TAGS[model]}_parity] psize {LV_CHECK_PSIZE}, {model} layers unpaced: n={res.n_nodes}, probes "
           + ", ".join(f"{k}={v:.2f}" for k, v in res.probes.items())
           + "; |probe - JAX| " + ", ".join(f"{k}={d:.3f}" for k, d in dev.items())
-          + f"; activated share {res.activated_share:.4f} (JAX {JAX_TORORD_LV_PSIZE03_ACTIVATED}); "
+          + f"; activated share {res.activated_share:.4f} (JAX {ref_share}); "
           f"launches {json.dumps({k: w.launches for k, w in wrappers.items() if w.launches})}")
-    require(res.all_finite, "psize 0.3 ToR-ORd LV states finite")
-    require(wrappers["torord_grl_multi_step_v"].launches > 0, "the ToR-ORd LV runs torord_grl_multi_step_v")
-    require(max(dev.values()) <= DT + 1e-6, "ToR-ORd LV probe activation times within one dt of the JAX values")
+    require(res.all_finite, f"psize 0.3 {model} LV states finite")
+    require(wrappers[b7].launches > 0, f"the {model} LV runs {b7}")
+    require(max(dev.values()) <= DT + 1e-6, f"{model} LV probe activation times within one dt of the JAX values")
 
 
 def phase_slab() -> dict:
@@ -1159,7 +1279,6 @@ def phase_node_paths(lv_solver, t0: float) -> dict:
 
     from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver
     from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
-    from fenicsx_beat_tpu_torch.models import torord_dyncl as tor
 
     wrappers = kernel_wrappers()
     launches = {}
@@ -1182,25 +1301,287 @@ def phase_node_paths(lv_solver, t0: float) -> dict:
             "the field run launched tp06_grl_node_step_v and not tp06_grl_step_v")
     del ref, fld
 
-    # ToR-ORd: the LV's layers as a per-node field, from the LV's state
-    index, table = lv_solver._multi
+    launches.update(lv_node_path(lv_solver, t0))
+    return launches
+
+
+def lv_node_path(lv_solver, t0: float) -> dict:
+    """The LV of ``lv_solver`` (ToR-ORd or ToR-ORd + Land layers) from its
+    state at ``t0`` for 10 ms with its layers as a per-node parameter field
+    (B1's per-node form), against the same window on its layer table (B7):
+    every state and activation time equal.  Returns the per-node form's
+    launches."""
+    import torch
+
+    spec = lv_solver._ionic_groups[0].model
+    node, multi = spec.node_step.__name__, spec.multi_step.__name__
+    wrappers = kernel_wrappers()
+    index, table = lv_layers(lv_solver)
     field = table.index_select(0, index.long()).T.double().cpu().numpy()
-    fld = field_solver(lv_solver, tor.generalized_rush_larsen, field, lv_solver.states.double().cpu().numpy())
+    fld = field_solver(lv_solver, spec.module.generalized_rush_larsen, field,
+                       lv_solver.states.double().cpu().numpy())
     fld.activation_time = lv_solver.activation_time.clone()
     zero_launches(wrappers)  # counted over the field run alone
     res = fld.run_chunk(t0, DT, 200)
-    launches["torord_grl_node_step_v"] = wrappers["torord_grl_node_step_v"].launches
-    multi_before = wrappers["torord_grl_multi_step_v"].launches
+    launches = {node: wrappers[node].launches}
+    multi_before = wrappers[multi].launches
     lv_solver.run_chunk(t0, DT, 200)  # the same window on the layer table
     same = torch.equal(fld.states, lv_solver.states) and torch.equal(fld.activation_time, lv_solver.activation_time)
-    print(f"[node_paths] ToR-ORd LV psize {LV_PSIZE}, layers as a ({field.shape[0]}, {field.shape[1]}) field, "
+    print(f"[node_paths] {spec.name} LV psize {LV_PSIZE}, layers as a ({field.shape[0]}, {field.shape[1]}) field, "
           f"{t0:g} to {res.t:g} ms: states and activation times equal to the B7 run: {same}; max|dV| "
-          f"{float((fld.v - lv_solver.v).abs().max()):.3e}; torord_grl_node_step_v launches "
-          f"{launches['torord_grl_node_step_v']}, torord_grl_multi_step_v {multi_before} in the field run")
-    require(same, "the ToR-ORd LV on its per-node field equals the run on its layer table")
-    require(launches["torord_grl_node_step_v"] > 0 and multi_before == 0,
-            "the field run launched torord_grl_node_step_v and not torord_grl_multi_step_v")
+          f"{float((fld.v - lv_solver.v).abs().max()):.3e}; {node} launches {launches[node]}, {multi} "
+          f"{multi_before} in the field run")
+    require(same, f"the {spec.name} LV on its per-node field equals the run on its layer table")
+    require(launches[node] > 0 and multi_before == 0, f"the field run launched {node} and not {multi}")
     return launches
+
+
+def phase_mixed_setup():
+    """Path M's solver at full width (the dx=0.1 slab, TP06 | Land at x =
+    10 mm), its host setup timed, and its mixed groups."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.mixed import build_mixed_solver
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import benchmark_points
+
+    tic = time.perf_counter()
+    solver = build_mixed_solver(dx=MIXED_DX, device=DEVICE, probe_points=np.array(list(benchmark_points().values())))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - tic
+    print(f"[mixed] dx={MIXED_DX}: n={solver.V.ndofs} nodes, union states {tuple(solver.states.shape)} "
+          f"({solver.states.numel() * 4 / 1e6:.1f} MB), {solver._ionic.name}, blocks per model "
+          + ", ".join(f"{g.model.name} {g.blocks.numel()}" for g in solver._ionic_groups)
+          + f", host setup {setup:.1f} s")
+    require(solver.V.ndofs == N_MAIN and solver._ionic.name == "tp06+torord_dyncl_land",
+            "Path M at full width, TP06 and Land")
+    return solver, setup
+
+
+def _mixed_step_check(tag: str, step, twin, S0, v, groups: dict, state_models, rows_of: dict) -> tuple:
+    """One step of B7's mixed form (``step``) and its twin from ``S0`` and
+    each of the models' slow-row sets, both dt: per group of nodes, every
+    state row within the one-step limit; nodes of no marker bit for bit.
+    Returns each model group's (max abs, worst per-row error)."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+
+    sets = [("physiological", S0)]
+    for model in state_models:
+        sets += kc.step_check_states(S0, model)[1:]
+    worst_abs = dict.fromkeys(groups, 0.0)
+    err = {g: torch.zeros(S0.shape[0], dtype=torch.float64, device=S0.device) for g in groups}
+    for _, S in sets:
+        for dt in (0.025, 0.05):
+            for g, (a, e) in kc.ionic_step_errors_by_group(step, twin, S, v, 1.0, dt, None, groups).items():
+                if g == "no marker":
+                    require(a == 0.0, f"{tag}: the nodes of no marker keep their states, V injected, bit for bit")
+                    continue
+                worst_abs[g], err[g] = max(worst_abs[g], a), torch.maximum(err[g], e)
+    for g, e in err.items():
+        if g == "no marker":
+            continue
+        names = rows_of[g]
+        print(f"[mixed_kernels] {tag}, {g} nodes ({groups[g].numel()}), all state sets and dt: per row |k-w| "
+              "beyond 1 ulp / max|increment|: " + " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(names, e)))
+        require(bool((e[: len(names)] <= kc.IONIC_STEP_TOL).all()), f"{tag}: one-step increments agree, {g}")
+        require(bool((e[len(names):] == 0).all()), f"{tag}: rows beyond {g}'s own stay as they were")
+    return {g: (worst_abs[g], float(e.max())) for g, e in err.items() if g != "no marker"}
+
+
+def phase_mixed_kernels(solver, seed: int = 5) -> dict:
+    """B7's mixed-model form against its twin at the main path's width
+    (n = 442,401), in two cases: Path M's own groups (TP06 | Land split at
+    x = 10 mm; the union [52, n]) and TP06 | FHN | no marker drawn node by
+    node (every block holds all three; FHN's voltage row 1 exercises the
+    swaps).  Launches per model, blocks per model, each launch's time
+    against its bound."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.mixed import LAND_MARKER, TP06_MARKER, mixed_markers
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.models import fitzhughnagumo as fhn
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu_torch.models import torord_dyncl_land as land
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+    from fenicsx_beat_tpu_torch.splitting import check_ionic_scope, ionic_layer
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    n, f32 = solver.V.ndofs, 4
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a), device=dev).to(torch.float32).contiguous()
+
+    # case A: Path M's groups, TP06 nodes from TP06's check states, Land's from Land's
+    groups = solver._ionic_groups
+    markers = mixed_markers(solver.V.dof_coords)
+    S = np.zeros((52, n))
+    S[:19] = kc.check_states("tp06", n, rng)
+    land_nodes = markers == LAND_MARKER
+    S[:, land_nodes] = kc.check_states("torord_dyncl_land", n, rng)[:, land_nodes]
+    S0, v = on_card(S), on_card(rng.uniform(-90.0, 40.0, n))
+    node_groups = {"tp06": torch.as_tensor(np.nonzero(markers == TP06_MARKER)[0], device=dev),
+                   "torord_dyncl_land": torch.as_tensor(np.nonzero(land_nodes)[0], device=dev)}
+
+    def step(S_, v_, t, dt, _p):
+        return cuda_ode.mixed_multi_step(S_, v_, groups, t, dt)
+
+    def twin(S_, v_, t, dt, _p):
+        return cuda_ode.mixed_multi_step_twin(S_, v_, groups, t, dt)
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    step(S0.clone(), v, 1.0, DT, None)
+    once = {g.model.name: g.model.multi_step.launches for g in groups}
+    print(f"[mixed_kernels] one mixed step: launches per model {json.dumps(once)}")
+    require(all(c == 1 for c in once.values()), "one launch per model a step")
+    errs = _mixed_step_check("TP06 | Land along x", step, twin, S0, v, node_groups, ("tp06", "torord_dyncl_land"),
+                             {"tp06": tp06._STATE_NAMES, "torord_dyncl_land": land._STATE_NAMES})
+
+    # case B: TP06 | FHN | no marker, node by node, on the union [19, n]
+    mk = rng.choice([1, 2, 9], n)
+    funs = {1: tp06.generalized_rush_larsen, 2: fhn.generalized_rush_larsen}
+    init = {1: tp06.init_state_values(), 2: fhn.init_state_values()}
+    params = {1: tp06.init_parameter_values(stim_amplitude=0.0), 2: fhn.init_parameter_values(b=0.02)}
+    v_idx = {1: tp06.state_index("V"), 2: fhn.state_index("v")}
+    layers = [ionic_layer(check_ionic_scope(funs, mk, init, params, v_idx), funs, mk, init, params, v_idx, n, dev,
+                          torch.float32, k) for k in (True, False)]
+    SB = kc.check_states("tp06", n, rng)
+    SB[0, mk == 2] = rng.uniform(-90.0, 40.0, int((mk == 2).sum()))  # FHN's v, stored in row 0
+    SB[1, mk == 2] = rng.uniform(0.0, 60.0, int((mk == 2).sum()))  # FHN's s, in v's own row
+    groups_b = {"tp06": torch.as_tensor(np.nonzero(mk == 1)[0], device=dev),
+                "fhn": torch.as_tensor(np.nonzero(mk == 2)[0], device=dev),
+                "no marker": torch.as_tensor(np.nonzero(mk == 9)[0], device=dev)}
+    _mixed_step_check("TP06 | FHN | no marker inside blocks", lambda S_, v_, t, dt, _p: layers[0].step(S_, v_, t, dt),
+                      lambda S_, v_, t, dt, _p: layers[1].step(S_, v_, t, dt), on_card(SB), v, groups_b, ("tp06",),
+                      {"tp06": tp06._STATE_NAMES, "fhn": ["v", "s"]})
+    print("[mixed_kernels] TP06 | FHN | no marker: blocks per model "
+          + ", ".join(f"{g.model.name} {g.blocks.numel()}" for g in layers[0].groups) + f" of {-(-n // 256)}")
+
+    # timings: each model's launch over its blocks, and the whole step
+    scratch = S0.clone()
+    rows, dev_us = {}, {}
+    total_bound = 0.0
+    for g in groups:
+        S_m = g.model.num_states
+        own = int((g.index >= 0).sum())
+        in_blocks = min(int(g.blocks.numel()) * 256, n)
+        nbytes = own * 2 * S_m * f32 + in_blocks * 4  # S-1 rows and v read, S written; the blocks' index
+        b = bound(nbytes, IONIC_OPS_PER_NODE[g.model.name] * own)
+        total_bound += b[0]
+        name = f"{g.model.multi_step.__name__}[mixed]"
+        rows[name] = row(
+            errs[g.model.name],
+            time_ms(lambda g=g: g.model.multi_step(scratch, v, g.index, 1.0, 0.025, g.table, blocks=g.blocks)),
+            time_ms(lambda g=g: cuda_ode.mixed_multi_step_twin(scratch, v, [g], 1.0, 0.025), launches=5, reps=3),
+            b, None,
+        )
+        dev_us[name] = device_us_per_call(
+            lambda g=g: g.model.multi_step(scratch, v, g.index, 1.0, 0.025, g.table, blocks=g.blocks))
+        print(f"[mixed_kernels] {name}: {own} own nodes in {g.blocks.numel()} blocks, {nbytes / 1e6:.1f} MB, "
+              f"bound {b[0] * 1e3:.2f} us ({b[1]})")
+    whole = time_ms(lambda: cuda_ode.mixed_multi_step(scratch, v, groups, 1.0, 0.025))
+    whole_us = device_us_per_call(lambda: cuda_ode.mixed_multi_step(scratch, v, groups, 1.0, 0.025))
+    torch.cuda.synchronize()
+    print("[mixed_kernels] device time per call (torch.profiler, us): "
+          + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items())
+          + f"; the whole mixed step {whole:.4f} ms back to back, {whole_us:.2f} us device, bound "
+          f"{total_bound * 1e3:.2f} us")
+    print_rows(rows)
+    return rows
+
+
+def phase_mixed_path(solver, setup_s: float) -> dict:
+    """Path M at full width: the dx=0.1 two-model slab, Strang, dt=0.05,
+    40 ms, through ``benchmarks/mixed.py:run_mixed_slab`` on the kernels
+    (launch counts zeroed before, read after: both models' B7 and B2-B4 > 0):
+    ms/s, CG iterations and host syncs per step, P1-P9, launches per model,
+    the share of blocks that hold two models.  Then the 40 ms again on the
+    kernels and on the twins, each also from states one ulp away: at each
+    of MIXED_TWIN_TIMES, v at every node of the kernel run within 3x
+    float32's noise (the larger distance of a one-ulp run to its own) of
+    the twin run, the gap over each model's nodes printed."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.bidomain_scale import perturb_states
+    from fenicsx_beat_tpu_torch.benchmarks.mixed import TP06_MARKER, build_mixed_solver, mixed_markers, run_mixed_slab
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import benchmark_points
+
+    init, act0 = solver.states.clone(), solver.activation_time.clone()
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    res = run_mixed_slab(dx=MIXED_DX, T=MIXED_T, solver=solver)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"[mixed] dx={MIXED_DX} {res.model}, {res.n_nodes} nodes (markers {res.marker_nodes}), Strang dt={DT} "
+          f"{res.simulated_ms:g} ms: ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.3f} s, host setup "
+          f"{setup_s:.1f} s), cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f}, host_syncs_per_step="
+          f"{res.host_syncs_per_step:.3f}; B7 launches per model {json.dumps(res.launches)}, blocks per model "
+          f"{json.dumps(res.blocks_per_model)} of {res.n_blocks}, two-model share {res.two_model_share:.3e}")
+    print("[mixed] P1-P9: " + ", ".join(f"{k}={v:.2f}" for k, v in res.activation_times.items()))
+    print(f"[mixed] launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    require(res.all_finite, "Path M's states finite")
+    for name in ("tp06_grl_multi_step_v", "torord_land_grl_multi_step_v", "stencil_spmv_sym", "cg_update", "axpy"):
+        require(launches[name] > 0, f"{name} launched on Path M")
+    require(res.activation_times["P1"] >= 0 and res.activation_times["P3"] >= 0,
+            "Path M's wave started in the TP06 half and reached the Land half")
+
+    def windows(x, seed):
+        """v at each of MIXED_TWIN_TIMES of ``x`` from the initial states,
+        moved by one ulp at random when ``seed`` is given; (vs, seconds)."""
+        x.states, x.activation_time = init.clone(), act0.clone()
+        if seed is not None:
+            perturb_states(x, seed)
+        torch.cuda.synchronize()
+        tic, t0, vs = time.perf_counter(), 0.0, []
+        for t1 in MIXED_TWIN_TIMES:
+            x.solve((t0, t1), dt=DT)
+            vs.append(x.v.double().clone())
+            t0 = t1
+        torch.cuda.synchronize()
+        return vs, time.perf_counter() - tic
+
+    twin = build_mixed_solver(dx=MIXED_DX, device=DEVICE, use_kernels=False,
+                              probe_points=np.array(list(benchmark_points().values())))
+    (vk, _), (vk2, _) = windows(solver, None), windows(solver, 1)
+    (vw, wall_w), (vw2, _) = windows(twin, None), windows(twin, 1)
+    require(bool(torch.isfinite(twin.states).all()), "Path M's twin run is finite")
+    tp06_half = torch.as_tensor(mixed_markers(solver.V.dof_coords) == TP06_MARKER, device=vk[0].device)
+    print(f"[mixed] {MIXED_TWIN_TIMES[-1]:g} ms on the twins: {MIXED_TWIN_TIMES[-1] / wall_w:.3f} ms/s")
+    for i, t in enumerate(MIXED_TWIN_TIMES):
+        d, dk, dw = (vk[i] - vw[i]).abs(), (vk[i] - vk2[i]).abs(), (vw[i] - vw2[i]).abs()
+        gap, noise = float(d.max()), max(float(dk.max()), float(dw.max()))
+        halves = {name: (float(d[m].max()), float(dk[m].max()), float(dw[m].max()))
+                  for name, m in (("TP06", tp06_half), ("Land", ~tp06_half))}
+        print(f"[mixed] at {t:g} ms: twins v_max {float(vw[i].max()):.3f} mV, share above 0 mV "
+              f"{float((vw[i] > 0).double().mean()):.4f}; kernels vs twins max|dv| {gap:.3e} mV at every node, "
+              f"float32 noise (runs from states one ulp away, the larger of kernels and twins) {noise:.3e} mV "
+              f"(limit {ODE_NOISE_FACTOR:g}x, {gap / noise:.2f}x); per half, gap / kernels' noise / twins' noise: "
+              + ", ".join(f"{k} {a:.3e} / {b:.3e} / {c:.3e}" for k, (a, b, c) in halves.items()))
+        require(gap <= ODE_NOISE_FACTOR * noise, f"Path M's kernel run within 3x float32's noise of its twin "
+                                                 f"run at {t:g} ms")
+    return {"tp06_grl_multi_step_v[mixed]": launches["tp06_grl_multi_step_v"],
+            "torord_land_grl_multi_step_v[mixed]": launches["torord_land_grl_multi_step_v"]}
+
+
+def phase_mixed_dx05() -> None:
+    """Path M at dx=0.5 on the kernels against the JAX package's float64
+    P1-P9: each within one dt (those that do not fire by 40 ms at this
+    size on either side: -1 on both)."""
+    from fenicsx_beat_tpu_torch.benchmarks.mixed import run_mixed_slab
+
+    res = run_mixed_slab(dx=0.5, T=MIXED_T, device=DEVICE)
+    gaps = {k: abs(res.activation_times[k] - v) for k, v in JAX_MIXED_DX05.items()}
+    print(f"[mixed_dx05] n={res.n_nodes}, {res.simulated_ms:g} ms: P1-P9 "
+          + ", ".join(f"{k}={v:.2f}" for k, v in res.activation_times.items())
+          + "; |P - P_jax| " + ", ".join(f"{k}={d:.3f}" for k, d in gaps.items())
+          + f"; launches per model {json.dumps(res.launches)}")
+    require(res.all_finite, "Path M at dx=0.5 finite")
+    require(max(gaps.values()) <= DT + 1e-6, "Path M's dx=0.5 probes within one dt of the JAX values")
 
 
 def phase_fhn_kernels() -> dict:
@@ -1937,6 +2318,9 @@ def kernel_wrappers() -> dict:
         "fhn_step_v": cuda_ode.fhn_step_v,
         "fhn_node_step_v": cuda_ode.fhn_node_step_v,
         "fhn_multi_step_v": cuda_ode.fhn_multi_step_v,
+        "torord_land_grl_step_v": cuda_ode.torord_land_grl_step_v,
+        "torord_land_grl_node_step_v": cuda_ode.torord_land_grl_node_step_v,
+        "torord_land_grl_multi_step_v": cuda_ode.torord_land_grl_multi_step_v,
     }
 
 
@@ -1971,12 +2355,14 @@ def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict,
     """The full-width LV run on ``solver`` (TP06 layers, or the demo's
     pre-paced ToR-ORd layers); returns the launch counts and the time
     reached."""
+    import math
+
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks.lv import run_lv_solver
 
-    tag = "lv" if solver._ionic.name == "tp06" else "torord_lv"
-    multi = solver._ionic.multi_step.__name__
+    tag = LV_TAGS[solver._ionic.name]
+    multi = solver._ionic_groups[0].model.multi_step.__name__
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
     torch.cuda.reset_peak_memory_stats()
@@ -1996,6 +2382,10 @@ def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict,
           f"host_syncs_per_step={res.host_syncs_per_step:.3f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[{tag}] launches {json.dumps(launches)}")
+    if res.active_tension is not None:
+        print(f"[{tag}] Land active tension at the probes at {res.simulated_ms:g} ms (kPa): "
+              + ", ".join(f"{k}={v:.4e}" for k, v in res.active_tension.items()))
+        require(all(math.isfinite(v) for v in res.active_tension.values()), "the probes' active tension finite")
     require(res.all_finite, "every LV state finite")
     require(fired, "every stimulated endocardial node activated")
     for name in (multi, "csr_spmv"):
@@ -2010,6 +2400,11 @@ def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict,
         require(more.all_finite, "every LV state finite")
     print(f"[{tag}] activated share by time: " + ", ".join(f"{a:g} ms {b:.4f}" for a, b in shares))
     require(share > 0.5, f"more than half of the LV's nodes activated by {LV_T_MAX:g} ms")
+    if res.active_tension is not None:
+        from fenicsx_beat_tpu_torch.benchmarks.lv import probe_active_tension
+
+        print(f"[{tag}] Land active tension at the probes at {t:g} ms (kPa): "
+              + ", ".join(f"{k}={v:.4e}" for k, v in zip(res.active_tension, probe_active_tension(solver))))
     return launches, t
 
 
@@ -2275,7 +2670,7 @@ def main() -> int:
     rows = phase_kernels()
     lv_solver, lv_setup = phase_lv_setup()
     rows.update(phase_lv_kernels(lv_solver))
-    steady, prepace_s = phase_steady_states()
+    steady, prepace_s, _ = phase_steady_states()
     torord_lv, torord_lv_setup = phase_torord_lv_setup(steady)
     rows.update(phase_torord_kernels(torord_lv))
     rows.update(phase_fhn_kernels())
@@ -2292,6 +2687,22 @@ def main() -> int:
     launches["torord_grl_step_v"] = phase_slab()["torord_grl_step_v"]
     launches.update(phase_node_paths(torord_lv, t_end))
     del torord_lv
+    # ToR-ORd dynCl + Land: pre-pacing (its B1's path), its kernels, the
+    # psize 0.3 parity, Path L (B7, B8) and its layers as a per-node field
+    land_steady, land_prepace_s, launches["torord_land_grl_step_v"] = phase_steady_states("torord_dyncl_land")
+    land_lv, land_lv_setup = phase_torord_lv_setup(land_steady, "torord_dyncl_land")
+    rows.update(phase_torord_kernels(land_lv, seed=4, model="torord_dyncl_land", n_b1=N_MAIN))
+    phase_torord_lv_parity("torord_dyncl_land")
+    land_launches, t_end = phase_lv_path(land_lv, land_lv_setup + land_prepace_s, land_prepace_s)
+    launches["torord_land_grl_multi_step_v"] = land_launches["torord_land_grl_multi_step_v"]
+    launches.update(lv_node_path(land_lv, t_end))
+    del land_lv
+    # Path M: B7's mixed form against its twin, the dx=0.1 run, the dx=0.5 parity
+    mixed, mixed_setup = phase_mixed_setup()
+    rows.update(phase_mixed_kernels(mixed))
+    launches.update(phase_mixed_path(mixed, mixed_setup))
+    del mixed
+    phase_mixed_dx05()
     ecg_main, ecg_scale = phase_ecg_setup()
     rows.update(phase_stencil_kernels(ecg_main, ecg_scale))
     del ecg_main

@@ -48,7 +48,7 @@ NVCC_FLAGS = [
 # multiply-adds, whose placement the compiler chooses per kernel.  B1's
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
-_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "fhn_", "ode_")
+_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "fhn_", "ode_")
 
 
 def _nvcc_flags(src: Path) -> list[str]:
@@ -60,9 +60,9 @@ _P = ctypes.c_void_p
 # the ionic steps' C signatures, one per form, shared by every model
 _GRL_STEP = (ctypes.c_int, [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, _P])
 _GRL_NODE_STEP = (ctypes.c_int, [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P])
-_GRL_MULTI_STEP = (
+_GRL_MULTI_STEP = (  # ..., table, nm, blocks (null: every block), nblocks, stream
     ctypes.c_int,
-    [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P],
+    [_P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float, _P, ctypes.c_int, _P, ctypes.c_int, _P],
 )
 _SIGNATURES = {
     # name: (restype, argtypes) -- pointers and the stream as c_void_p
@@ -72,6 +72,9 @@ _SIGNATURES = {
     "torord_grl_step_v": _GRL_STEP,
     "torord_grl_node_step_v": _GRL_NODE_STEP,
     "torord_grl_multi_step_v": _GRL_MULTI_STEP,
+    "torord_land_grl_step_v": _GRL_STEP,
+    "torord_land_grl_node_step_v": _GRL_NODE_STEP,
+    "torord_land_grl_multi_step_v": _GRL_MULTI_STEP,
     "fhn_step_v": _GRL_STEP,
     "fhn_node_step_v": _GRL_NODE_STEP,
     "fhn_multi_step_v": _GRL_MULTI_STEP,

@@ -12,9 +12,9 @@ on one layer labelling.
 The voltage alone does not see the ionic step's slow concentrations (K_i,
 Na_i, Ca_SR), whose effect on V over 40 steps is below that noise.
 :func:`ionic_step_errors` and :func:`ionic_beat_errors` hold every state
-row of an ionic step (TP06, ToR-ORd or FitzHugh-Nagumo, any form: B1, its
-per-node form, B7) against its twin: one step by increment, and one paced beat by
-excursion.  At physiological values one step moves TP06's K_i by less
+row of an ionic step (TP06, ToR-ORd with or without Land or
+FitzHugh-Nagumo, any form: B1, its per-node form, B7) against its twin:
+one step by increment, and one paced beat by excursion.  At physiological values one step moves TP06's K_i by less
 than a float32 ulp of 137 mM, so the one-step check also runs on
 :func:`step_check_states`, where the same formulas move each model's
 slow rows by thousands of ulps.  On the card the beat check replays its
@@ -36,6 +36,7 @@ import json
 import sys
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ops.cuda_ode import IONIC_MODELS
@@ -54,13 +55,24 @@ IONIC_STEP_TOL = 2e-2
 # less.  The ratio of a float32 ulp of the value to the row's largest
 # one-step increment, dt = 0.025, V uniform on [-90, 40] mV: TP06 K_i 0.3,
 # Na_i 0.17, Ca_SR 0.05; ToR-ORd cansr 6.6e-3, CaMKt 5.2e-3, fs 4.7e-3,
-# every other ToR-ORd row 2e-3 or less (ki 8.4e-4, nai 7.9e-4).  FHN's two
-# rows move by far more than an ulp in one step (s by b (v - v_rest) dt).
+# every other ToR-ORd row 2e-3 or less (ki 8.4e-4, nai 7.9e-4).  ToR-ORd
+# + Land: the same three ToR-ORd rows (5.8e-3, 5.0e-3, 4.4e-3), and
+# Land's CaTrpn, TmB and Cd, which at init_state_values() rest at 1e-8, 1
+# and 0 (no increment at all); on :func:`check_states`' states, whose
+# mechanics rows span their range, every Land row reads 1.7e-4 or less.
+# FHN's two rows move by far more than an ulp in one step (s by
+# b (v - v_rest) dt).
 SLOW_ROWS = {
     "tp06": ("Ca_SR", "Na_i", "K_i"),
     "torord_dyncl": ("cansr", "CaMKt", "fs"),
+    "torord_dyncl_land": ("cansr", "CaMKt", "fs", "CaTrpn", "TmB", "Cd"),
     "fhn": (),
 }
+# Land's mechanics rows on the check's states: each drawn uniformly on a
+# range it takes in a beat (XS, XW, CaTrpn, TmB fractions; Zetas, Zetaw,
+# Cd distortions near 0), so every row moves in one step
+LAND_CHECK_RANGES = {"XS": (0.0, 0.1), "XW": (0.0, 0.1), "CaTrpn": (0.0, 1.0), "TmB": (0.0, 1.0),
+                     "Zetas": (-0.05, 0.05), "Zetaw": (-0.05, 0.05), "Cd": (-0.05, 0.05)}
 SLOW_ROW_SCALE = 1e-2
 # One paced beat, per state row: max |kernel - twin| over the run, over
 # the row's largest excursion from the start in the twin.  Kernel vs twin
@@ -88,6 +100,20 @@ def _ulp32(x: torch.Tensor) -> torch.Tensor:
     """Spacing of float32 numbers at ``|x|``, in ``x``'s dtype."""
     a = x.abs().float()
     return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).to(x.dtype)
+
+
+def check_states(model: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """The one-step check's states of ``model`` for ``n`` nodes (float64):
+    ``init_state_values()`` times 1 + 5% noise, V uniform on [-90, 40] mV,
+    and Land's mechanics rows drawn on :data:`LAND_CHECK_RANGES`."""
+    module = _MODULES[model]
+    init = module.init_state_values()
+    states = np.tile(init[:, None], (1, n)) * (1 + 0.05 * rng.standard_normal((init.size, n)))
+    states[0] = rng.uniform(-90.0, 40.0, n)
+    if model == "torord_dyncl_land":
+        for name, (lo, hi) in LAND_CHECK_RANGES.items():
+            states[module.state_index(name)] = rng.uniform(lo, hi, n)
+    return states
 
 
 def step_check_states(states: torch.Tensor, model: str = "tp06") -> list[tuple[str, torch.Tensor]]:

@@ -9,12 +9,15 @@ endo 0, mid 2, epi 1) with the model's own pacing off, an ENDO facet
 stimulus of 1 ms, and Niederer conductivities along ``geo.f0``.  This path
 runs the multi-marker ionic kernel (B7) and the CSR SpMV (B8).
 
-Two ionic models (``model``):
+Three ionic models (``model``):
 
 - ``"torord_dyncl"``, the demo's own: each layer starts from its
   celltype's single-cell steady state, 2 beats at BCL 1000 ms
   (:func:`lv_steady_states`, the demo's ``get_steady_state`` call, paced
   on the card through B1), or from ``init_state_values()`` unpaced;
+- ``"torord_dyncl_land"``, ToR-ORd dynCl coupled to Land's contraction
+  model (52 states), pre-paced the same way on its own B1; the run reports
+  Land's active tension at the probes' nodes (``active_tension``);
 - ``"tp06"``, the default, which the earlier measurements used: TP06 from
   ``init_state_values()``, unpaced.
 
@@ -22,6 +25,7 @@ Usage, on a machine with a CUDA card::
 
     python -m fenicsx_beat_tpu_torch.benchmarks.lv --psize 0.1 -T 30
     python -m fenicsx_beat_tpu_torch.benchmarks.lv --psize 0.1 -T 30 --model torord_dyncl
+    python -m fenicsx_beat_tpu_torch.benchmarks.lv --psize 0.1 -T 30 --model torord_dyncl_land
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..fused import FusedMonodomainSolver
 from ..geometry import get_lv_ellipsoid_geometry
 from ..models import tentusscher_panfilov_2006 as tp06
 from ..models import torord_dyncl as torord
+from ..models import torord_dyncl_land as land
 from ..single_cell import get_steady_state
 from ..stimulation import define_stimulus
 from ..units import ureg
@@ -49,12 +54,13 @@ from ..utils import expand_layer
 
 __all__ = [
     "MID", "ENDO", "EPI", "CELLTYPES", "MODELS", "lv_probe_points", "lv_amplitude", "lv_layers",
-    "lv_steady_states", "lv_ionic", "build_lv_solver", "LVResult", "run_lv_solver", "run_lv",
+    "lv_steady_states", "lv_ionic", "build_lv_solver", "LVResult", "probe_active_tension", "run_lv_solver",
+    "run_lv",
 ]
 
 MID, ENDO, EPI = 0, 1, 2  # layer markers, as the demo numbers them
-CELLTYPES = {MID: 2.0, ENDO: 0.0, EPI: 1.0}  # celltype of each layer (both models)
-MODELS = {"tp06": tp06, "torord_dyncl": torord}
+CELLTYPES = {MID: 2.0, ENDO: 0.0, EPI: 1.0}  # celltype of each layer (every model)
+MODELS = {"tp06": tp06, "torord_dyncl": torord, "torord_dyncl_land": land}
 # the demo's pre-pacing of each layer's cell (demos/lv_endocardial.py:74-82)
 PREPACE_BEATS, PREPACE_BCL = 2, 1000
 # where the steady states are cached (git-ignored), keyed by their arguments
@@ -108,16 +114,19 @@ def lv_layers(geo, V, precond: str = "auto", device=None) -> np.ndarray:
     )
 
 
-def lv_steady_states(dt: float = 0.05, device=None, outdir: Path = STEADY_DIR) -> dict:
-    """Each layer's ToR-ORd cell paced to its steady state, as the demo
-    does it: marker -> states after :data:`PREPACE_BEATS` beats at BCL
-    :data:`PREPACE_BCL` ms from ``init_state_values()``, with the model's
-    own stimulus (cached under ``outdir``, one directory per layer)."""
+def lv_steady_states(dt: float = 0.05, device=None, outdir: Path = STEADY_DIR,
+                     model: str = "torord_dyncl") -> dict:
+    """Each layer's cell of ``model`` (ToR-ORd dynCl, with or without Land)
+    paced to its steady state, as the demo does it: marker -> states after
+    :data:`PREPACE_BEATS` beats at BCL :data:`PREPACE_BCL` ms from
+    ``init_state_values()``, with the model's own stimulus (cached under
+    ``outdir``, one directory per layer, keyed by model and arguments)."""
+    m = MODELS[model]
     return {
         marker: get_steady_state(
-            fun=torord.generalized_rush_larsen,
-            init_states=torord.init_state_values(),
-            parameters=torord.init_parameter_values(celltype=ct),
+            fun=m.generalized_rush_larsen,
+            init_states=m.init_state_values(),
+            parameters=m.init_parameter_values(celltype=ct),
             outdir=Path(outdir) / f"layer-{marker}",
             BCL=PREPACE_BCL,
             nbeats=PREPACE_BEATS,
@@ -160,7 +169,7 @@ def build_lv_solver(
     ``precond`` goes to the layer labelling's Laplace solve; ``layers``
     given skips it (two solvers compared on one labelling).  ``model`` and
     ``init_states`` as :func:`lv_ionic` takes them (the pre-paced ToR-ORd
-    layers: ``init_states=lv_steady_states(dt)``)."""
+    layers: ``init_states=lv_steady_states(dt, model=model)``)."""
     geo = get_lv_ellipsoid_geometry(psize_ref=psize)
     mesh = geo.mesh
     V = fem.functionspace(mesh, ("P", 1))
@@ -206,6 +215,7 @@ class LVResult:
     device: str
     model: str = "tp06"
     prepace_s: float = 0.0  # single-cell pre-pacing of the layers, inside setup_s
+    active_tension: dict | None = None  # Land: probe name -> Ta (kPa) at its nearest node, at the end
 
     @property
     def ms_per_second(self) -> float:
@@ -220,6 +230,20 @@ class LVResult:
         return self.host_syncs / self.n_steps if self.n_steps else 0.0
 
 
+def probe_active_tension(solver: FusedMonodomainSolver) -> list[float]:
+    """Land's active tension Ta (kPa) at each probe point of a Land LV
+    ``solver``: ``active_tension`` of the states of each probe's cell
+    nodes with their layers' parameters, weighted as the probes' activation
+    times are."""
+    g = solver._ionic_groups[0]
+    index, table = g.index, g.table
+    dofs, w = solver._probe_dofs, solver._probe_w
+    flat = dofs.reshape(-1)
+    params = table.double()[index[flat].long()].T
+    Ta, _, _ = land.active_tension(solver.states[:, flat].double(), params)
+    return (Ta.reshape(dofs.shape) * w.double()).sum(dim=1).tolist()
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -232,7 +256,7 @@ def run_lv_solver(solver: FusedMonodomainSolver, psize: float, T: float = 30.0, 
     probes read at each chunk's end; the timed window is the whole run and
     ends with one device synchronize."""
     dev = solver.device
-    markers = solver._multi[0].cpu().numpy()
+    markers = solver._ionic_groups[0].index.cpu().numpy()
     chunk = max(1, int(round(CHUNK_MS / dt)))
     n_total = int(round(T / dt))
     amps = solver.stimulus_amplitudes()
@@ -251,6 +275,9 @@ def run_lv_solver(solver: FusedMonodomainSolver, psize: float, T: float = 30.0, 
     wall = _time.perf_counter() - tic
     act = solver.activation_time
     names = list(lv_probe_points(psize)) if res.probes is not None else []
+    tension = None
+    if names and solver._ionic_groups[0].model.module is land:
+        tension = dict(zip(names, probe_active_tension(solver)))
     return LVResult(
         psize=psize, dt=dt, theta=float(solver.theta),
         setup_s=setup_s, n_nodes=solver.V.ndofs, n_cells=solver.mesh.num_cells,
@@ -261,7 +288,7 @@ def run_lv_solver(solver: FusedMonodomainSolver, psize: float, T: float = 30.0, 
         cg_iters_max=it_max, cg_iters_sum=it_sum, host_syncs=solver.host_syncs - syncs0,
         all_finite=bool(torch.isfinite(solver.states).all()),
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        model=solver._ionic.name, prepace_s=prepace_s,
+        model=solver._ionic.name, prepace_s=prepace_s, active_tension=tension,
     )
 
 
@@ -277,12 +304,12 @@ def run_lv(
     **solver_kwargs,
 ) -> LVResult:
     """Build the LV solver with the probes of :func:`lv_probe_points` (its
-    host setup timed, the ToR-ORd layers' pre-pacing included unless
+    host setup timed, the ToR-ORd or Land layers' pre-pacing included unless
     ``prepace`` is False) and run it (:func:`run_lv_solver`)."""
     tic = _time.perf_counter()
     init, prepace_s = None, 0.0
-    if model == "torord_dyncl" and prepace:
-        init = lv_steady_states(dt=dt, device=device)
+    if model != "tp06" and prepace:
+        init = lv_steady_states(dt=dt, device=device, model=model)
         prepace_s = _time.perf_counter() - tic
     solver = build_lv_solver(
         psize=psize, theta=theta, device=device, precond=precond,

@@ -34,6 +34,7 @@ __all__ = [
     "PUBLISHED_ACTIVATION_TIMES",
     "POINT_NAMES",
     "benchmark_points",
+    "niederer_setup",
     "NiedererResult",
     "run_niederer_benchmark",
 ]
@@ -129,23 +130,10 @@ class NiedererResult:
         )
 
 
-def _build_solver(
-    dx: float = 0.5,
-    theta: float = 1.0,
-    device=None,
-    dtype=None,
-    probe_points: np.ndarray | None = None,
-    scheme: str = "generalized_rush_larsen",
-    model=None,
-    **solver_kwargs,
-) -> FusedMonodomainSolver:
-    """Niederer-configuration solver (slab, S1 corner cube) on ``device``:
-    the card when None (:func:`~..config.resolve_device`).  The ionic model
-    is TP06 unless ``model`` names another (a hand-written port model or
-    one that ``odefile.load_ode`` generated), stepped by its ``scheme``,
-    from its initial states, with its own pacing stimulus set to zero
-    under either name (``stim_amplitude``, ``i_Stim_Amplitude``), V in its
-    row of ``V`` or ``v``: JAX's ``_build_solver``."""
+def niederer_setup(dx: float):
+    """The benchmark's slab (20x7x3 mm at ``dx``), its Niederer
+    conductivity tensor, the S1 stimulus (a 1.5 mm corner cube, 2 ms) and
+    C_m: ``(mesh, M, I_s, C_m)``."""
     mesh_unit = "mm"
     geo = get_3D_slab_geometry(None, dx=dx, Lx=LX, Ly=LY, Lz=LZ)
     mesh = geo.mesh
@@ -175,6 +163,27 @@ def _build_solver(
         duration=2.0,
     )
     M = define_conductivity_tensor(f0=geo.f0, **conductivities)
+    return mesh, M, I_s, C_m
+
+
+def _build_solver(
+    dx: float = 0.5,
+    theta: float = 1.0,
+    device=None,
+    dtype=None,
+    probe_points: np.ndarray | None = None,
+    scheme: str = "generalized_rush_larsen",
+    model=None,
+    **solver_kwargs,
+) -> FusedMonodomainSolver:
+    """Niederer-configuration solver (slab, S1 corner cube) on ``device``:
+    the card when None (:func:`~..config.resolve_device`).  The ionic model
+    is TP06 unless ``model`` names another (a hand-written port model or
+    one that ``odefile.load_ode`` generated), stepped by its ``scheme``,
+    from its initial states, with its own pacing stimulus set to zero
+    under either name (``stim_amplitude``, ``i_Stim_Amplitude``), V in its
+    row of ``V`` or ``v``: JAX's ``_build_solver``."""
+    mesh, M, I_s, C_m = niederer_setup(dx)
     model = model or tp06
     # zero the model's own pacing stimulus (its name differs per model family)
     for key in ("stim_amplitude", "i_Stim_Amplitude"):

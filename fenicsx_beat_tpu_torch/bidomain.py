@@ -38,7 +38,8 @@ once per dt; on unstructured meshes the CSR SpMV B8 on one shared layout
 for mass, ``K_i`` and ``K_ie``.  The ionic step is
 :func:`~.splitting.ionic_layer`'s, as in the fused solver: B1 of the
 model's entry, B1's per-node form for a node-aligned field, or B7 for a
-dict ``ode_fun`` with ``ode_markers``.  On the CPU, or with ``use_kernels=False``, every kernel
+dict ``ode_fun`` with ``ode_markers`` (B7's mixed form, one launch per
+model, where the markers mix models).  On the CPU, or with ``use_kernels=False``, every kernel
 runs as its plain PyTorch twin.  As in the fused solver the time loop is a
 Python loop of eager launches, and each PCG exit test reads one value back
 to the host (counted in :attr:`BidomainSolver.host_syncs`).
@@ -174,7 +175,7 @@ class BidomainSolver:
         n = self._n = self.V.ndofs
         layer = ionic_layer(self._ionic, self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                             self.v_index, n, dev, dt_, self.use_kernels)
-        self._multi, self._ode_step = layer.multi, layer.step
+        self._ionic_groups, self._ode_step = layer.groups, layer.step
         self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators, float64 on the host: one assembly per conductivity;

@@ -22,6 +22,32 @@ inline int num_blocks(long long n) {
     return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
+// B7's grid.  A launch covers every block of n nodes, or, in the
+// mixed-model form, only the blocks listed in `blocks`: B7's mixed form
+// launches each model over the blocks that hold its nodes, the JAX
+// kernel's active[model, block] table (pallas_ode.py:375-383) turned into
+// a compacted grid.  In that form a node whose model index is kOtherModel
+// belongs to another model's launch and is left exactly as it is (no V
+// injected).  Each B7 kernel is a template on the form (kBlocks), so the
+// form over every block keeps its own code and registers.
+constexpr int kOtherModel = -2;
+
+inline int multi_grid(long long n, const int* blocks, int nblocks) {
+    return blocks ? nblocks : num_blocks(n);
+}
+
+// The node of this thread in a B7 launch (see multi_grid); n < 2^31.
+template <bool kBlocks>
+__device__ __forceinline__ int multi_node(const int* __restrict__ blocks) {
+    const int b = kBlocks ? __ldg(blocks + blockIdx.x) : static_cast<int>(blockIdx.x);
+    return b * kThreads + static_cast<int>(threadIdx.x);
+}
+
+// B7's host checks: n nodes, nm parameter sets, a block list (or none)
+inline bool multi_args_ok(long long n, int nm, const int* blocks, int nblocks) {
+    return n >= 1 && n <= 0x7fffffffLL && nm >= 1 && (blocks == nullptr || nblocks >= 1);
+}
+
 // Where an ionic model's node update reads its parameters, so that each
 // model's formulas exist once (tp06.cuh, torord.cuh) and serve every form
 // of its step.  Both sources take a parameter's index in the model's

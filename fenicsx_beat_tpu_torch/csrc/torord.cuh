@@ -2,6 +2,8 @@
 // node, shared by the single-model kernel (B1, torord_grl.cu), its
 // per-node-parameter form (torord_grl_node.cu) and the multi-marker kernel
 // (B7, torord_grl_multi.cu), so all three run one copy of the formulas.
+// ToR-ORd dynCl + Land's three kernels (torord_land_grl*.cu) run the same
+// copy, switched to Land's dcai at compile time (torord_land.cuh).
 //
 // The formulas are those of
 // fenicsx_beat_tpu/models/torord_dyncl.py:_compute and
@@ -257,13 +259,24 @@ __device__ __forceinline__ float torord_inaca(float ca, float na, float gncx_fra
 #undef P
 }
 
+// Land's contraction states (torord_land.cuh): one GRL step of the 7
+// mechanics states of one node, in place, from the cytosolic Ca `cai`;
+// returns the troponin flux J_TRPN that enters Land's dcai.
+template <class Src>
+__device__ __forceinline__ float torord_land_mechanics(float* row, long long ld, float cai, float dt,
+                                                       const Src& prm);
+
 // One GRL step of one node, in place: `row` points at the node's entry of
 // state row 0 and consecutive state rows lie `ld` floats apart; `v` is the
 // voltage to step from (the injected PDE voltage, not row v's content);
 // `prm` is where the parameters come from (fbt::ParamSet or
 // fbt::StridedParams, common.cuh).  Every state is read before its own
-// row is written; each row is read once and written once.
-template <class Src>
+// row is written; each row is read once and written once.  kLand selects
+// ToR-ORd dynCl + Land (torord_land.cuh): the 7 mechanics states are
+// stepped too, and the CaTrpn ODE's flux J_TRPN replaces the troponin term
+// of Bcai in dcai (the Land variant's published form).  The parameters
+// then follow TorordLandParams, whose first 108 are TorordParams.
+template <bool kLand = false, class Src>
 __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float v, float t,
                                                 float dt, const Src& prm) {
 #define P(name) prm(offsetof(TorordParams, name) / sizeof(float))
@@ -680,8 +693,16 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
     ST(kss) = kss + dt * (-JdiffK + (-ICaK_ss) * CF / vss);
     ST(cli) = cli + dt * ((IClCa_sl + IClb) * CF / vmyo + (JdiffCl * vss) / vmyo);
     ST(clss) = clss + dt * (-JdiffCl + IClCa_junc * CF / vss);
-    ST(cai) = cai + dt * (Bcai * ((-(-2.0f * INaCa_i + ICab + ICaL_i + IpCa)) * CF / (2.0f * vmyo) -
-                                  Jup * vnsr / vmyo + (Jdiff * vss) / vmyo));
+    if constexpr (kLand) {
+        // troponin buffering through the CaTrpn ODE, INaCa_i / 3, no ICaL_i
+        const float J_TRPN = torord_land_mechanics(row, ld, cai, dt, prm);
+        const float Bcai_land = 1.0f / (1.0f + cmdnmax * P(kmcmdn) / (b_cmdn * b_cmdn));
+        ST(cai) = cai + dt * (Bcai_land * (-(IpCa + ICab - 2.0f * INaCa_i / 3.0f) * Acap / (2.0f * F * vmyo) -
+                                           Jup * vnsr / vmyo + Jdiff * vss / vmyo - J_TRPN));
+    } else {
+        ST(cai) = cai + dt * (Bcai * ((-(-2.0f * INaCa_i + ICab + ICaL_i + IpCa)) * CF / (2.0f * vmyo) -
+                                      Jup * vnsr / vmyo + (Jdiff * vss) / vmyo));
+    }
     ST(cass) = cass + dt * (Bcass * (-Jdiff + (-(ICaL_ss - 2.0f * INaCa_ss)) * CF / (2.0f * vss) +
                                      (Jrel * vjsr) / vss));
     ST(cansr) = cansr + dt * (Jup - Jtr * vjsr / vnsr);

@@ -10,7 +10,9 @@
 // [0, nm)) keeps its states, with v injected; states are updated in place.
 // The formulas are torord.cuh's, the one copy B1 runs.  The table is read
 // by reference through the read-only path: the nodes of a warp almost
-// always share a layer, so their reads of a row broadcast.
+// always share a layer, so their reads of a row broadcast.  The
+// mixed-model form (a block list, nodes of other models left untouched)
+// is tp06_grl_multi.cu's.
 //
 // What bounds it on the H100: device memory, as for B1.  A step reads 44
 // state rows (row v is overwritten, never read), v and the int32 model
@@ -21,14 +23,17 @@
 
 namespace {
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(fbt::kThreads)
     torord_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                                    const int* __restrict__ model, int n, float t, float dt,
-                                   const TorordParams* __restrict__ table, int nm) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                                   const TorordParams* __restrict__ table, int nm,
+                                   const int* __restrict__ blocks) {
+    const int i = fbt::multi_node<kBlocks>(blocks);
     if (i >= n) return;
-    const float v = vin[i];
     const int mi = model[i];
+    if (kBlocks && mi == fbt::kOtherModel) return;  // another model's node (the mixed form)
+    const float v = vin[i];
     if (mi < 0 || mi >= nm) {
         states[i] = v;  // row v (TR_v = 0); the other rows stay
         return;
@@ -41,19 +46,20 @@ __global__ void __launch_bounds__(fbt::kThreads)
 
 extern "C" {
 
-// One multi-marker GRL step over the (45, n) states, in place, with v
-// replacing row v first (v may alias that row).  `model` holds n int32
-// model indices; `table` points to nm parameter sets of 108 floats each,
-// on the device, in _PARAM_NAMES order.  Returns the cudaError_t of the
-// launch.
+// One multi-marker GRL step over the (45, n) states (the first 45 rows of
+// a union array with row stride n), in place, with v replacing row v first
+// (v may alias that row).  `model` holds n int32 model indices; `table`
+// points to nm parameter sets of 108 floats each, on the device, in
+// _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
+// null for all of them.  Returns the cudaError_t of the launch.
 int torord_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
-                            float dt, const float* table, int nm, void* stream) {
-    if (n < 1 || n > 0x7fffffffLL || nm < 1) return cudaErrorInvalidValue;
+                            float dt, const float* table, int nm, const int* blocks, int nblocks,
+                            void* stream) {
+    if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(TR_v == 0, "row v is row 0");
-    torord_grl_multi_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        states, v, model, static_cast<int>(n), t, dt,
-        reinterpret_cast<const TorordParams*>(table), nm);
+    const auto kernel = blocks ? &torord_grl_multi_step_v_kernel<true> : &torord_grl_multi_step_v_kernel<false>;
+    kernel<<<fbt::multi_grid(n, blocks, nblocks), fbt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const TorordParams*>(table), nm, blocks);
     return cudaGetLastError();
 }
 

@@ -1,0 +1,67 @@
+// B7 for ToR-ORd dynCl + Land: the multi-marker ionic step -- one
+// generalized Rush-Larsen step per node with that node's own parameter
+// set (the LV's endo / mid / epi layers), the PDE voltage injected into
+// row v of every node first.
+//
+// Replaces fenicsx_beat_tpu/ops/pallas_ode.py:build_pallas_multi_ode_step
+// over Land layers, with the semantics of tp06_grl_multi.cu: v is written
+// into row v of every node; a node of model i steps with row i of the
+// [nm, 136] parameter table; a node in no mask (model index outside
+// [0, nm)) keeps its states, with v injected; states are updated in place.
+// Its mixed-model form, where Land shares the union [S_max, n] states
+// with other models (Land's 52 rows are S_max beside TP06's 19), launches
+// over a list of blocks and leaves the nodes of other models (index
+// fbt::kOtherModel) untouched (common.cuh: multi_grid).  The formulas are
+// torord.cuh's and torord_land.cuh's, the one copy B1 runs.
+//
+// What bounds it on the H100: device memory, as for B1.  A step reads 51
+// state rows (row v is overwritten, never read), v and the int32 model
+// index and writes 52 rows: 420 B a node, 102 MB at the LV of psize 0.1
+// (n = 243,518), a floor of 30.5 us at the H100 SXM data sheet's
+// 3.35 TB/s.
+#include "torord_land.cuh"
+
+namespace {
+
+template <bool kBlocks>
+__global__ void __launch_bounds__(fbt::kThreads)
+    torord_land_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row v
+                                        const int* __restrict__ model, int n, float t, float dt,
+                                        const TorordLandParams* __restrict__ table, int nm,
+                                        const int* __restrict__ blocks) {
+    const int i = fbt::multi_node<kBlocks>(blocks);
+    if (i >= n) return;
+    const int mi = model[i];
+    if (kBlocks && mi == fbt::kOtherModel) return;  // another model's node (the mixed form)
+    const float v = vin[i];
+    if (mi < 0 || mi >= nm) {
+        states[i] = v;  // row v (TR_v = 0); the other rows stay
+        return;
+    }
+    const float* row = reinterpret_cast<const float*>(table + mi);
+    fbt::torord_grl_node<true>(states + i, n, v, t, dt, fbt::StridedParams{row, 1});
+}
+
+}  // namespace
+
+extern "C" {
+
+// One multi-marker GRL step over the (52, n) states (the first 52 rows of
+// a union array with row stride n), in place, with v replacing row v first
+// (v may alias that row).  `model` holds n int32 model indices; `table`
+// points to nm parameter sets of 136 floats each, on the device, in
+// _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
+// null for all of them.  Returns the cudaError_t of the launch.
+int torord_land_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
+                                 float dt, const float* table, int nm, const int* blocks, int nblocks,
+                                 void* stream) {
+    if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
+    static_assert(TR_v == 0, "row v is row 0");
+    const auto kernel =
+        blocks ? &torord_land_grl_multi_step_v_kernel<true> : &torord_land_grl_multi_step_v_kernel<false>;
+    kernel<<<fbt::multi_grid(n, blocks, nblocks), fbt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const TorordLandParams*>(table), nm, blocks);
+    return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -18,6 +18,12 @@
 // read from device memory by reference; every thread of a warp reads the
 // same few rows, which L1 broadcasts.
 //
+// The mixed-model form (markers that run different models, the JAX
+// kernel's `swaps` and `active` table): the union states are [S_max, n],
+// each model's launch steps its own nodes on its own S rows (row stride
+// n), over only the blocks that list holds (common.cuh: multi_grid), and
+// leaves a node of another model (index fbt::kOtherModel) untouched.
+//
 // What bounds it on the H100: device memory, as for B1.  At the LV of
 // psize 0.1 (n = 243,518, f32) a step reads 18 state rows (row V is
 // overwritten, never read), v and the model index and writes 19 rows:
@@ -27,14 +33,17 @@
 
 namespace {
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(fbt::kThreads)
     tp06_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row V
                                  const int* __restrict__ model, int n, float t, float dt,
-                                 const Tp06Params* __restrict__ table, int nm) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                                 const Tp06Params* __restrict__ table, int nm,
+                                 const int* __restrict__ blocks) {
+    const int i = fbt::multi_node<kBlocks>(blocks);
     if (i >= n) return;
-    const float V = vin[i];
     const int mi = model[i];
+    if (kBlocks && mi == fbt::kOtherModel) return;  // another model's node (the mixed form)
+    const float V = vin[i];
     if (mi < 0 || mi >= nm) {
         states[i] = V;  // row V (S_V = 0); the other rows stay
         return;
@@ -47,18 +56,20 @@ __global__ void __launch_bounds__(fbt::kThreads)
 
 extern "C" {
 
-// One multi-marker GRL step over the (19, n) states, in place, with v
-// replacing row V first (v may alias row V).  `model` holds n int32 model
-// indices; `table` points to nm parameter sets of 54 floats each, on the
-// device, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
+// One multi-marker GRL step over the (19, n) states (the first 19 rows of
+// a union array with row stride n), in place, with v replacing row V
+// first (v may alias row V).  `model` holds n int32 model indices; `table`
+// points to nm parameter sets of 54 floats each, on the device, in
+// _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
+// null for all of them.  Returns the cudaError_t of the launch.
 int tp06_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
-                          float dt, const float* table, int nm, void* stream) {
-    if (n < 1 || n > 0x7fffffffLL || nm < 1) return cudaErrorInvalidValue;
+                          float dt, const float* table, int nm, const int* blocks, int nblocks,
+                          void* stream) {
+    if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(S_V == 0, "row V is row 0");
-    tp06_grl_multi_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const Tp06Params*>(table),
-        nm);
+    const auto kernel = blocks ? &tp06_grl_multi_step_v_kernel<true> : &tp06_grl_multi_step_v_kernel<false>;
+    kernel<<<fbt::multi_grid(n, blocks, nblocks), fbt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const Tp06Params*>(table), nm, blocks);
     return cudaGetLastError();
 }
 

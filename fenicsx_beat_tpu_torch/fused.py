@@ -21,28 +21,31 @@ Two operator paths, chosen by the assembly as in JAX
   Its exit test is ``sqrt(rr) > tol``, as JAX's ``cg``, so the iteration
   counts match the JAX solver's.
 
-The ionic model is TP06 or ToR-ORd dynCl generalized Rush-Larsen (V in
-row 0), FitzHugh-Nagumo forward Euler (V in row 1), or either step of a
-model that ``odefile.load_ode`` generated (V in its row), and the solver takes
+The ionic model is TP06, ToR-ORd dynCl or ToR-ORd dynCl + Land generalized
+Rush-Larsen (V in row 0), FitzHugh-Nagumo forward Euler (V in row 1), or
+either step of a model that ``odefile.load_ode`` generated (V in its row),
+and the solver takes
 its kernels from the model's entry in
 :data:`~.ops.cuda_ode.IONIC_MODELS` (:func:`~.splitting.ionic_layer`,
 shared with the bidomain solver): B1 for one parameter vector, B1's
 per-node form for a node-aligned ``[NP, n]`` parameter field (2-D
 ``parameters``, as ``fenicsx_beat_tpu/fused.py:213-217`` routes it), or
-B7 for marker-partitioned layers of one model: a dict ``ode_fun`` with
-``ode_markers`` composes through :func:`~.odesolver.make_multi_ode`, whose
-masks become B7's per-node model index.  Stimuli are separable TimeWindow
+B7 for marker-partitioned layers: a dict ``ode_fun`` with ``ode_markers``
+composes through :func:`~.odesolver.make_multi_ode`, whose masks become
+B7's per-node model index, one launch per model, each over the blocks
+that hold its nodes where the markers mix models
+(:func:`~.ops.cuda_ode.mixed_multi_step`).  Stimuli are separable TimeWindow
 loads on cell or exterior-facet measures.  On the CPU every kernel runs as its plain
 PyTorch twin, which is how the port is held against the JAX solver;
 ``use_kernels=False`` selects the twins on any device (the kernel check's
 reference on the card); there is no silent switch between the two.
 
-Scope of this port: TP06, ToR-ORd dynCl, FitzHugh-Nagumo and generated
-models (one parameter vector, a per-node parameter field, or one vector
-per marker of one model), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.
-Everything else the JAX solver offers (merged Strang, other models,
-markers that mix models, per-marker parameter fields, non-TimeWindow
-stimuli) raises ``NotImplementedError``.  The node axis is not padded.
+Scope of this port: TP06, ToR-ORd dynCl, ToR-ORd dynCl + Land,
+FitzHugh-Nagumo and generated models (one parameter vector, a per-node
+parameter field, or one vector per marker, the markers' models mixed or
+not), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.  Everything
+else the JAX solver offers (merged Strang, other models, per-marker
+parameter fields, non-TimeWindow stimuli) raises ``NotImplementedError``.  The node axis is not padded.
 """
 
 from __future__ import annotations
@@ -89,10 +92,11 @@ class FusedMonodomainSolver:
     mesh : Mesh
     M : conductivity spec (scalar / tensor / ConductivityTensor)
     ode_fun : the ionic step, ``generalized_rush_larsen`` of
-        ``models.tentusscher_panfilov_2006``, ``models.torord_dyncl`` or
-        ``models.fitzhughnagumo`` (whose ``forward_euler`` is the same
-        step), or a dict marker -> one of those steps (multi-marker layers
-        of one model, with ``ode_markers``)
+        ``models.tentusscher_panfilov_2006``, ``models.torord_dyncl``,
+        ``models.torord_dyncl_land`` or ``models.fitzhughnagumo`` (whose
+        ``forward_euler`` is the same step), or a dict marker -> one of
+        those steps (multi-marker layers, of one model or several, with
+        ``ode_markers``)
     init_states : (S,) or (S, n_nodes); a dict marker -> those with a dict ``ode_fun``
     parameters : the model's parameter vector (NP,), or a node-aligned
         (NP, n_nodes) field; a dict marker -> vector with a dict ``ode_fun``
@@ -154,7 +158,7 @@ class FusedMonodomainSolver:
         # (fused.py:104-136), whose dicts compose through make_multi_ode
         layer = ionic_layer(self._ionic, self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                             self.v_index, n, dev, dt_, self.use_kernels)
-        self._multi, self._ode_step = layer.multi, layer.step
+        self._ionic_groups, self._ode_step = layer.groups, layer.step
         self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators: assembled in float64 on the host (stencil first, ELL

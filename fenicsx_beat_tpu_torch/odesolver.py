@@ -5,45 +5,59 @@ Port of ``make_multi_ode`` from ``fenicsx_beat_tpu/odesolver.py`` (the
 marker value, each stepping the nodes that carry its marker.  The rest of
 that module (the OO ODE solvers) is not ported yet.
 
-The composed step's markers all run one step of one ported model
-(:data:`~.ops.cuda_ode.IONIC_MODELS`: TP06, ToR-ORd dynCl, FitzHugh-Nagumo,
-or a model that ``odefile.load_ode`` generated): on the card it is that
-model's multi-marker ionic kernel (B7, found through
-:func:`~.ops.cuda_ode.ionic_model`).  Other models, and markers that mix
-models, raise ``NotImplementedError`` until they are ported (ROADMAP A4,
-A8, B7).
+Each marker runs one step of a ported model
+(:data:`~.ops.cuda_ode.IONIC_MODELS`: TP06, ToR-ORd dynCl, ToR-ORd dynCl +
+Land, FitzHugh-Nagumo, or a model that ``odefile.load_ode`` generated); on
+the card the markers of one model are that model's multi-marker ionic
+kernel (B7, found through :func:`~.ops.cuda_ode.ionic_model`), and markers
+that mix models run B7's mixed form, one launch per model
+(:func:`~.ops.cuda_ode.mixed_multi_step`).  Other models raise
+``NotImplementedError`` until they are ported (ROADMAP A4, A8).
 """
 
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
-from .ops.cuda_ode import ionic_model
+from .ops.cuda_ode import IonicModel, ionic_model
 
-__all__ = ["make_multi_ode", "check_multi_models"]
+__all__ = ["make_multi_ode", "check_multi_models", "MarkerModels"]
 
 logger = logging.getLogger(__name__)
 
 
-def check_multi_models(fun: dict):
-    """The one ported model (:class:`~.ops.cuda_ode.IonicModel`) whose
-    generalized Rush-Larsen step every marker of ``fun`` runs; raises
-    ``NotImplementedError`` for any other step, or for markers that mix
-    models (one B7 kernel runs one model's formulas)."""
-    models = {m: ionic_model(f) for m, f in fun.items()}
-    names = {spec.name for spec in models.values()}
-    if len(names) > 1:
-        raise NotImplementedError(
-            "multi-marker models mixing "
-            + ", ".join(f"marker {m}: {spec.name}" for m, spec in sorted(models.items()))
-            + ": B7 runs one ionic model over every marker; mixed models are not ported yet "
-            "(ROADMAP B7)"
-        )
-    return next(iter(models.values()))
+@dataclass(frozen=True)
+class MarkerModels:
+    """The ported models of a dict ``ode_fun``, grouped by marker: one
+    ``(model, markers)`` pair per model, in the order of its first marker."""
+
+    groups: tuple[tuple[IonicModel, tuple], ...]
+
+    @property
+    def name(self) -> str:
+        """Every model's name, ``+``-joined (``"tp06+torord_dyncl_land"``)."""
+        return "+".join(spec.name for spec, _ in self.groups)
+
+
+def check_multi_models(fun: dict) -> MarkerModels:
+    """The ported model (:class:`~.ops.cuda_ode.IonicModel`) of each
+    marker of ``fun``, grouped by model; raises ``NotImplementedError`` for
+    a step that is not ported."""
+    groups: list[tuple[IonicModel, list]] = []
+    for marker in sorted(fun):
+        spec = ionic_model(fun[marker])
+        for g_spec, markers in groups:
+            if g_spec is spec:
+                markers.append(marker)
+                break
+        else:
+            groups.append((spec, [marker]))
+    return MarkerModels(tuple((spec, tuple(markers)) for spec, markers in groups))
 
 
 def make_multi_ode(

@@ -1,6 +1,7 @@
 """B1 and B7: the ionic steps of the splitting solvers -- one generalized
 Rush-Larsen step with the PDE voltage injected into row V -- for TP06,
-ToR-ORd dynCl and FitzHugh-Nagumo (whose GRL step is forward Euler).
+ToR-ORd dynCl, ToR-ORd dynCl + Land and FitzHugh-Nagumo (whose GRL step is
+forward Euler).
 
 Each model has three forms, counterparts of
 ``fenicsx_beat_tpu/ops/pallas_ode.py``:
@@ -14,6 +15,13 @@ Each model has three forms, counterparts of
   endo/mid/epi layers); a node with no model keeps its states with V
   injected.
 
+Markers that mix models run B7's mixed form, :func:`mixed_multi_step`:
+one launch of each model's B7 kernel over the union ``[S_max, n]`` states,
+on that model's own rows, its grid only the 256-node blocks that hold its
+nodes (the JAX kernel's ``active[model, block]`` table as a compacted
+grid, :func:`mixed_groups`); a node of another model (index
+:data:`OTHER_MODEL`) is left untouched.
+
 B1's forms inject V into the model's own voltage row
 (:attr:`IonicModel.v_index`: 0 for TP06 and ToR-ORd, 1 for FHN).  B7 works
 on ``make_multi_ode``'s storage layout, where every model's voltage is row
@@ -22,13 +30,14 @@ so B7 injects into row 0.
 
 All update a ``(S, n)`` state tensor in place: on a CUDA tensor they
 launch the hand-written kernels (``csrc/tp06_grl{,_node,_multi}.cu``,
-``csrc/torord_grl{,_node,_multi}.cu``, ``csrc/fhn_{step,node,multi}.cu``;
-one copy of each model's formulas in ``csrc/tp06.cuh``,
-``csrc/torord.cuh`` and ``csrc/fhn.cuh``); on a CPU tensor they run their
-plain PyTorch twins.  The JAX kernels trace any jnp model.  Here the
+``csrc/torord_grl{,_node,_multi}.cu``, ``csrc/torord_land_grl{,_node,_multi}.cu``,
+``csrc/fhn_{step,node,multi}.cu``; one copy of each model's formulas in
+``csrc/tp06.cuh``, ``csrc/torord.cuh`` (with Land's ``csrc/torord_land.cuh``)
+and ``csrc/fhn.cuh``); on a CPU tensor they run their plain PyTorch twins.
+The JAX kernels trace any jnp model.  Here the
 models in :data:`IONIC_MODELS` have kernels, which :func:`ionic_model`
 looks up by the model's step function, so the solvers pick kernels by
-model: the three hand-written ones by their ``generalized_rush_larsen``,
+model: the four hand-written ones by their ``generalized_rush_larsen``,
 and every model that ``odefile.load_ode`` generates by both of its steps
 (:func:`register_model`: GRL1 and forward Euler, the JAX kernel runs
 either), whose kernels are the templates ``csrc/ode_{step,node,multi}.cu.in``
@@ -51,6 +60,7 @@ from .._build import (
 from ..models import fitzhughnagumo as fhn
 from ..models import tentusscher_panfilov_2006 as tp06
 from ..models import torord_dyncl as torord
+from ..models import torord_dyncl_land as land
 
 __all__ = [
     "IonicModel",
@@ -59,6 +69,11 @@ __all__ = [
     "register_model",
     "voltage_row",
     "model_index_from_masks",
+    "OTHER_MODEL",
+    "MixedGroup",
+    "mixed_groups",
+    "mixed_multi_step",
+    "mixed_multi_step_twin",
     "tp06_grl_step_v",
     "tp06_grl_step_v_twin",
     "tp06_grl_node_step_v",
@@ -69,12 +84,24 @@ __all__ = [
     "torord_grl_node_step_v",
     "torord_grl_multi_step_v",
     "torord_grl_multi_step_v_twin",
+    "torord_land_grl_step_v",
+    "torord_land_grl_step_v_twin",
+    "torord_land_grl_node_step_v",
+    "torord_land_grl_multi_step_v",
+    "torord_land_grl_multi_step_v_twin",
     "fhn_step_v",
     "fhn_step_v_twin",
     "fhn_node_step_v",
     "fhn_multi_step_v",
     "fhn_multi_step_v_twin",
 ]
+
+
+# B7's model index of a node that another model's launch steps (the mixed
+# form): left as it is, no V injected (fbt::kOtherModel, csrc/common.cuh)
+OTHER_MODEL = -2
+# nodes per block of B7's grid (fbt::kThreads, csrc/common.cuh)
+BLOCK_NODES = 256
 
 
 def voltage_row(model: ModuleType) -> int:
@@ -134,6 +161,17 @@ def _b7_twin(model: ModuleType, fun: Callable | None = None) -> Callable:
         return states
 
     return twin
+
+
+def _twin_on_nodes(twin: Callable, states: torch.Tensor, v: torch.Tensor, index: torch.Tensor,
+                   nodes: torch.Tensor, t: float, dt: float, table) -> None:
+    """B7's twin on the columns ``nodes`` of ``states`` alone, in place: the
+    mixed form's, whose other columns belong to other models' launches
+    (index :data:`OTHER_MODEL`).  Each model's formulas then run on its
+    own nodes only."""
+    sub = states.index_select(1, nodes)
+    twin(sub, v.index_select(0, nodes), index.index_select(0, nodes), t, dt, table)
+    states.index_copy_(1, nodes, sub)
 
 
 def _shape_error(what: str, model: ModuleType, **shapes) -> ValueError:
@@ -200,20 +238,28 @@ def _b7(name: str, model: ModuleType, twin: Callable, library: Callable = load_l
     S, NP = len(model._STATE_NAMES), len(model._PARAM_NAMES)
 
     def step(states: torch.Tensor, v: torch.Tensor, index: torch.Tensor, t: float, dt: float,
-             table: torch.Tensor) -> torch.Tensor:
+             table: torch.Tensor, blocks: torch.Tensor | None = None) -> torch.Tensor:
         if states.device.type == "cpu":
-            return twin(states, v, index, t, dt, table)
+            if blocks is None:
+                return twin(states, v, index, t, dt, table)
+            nodes = torch.nonzero(index != OTHER_MODEL).flatten()
+            _twin_on_nodes(twin, states[:S], v, index, nodes, t, dt, table)
+            return states
         require_cuda_f32(states=states, v=v, table=table)
-        require_cuda_i32(index=index)
+        require_cuda_i32(index=index, **({} if blocks is None else {"blocks": blocks}))
         n = states.shape[1]
-        if states.shape[0] != S or v.shape != (n,) or index.shape != (n,):
-            raise _shape_error("need (S, n), (n,) and (n,)", model, states=states.shape, v=v.shape,
-                               index=index.shape)
+        rows_ok = states.shape[0] == S if blocks is None else states.shape[0] >= S
+        if not rows_ok or v.shape != (n,) or index.shape != (n,):
+            raise _shape_error("need (S, n) (S_max >= S rows in the mixed form), (n,) and (n,)", model,
+                               states=states.shape, v=v.shape, index=index.shape)
         if table.dim() != 2 or table.shape[1] != NP or table.shape[0] < 1:
             raise _shape_error("need the (NM, NP) table", model, table=table.shape)
+        if blocks is not None and (blocks.dim() != 1 or blocks.numel() < 1):
+            raise ValueError(f"blocks {tuple(blocks.shape)}: need a non-empty list of block ids")
         err = getattr(library().lib, symbol or name)(
             states.data_ptr(), v.data_ptr(), index.data_ptr(), n, float(t), float(dt),
-            table.data_ptr(), table.shape[0], stream_ptr(states),
+            table.data_ptr(), table.shape[0], None if blocks is None else blocks.data_ptr(),
+            0 if blocks is None else blocks.numel(), stream_ptr(states),
         )
         check(err, name)
         step.launches += 1
@@ -224,7 +270,11 @@ def _b7(name: str, model: ModuleType, twin: Callable, library: Callable = load_l
                     f"row itself); node k "
                     f"steps with parameter set ``table[index[k]]`` (``table`` is (NM, {NP})), or "
                     f"keeps its states when ``index[k]`` is outside [0, NM).  On the card "
-                    f"``index`` is int32 and ``table`` float32, both on the states' device.")
+                    f"``index`` is int32 and ``table`` float32, both on the states' device.  The mixed "
+                    f"form (``blocks``, int32 block ids on the device): ``states`` is the union "
+                    f"(S_max, n) of several models, of which this launch steps its {S} rows over the "
+                    f"listed {BLOCK_NODES}-node blocks only, and a node of index ``OTHER_MODEL`` "
+                    f"keeps its states without V.")
     return _named(step, name)
 
 
@@ -245,6 +295,12 @@ torord_grl_multi_step_v_twin = _b7_twin(torord)
 torord_grl_step_v = _b1("torord_grl_step_v", torord, torord_grl_step_v_twin)
 torord_grl_node_step_v = _b1_node("torord_grl_node_step_v", torord, torord_grl_step_v_twin)
 torord_grl_multi_step_v = _b7("torord_grl_multi_step_v", torord, torord_grl_multi_step_v_twin)
+
+torord_land_grl_step_v_twin = _b1_twin(land)
+torord_land_grl_multi_step_v_twin = _b7_twin(land)
+torord_land_grl_step_v = _b1("torord_land_grl_step_v", land, torord_land_grl_step_v_twin)
+torord_land_grl_node_step_v = _b1_node("torord_land_grl_node_step_v", land, torord_land_grl_step_v_twin)
+torord_land_grl_multi_step_v = _b7("torord_land_grl_multi_step_v", land, torord_land_grl_multi_step_v_twin)
 
 fhn_step_v_twin = _b1_twin(fhn)
 fhn_multi_step_v_twin = _b7_twin(fhn)
@@ -267,6 +323,10 @@ class IonicModel:
     multi_step_twin: Callable
 
     @property
+    def num_states(self) -> int:
+        return len(self.module._STATE_NAMES)
+
+    @property
     def num_params(self) -> int:
         return len(self.module._PARAM_NAMES)
 
@@ -283,6 +343,8 @@ IONIC_MODELS = {
                    tp06_grl_step_v_twin, tp06_grl_multi_step_v_twin),
         IonicModel("torord_dyncl", torord, torord_grl_step_v, torord_grl_node_step_v,
                    torord_grl_multi_step_v, torord_grl_step_v_twin, torord_grl_multi_step_v_twin),
+        IonicModel("torord_dyncl_land", land, torord_land_grl_step_v, torord_land_grl_node_step_v,
+                   torord_land_grl_multi_step_v, torord_land_grl_step_v_twin, torord_land_grl_multi_step_v_twin),
         IonicModel("fhn", fhn, fhn_step_v, fhn_node_step_v, fhn_multi_step_v, fhn_step_v_twin,
                    fhn_multi_step_v_twin),
     )
@@ -324,7 +386,7 @@ def ionic_model(fun: Callable) -> IonicModel:
         raise NotImplementedError(
             f"{getattr(fun, '__module__', '?')}.{getattr(fun, '__name__', fun)}: the port's ionic "
             "kernels run the generalized Rush-Larsen step of "
-            + " or ".join(f"models.{m.__name__.rsplit('.', 1)[-1]}" for m in (tp06, torord, fhn))
+            + " or ".join(f"models.{m.__name__.rsplit('.', 1)[-1]}" for m in (tp06, torord, land, fhn))
             + " (forward_euler is FitzHugh-Nagumo's), or either step of a model that odefile.load_ode "
             "generated; other models are not ported yet (ROADMAP A4, A8)"
         ) from None
@@ -339,3 +401,86 @@ def model_index_from_masks(masks: np.ndarray) -> np.ndarray:
     nm = masks.shape[0]
     last = nm - 1 - np.argmax(masks[::-1], axis=0)
     return np.where(masks.any(axis=0), last, -1).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class MixedGroup:
+    """One model's B7 launch: every marker that runs ``model``.  Beside
+    other models it covers its own blocks of the union ``[S_max, n]``
+    states (the block-list form); alone it covers every node (the plain
+    form, ``blocks`` and ``nodes`` None)."""
+
+    model: IonicModel
+    index: torch.Tensor  # (n,) int32: the node's row of ``table``, -1 (no marker: V injected) or OTHER_MODEL
+    table: torch.Tensor  # (NM_model, NP) parameter sets on the device, in the states' dtype
+    table_host: np.ndarray  # the same values in float64 on the host (the twin's)
+    blocks: torch.Tensor | None  # int32 ids of the BLOCK_NODES-node blocks that hold a node of this launch
+    nodes: torch.Tensor | None  # int64 ids of those nodes (index != OTHER_MODEL), the twin's columns
+
+
+def mixed_groups(masks: np.ndarray, models: list, params: list, device, dtype) -> list[MixedGroup]:
+    """B7's launches for marker layers: ``masks`` [NM, n] as
+    :func:`~..odesolver.make_multi_ode` builds them, ``models[i]`` the
+    :class:`IonicModel` and ``params[i]`` the parameter vector of mask i.
+    One group per model that selects a node, in the order of its first
+    marker: each node goes to the model of the mask that selects it (the
+    last one where masks overlap, :func:`model_index_from_masks`), so each
+    node is stepped by one launch and the launches' order changes no
+    result.  The first group's launch also injects V into the nodes of no
+    marker.  With several groups each one's block list is the JAX kernel's
+    ``active`` table row (``pallas_ode.py:375-383``) compacted; a single
+    group runs B7's plain form over every node."""
+    winner = model_index_from_masks(masks)
+    n = winner.shape[0]
+    order = []
+    for i, spec in enumerate(models):
+        if (winner == i).any() and all(spec is not o for o in order):
+            order.append(spec)
+    order = order or list(models[:1])  # no node has a model: one launch injects V
+    groups = []
+    for g, spec in enumerate(order):
+        rows = [i for i, m in enumerate(models) if m is spec]
+        index = np.full(n, OTHER_MODEL, dtype=np.int32)
+        for local, i in enumerate(rows):
+            index[winner == i] = local
+        if g == 0:
+            index[winner < 0] = -1
+        table = torch.as_tensor(np.stack([np.asarray(params[i], dtype=np.float64) for i in rows]),
+                                device=device).to(dtype)
+        blocks = nodes = None
+        if len(order) > 1:
+            ids = np.nonzero(index != OTHER_MODEL)[0]
+            blocks = torch.as_tensor(np.unique(ids // BLOCK_NODES).astype(np.int32), device=device)
+            nodes = torch.as_tensor(ids, device=device)
+        groups.append(MixedGroup(model=spec, index=torch.as_tensor(index, device=device), table=table,
+                                 table_host=table.double().cpu().numpy(), blocks=blocks, nodes=nodes))
+    return groups
+
+
+def mixed_multi_step_twin(states: torch.Tensor, v: torch.Tensor, groups: list[MixedGroup], t: float,
+                          dt: float) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`mixed_multi_step`: each group's B7 twin
+    on its own nodes' columns of its own rows (a single group: on every
+    node), group after group, in place (the kernels' semantics)."""
+    for g in groups:
+        if g.nodes is None:
+            g.model.multi_step_twin(states, v, g.index, t, dt, g.table_host)
+        else:
+            _twin_on_nodes(g.model.multi_step_twin, states[: g.model.num_states], v, g.index, g.nodes, t, dt,
+                           g.table_host)
+    return states
+
+
+def mixed_multi_step(states: torch.Tensor, v: torch.Tensor, groups: list[MixedGroup], t: float,
+                     dt: float) -> torch.Tensor:
+    """B7 over :func:`mixed_groups`: one step of the union states
+    ``(S_max, n)`` in ``make_multi_ode``'s storage layout, in place, ``v``
+    (n,) injected into row 0 (``v`` may be that row itself).  On the card,
+    one launch of each group's B7 kernel (over its block list where
+    models mix), counted on that model's ``multi_step.launches``; on the
+    CPU, :func:`mixed_multi_step_twin`."""
+    if states.device.type == "cpu":
+        return mixed_multi_step_twin(states, v, groups, t, dt)
+    for g in groups:
+        g.model.multi_step(states, v, g.index, t, dt, g.table, blocks=g.blocks)
+    return states

@@ -5,7 +5,8 @@
 - :func:`ionic_layer`: which kernel of the model's entry in
   :data:`~.ops.cuda_ode.IONIC_MODELS` steps the states (B1 for one
   parameter vector, B1's per-node form for a node-aligned ``[NP, n]``
-  field, B7 for marker layers of one model), or its twin;
+  field, B7 for marker layers: one launch per model, in its block-list
+  form where the markers mix models), or its twin;
 - :func:`stimulus_loads`: the separable TimeWindow stimulus loads,
   assembled once on the host.
 """
@@ -21,7 +22,7 @@ import torch
 from . import fem
 from .base_model import _transform_I_s
 from .mesh import Mesh
-from .odesolver import check_multi_models, make_multi_ode
+from .odesolver import MarkerModels, check_multi_models, make_multi_ode
 from .ops import cuda_ode
 from .stimulation import TimeWindow, separable_stimulus_terms
 from .stimulation import dx as dx_measure
@@ -29,13 +30,16 @@ from .stimulation import dx as dx_measure
 __all__ = ["IonicLayer", "check_ionic_scope", "ionic_layer", "stimulus_loads"]
 
 
-def check_ionic_scope(ode_fun, ode_markers, init_states, parameters, v_index) -> cuda_ode.IonicModel:
+def check_ionic_scope(ode_fun, ode_markers, init_states, parameters,
+                      v_index) -> cuda_ode.IonicModel | MarkerModels:
     """The ported model a solver's ionic arguments run
-    (:data:`~.ops.cuda_ode.IONIC_MODELS`); raises ``NotImplementedError``
-    for what is not ported and ``ValueError`` for arguments that do not fit
-    the model.  Needs no mesh, so a solver refuses before it assembles."""
+    (:data:`~.ops.cuda_ode.IONIC_MODELS`), or, for a dict ``ode_fun``,
+    its models grouped by marker (:class:`~.odesolver.MarkerModels`, whose
+    ``name`` joins theirs); raises ``NotImplementedError`` for what is not
+    ported and ``ValueError`` for arguments that do not fit the model.
+    Needs no mesh, so a solver refuses before it assembles."""
     if isinstance(ode_fun, dict):
-        ionic = check_multi_models(ode_fun)
+        models = check_multi_models(ode_fun)
         if ode_markers is None:
             raise ValueError("dict-valued ode_fun requires ode_markers")
         for name, value in (("init_states", init_states), ("parameters", parameters), ("v_index", v_index)):
@@ -43,10 +47,10 @@ def check_ionic_scope(ode_fun, ode_markers, init_states, parameters, v_index) ->
                 raise ValueError(f"a dict ode_fun takes {name} as a dict keyed by marker")
         if any(q is None or np.ndim(q) != 1 for q in parameters.values()):
             raise NotImplementedError(
-                f"each marker's {ionic.name} model needs its parameter vector (B7's table); "
+                f"each marker's {models.name} model needs its parameter vector (B7's table); "
                 "per-marker parameter fields are not ported yet"
             )
-        return ionic
+        return models
     ionic = cuda_ode.ionic_model(ode_fun)
     if v_index != ionic.v_index:
         raise ValueError(f"{ionic.name} keeps V in row {ionic.v_index}, got v_index={v_index}")
@@ -60,23 +64,26 @@ class IonicLayer:
     """The ionic layer of a splitting solver: the initial states and their
     voltage row, and ``step(states, v, t, dt)``, which injects ``v`` and
     steps ``states`` in place through one kernel of the model's entry (or
-    its twin).  For marker layers ``multi`` holds B7's per-node model index
-    and parameter table on the device, and the states are in
+    its twin).  For marker layers ``groups`` holds B7's launches, one
+    :class:`~.ops.cuda_ode.MixedGroup` per model (its per-node index and
+    parameter table on the device); marker layers keep their states in
     ``make_multi_ode``'s storage layout, V in row 0."""
 
     init_states: np.ndarray  # (S,) or (S, n)
     v_index: int
     step: Callable[[torch.Tensor, torch.Tensor, float, float], torch.Tensor]
-    multi: tuple[torch.Tensor, torch.Tensor] | None = None
+    groups: list[cuda_ode.MixedGroup] | None = None
 
 
-def ionic_layer(ionic: cuda_ode.IonicModel, ode_fun, ode_markers, init_states, parameters, v_index,
-                n: int, device: torch.device, dtype: torch.dtype, use_kernels: bool) -> IonicLayer:
+def ionic_layer(ionic: cuda_ode.IonicModel | MarkerModels, ode_fun, ode_markers, init_states, parameters,
+                v_index, n: int, device: torch.device, dtype: torch.dtype, use_kernels: bool) -> IonicLayer:
     """Build the :class:`IonicLayer` of arguments that
     :func:`check_ionic_scope` accepted, for ``n`` nodes.  A dict ``ode_fun``
     composes through :func:`~.odesolver.make_multi_ode` (the JAX solvers'
     contract, ``fenicsx_beat_tpu/fused.py:104-136``), whose masks become B7's
-    per-node model index; 2-D ``parameters`` take B1's per-node form."""
+    per-node model index (one model) or B7's mixed form's groups
+    (:func:`~.ops.cuda_ode.mixed_groups`); 2-D ``parameters`` take B1's
+    per-node form."""
     k = use_kernels
     if isinstance(ode_fun, dict):
         markers = ode_markers.x.array if hasattr(ode_markers, "x") else ode_markers
@@ -84,12 +91,10 @@ def ionic_layer(ionic: cuda_ode.IonicModel, ode_fun, ode_markers, init_states, p
         if markers.shape[0] != n:
             raise ValueError(f"ode_markers has {markers.shape[0]} entries, expected {n}")
         multi_fun, init, masks, vi = make_multi_ode(markers, ode_fun, init_states, parameters, v_index)
-        table = np.stack([np.asarray(q, dtype=np.float64) for q in multi_fun.multi["params"]])
-        index = torch.as_tensor(cuda_ode.model_index_from_masks(masks), device=device)
-        table_t = torch.as_tensor(table, device=device).to(dtype)
-        step = ionic.multi_step if k else ionic.multi_step_twin
-        return IonicLayer(init, vi, lambda states, v, t, dt: step(states, v, index, t, dt, table_t),
-                          multi=(index, table_t))
+        groups = cuda_ode.mixed_groups(masks, [cuda_ode.ionic_model(f) for f in multi_fun.multi["funs"]],
+                                       multi_fun.multi["params"], device, dtype)
+        step = cuda_ode.mixed_multi_step if k else cuda_ode.mixed_multi_step_twin
+        return IonicLayer(init, vi, lambda states, v, t, dt: step(states, v, groups, t, dt), groups=groups)
     params = np.asarray(parameters, dtype=np.float64)
     if params.ndim == 2:
         if params.shape != (ionic.num_params, n):

@@ -134,7 +134,7 @@ def test_fhn_marker_layers_match_jax(scheme, theta):
     composition (both in make_multi_ode's storage layout, V in row 0)."""
     js = JBidomain(use_pallas_ode=False, theta=theta, scheme=scheme, **square("jax", 8, markers=True))
     ts = TBidomain(device="cpu", theta=theta, scheme=scheme, **square("port", 8, markers=True))
-    assert ts._multi is not None and ts.v_index == 0
+    assert ts._ionic_groups is not None and ts.v_index == 0
     assert_same(run(js, 1.5, 0.1, 5), run(ts, 1.5, 0.1, 5))
     np.testing.assert_allclose(ts.states.numpy(), np.asarray(js.states), rtol=0, atol=1e-8 * 100)
 

@@ -199,7 +199,7 @@ def test_fused_solver_with_fhn_matches_jax(case):
     assert (ap >= 0).sum() > 0
     np.testing.assert_allclose(sp, sj, rtol=0, atol=1e-8)
     np.testing.assert_array_equal(ap, aj)
-    assert (port._multi is not None) == (case == "markers")
+    assert (port._ionic_groups is not None) == (case == "markers")
 
 
 def test_fused_refuses_a_wrong_voltage_row():

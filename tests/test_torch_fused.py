@@ -162,8 +162,13 @@ def test_default_device_is_the_card():
         {"ode_fun": ttp.forward_euler},
         {"theta": 0.7},
         {"ode_fun": {0: ttp.forward_euler}, "ode_markers": np.zeros(672, dtype=int)},
+        # markers that mix models run (tests/test_torch_mixed_ode.py); a
+        # marker's parameter field does not
         {"ode_fun": {0: ttp.generalized_rush_larsen, 1: ttor.generalized_rush_larsen},
-         "ode_markers": np.arange(672) % 2},
+         "ode_markers": np.arange(672) % 2,
+         "init_states": {0: ttp.init_state_values(), 1: ttor.init_state_values()},
+         "parameters": {0: np.tile(ttp.init_parameter_values()[:, None], (1, 672)), 1: ttor.init_parameter_values()},
+         "v_index": {0: 0, 1: 0}},
     ],
 )
 def test_unported_options_raise(kw):
@@ -192,7 +197,7 @@ def test_node_aligned_parameters_match_jax(route):
     js.solve((0.0, N_STEPS * DT), dt=DT)
     vec = tnied._build_solver(dx=DX, theta=0.5, device="cpu")
     ts = dataclasses.replace(vec, parameters=field)
-    assert ts._multi is None and np.shape(ts.parameters) == (54, n)
+    assert ts._ionic_groups is None and np.shape(ts.parameters) == (54, n)
     ts.solve((0.0, N_STEPS * DT), dt=DT)
     assert_same_run(ts, js)
     vec.solve((0.0, N_STEPS * DT), dt=DT)

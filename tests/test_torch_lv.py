@@ -108,7 +108,7 @@ def test_lv_slice_matches_jax(port_run, route):
         assert js._lane_gather  # the unstructured TPU path engaged
     assert js.solve((0.0, N_STEPS * DT), dt=DT).name == "OK"
     ts = port_run
-    np.testing.assert_array_equal(ts._multi[0].numpy(), np.asarray(layers.x.array).astype(np.int32))
+    np.testing.assert_array_equal(ts._ionic_groups[0].index.numpy(), np.asarray(layers.x.array).astype(np.int32))
     np.testing.assert_allclose(ts.states.numpy(), np.asarray(js.states), rtol=0, atol=1e-8)
     act = ts.activation_times()
     np.testing.assert_array_equal(act, np.asarray(js.activation_times()))
@@ -125,7 +125,7 @@ def test_lv_twins_on_request_match_default_path(port_run):
     """use_kernels=False selects the twins explicitly; on the CPU the
     kernel wrappers dispatch to the same twins."""
     ts = tlv.build_lv_solver(psize=PSIZE, device="cpu", use_kernels=False,
-                             layers=port_run._multi[0].numpy())
+                             layers=port_run._ionic_groups[0].index.numpy())
     ts.solve((0.0, N_STEPS * DT), dt=DT)
     assert torch.equal(ts.states, port_run.states)
 

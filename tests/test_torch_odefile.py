@@ -54,7 +54,8 @@ from fenicsx_beat_tpu_torch.benchmarks import custom_ode
 from fenicsx_beat_tpu_torch.benchmarks import niederer as tnied
 from fenicsx_beat_tpu_torch.models import fitzhughnagumo as tfhn
 from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as ttp
-from fenicsx_beat_tpu_torch.odesolver import check_multi_models
+from fenicsx_beat_tpu_torch.odesolver import check_multi_models, make_multi_ode
+from fenicsx_beat_tpu_torch.splitting import check_ionic_scope, ionic_layer
 from fenicsx_beat_tpu_torch.ops import cuda_ode
 
 RTOL = 1e-12
@@ -339,12 +340,32 @@ def test_registration_and_refusals():
     assert other is not tm and _spec(other, SCHEMES[0]).name == "fhn_copy_grl"
     assert len(cuda_ode.IONIC_MODELS) == n_models + 2
     assert _build.model_symbol(load("coverage")[0].cuda_source) != _build.model_symbol(tm.cuda_source)
-    # the hand-written TP06's forward Euler and mixed markers still raise
+    # the hand-written TP06's forward Euler still raises; a GRL/FE pair of
+    # one generated model is two models to B7: they compose, and the mixed
+    # layer's twin step equals make_multi_ode's composed step
     with pytest.raises(NotImplementedError, match="A4"):
         cuda_ode.ionic_model(ttp.forward_euler)
-    with pytest.raises(NotImplementedError, match="mixed models"):
-        check_multi_models({0: tm.generalized_rush_larsen, 1: tm.forward_euler})
-    assert check_multi_models({0: tm.forward_euler, 3: tm.forward_euler}) is fe
+    pair = {0: tm.generalized_rush_larsen, 1: tm.forward_euler}
+    assert [(spec is grl, m) for spec, m in check_multi_models(pair).groups] == [(True, (0,)), (False, (1,))]
+    assert check_multi_models(pair).groups[1][0] is fe
+    assert check_multi_models({0: tm.forward_euler, 3: tm.forward_euler}).groups == ((fe, (0, 3)),)
+    n, vi = 64, cuda_ode.voltage_row(tm)
+    markers = np.arange(n) % 3  # marker 2 has no model
+    init = {m: tm.init_state_values() for m in pair}
+    params = {m: tm.init_parameter_values() for m in pair}
+    v_idx = {m: vi for m in pair}
+    composed, union, masks, _ = make_multi_ode(markers, pair, init, params, v_idx)
+    layer = ionic_layer(check_ionic_scope(pair, markers, init, params, v_idx), pair, markers, init, params, v_idx,
+                        n, torch.device("cpu"), torch.float64, True)
+    assert [g.model for g in layer.groups] == [grl, fe]
+    rng = np.random.default_rng(11)
+    S = torch.tensor(union * (1 + 0.05 * rng.standard_normal(union.shape)))
+    v = torch.tensor(rng.uniform(-80.0, 20.0, n))
+    ref = S.clone()
+    ref[0] = v
+    ref = composed(ref, 1.0, masks, 0.05)
+    layer.step(S, v, 1.0, 0.05)
+    torch.testing.assert_close(S, ref, rtol=1e-12, atol=0)
     # a model with no voltage state loads and steps, with no kernels
     toy, _ = load("toy_gate")
     assert toy.cuda_source is None

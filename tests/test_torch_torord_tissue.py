@@ -66,7 +66,7 @@ def test_torord_lv_layers_match_jax(lv_port, route):
     assert js.solve((0.0, LV_STEPS * 0.05), dt=0.05).name == "OK"
     ts = lv_port
     assert ts._ionic.name == "torord_dyncl" and ts.states.shape[0] == 45
-    np.testing.assert_array_equal(ts._multi[0].numpy(), np.asarray(layers.x.array).astype(np.int32))
+    np.testing.assert_array_equal(ts._ionic_groups[0].index.numpy(), np.asarray(layers.x.array).astype(np.int32))
     np.testing.assert_allclose(ts.states.numpy(), np.asarray(js.states)[:, : ts._n], rtol=0, atol=1e-8)
     act = ts.activation_times()
     np.testing.assert_array_equal(act, np.asarray(js.activation_times())[: ts._n])
@@ -79,7 +79,7 @@ def test_lv_starts_from_the_given_layer_states(lv_port):
     """``init_states`` (the pre-paced steady states) seed each layer."""
     steady = {m: ttor.init_state_values(v=-85.0 - m) for m in tlv.CELLTYPES}
     ts = tlv.build_lv_solver(psize=LV_PSIZE, device="cpu", model="torord_dyncl", init_states=steady,
-                             layers=lv_port._multi[0].numpy())
-    index = ts._multi[0].numpy()
+                             layers=lv_port._ionic_groups[0].index.numpy())
+    index = ts._ionic_groups[0].index.numpy()
     for i, m in enumerate(sorted(tlv.CELLTYPES)):
         assert np.all(ts.states[0].numpy()[index == i] == -85.0 - m)

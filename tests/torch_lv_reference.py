@@ -3,8 +3,9 @@
 :func:`jax_lv_solver` builds the JAX ``FusedMonodomainSolver`` of the
 setup that ``fenicsx_beat_tpu_torch.benchmarks.lv.build_lv_solver`` builds
 in the port (same geometry, layers, celltypes, stimulus, conductivities
-and probes; TP06 or ToR-ORd layers), for ``tests/test_torch_lv.py`` and
-``tests/test_torch_torord.py``; :func:`jax_slab_solver` that of
+and probes; TP06, ToR-ORd or ToR-ORd + Land layers), for
+``tests/test_torch_lv.py``, ``tests/test_torch_torord_tissue.py`` and
+``tests/test_torch_land.py``; :func:`jax_slab_solver` that of
 ``fenicsx_beat_tpu_torch.benchmarks.slab.build_slab_solver`` (the slab
 demo).  Run as a script, it prints the JAX package's values in float64 on
 the CPU, the constants that ``chip_smoke.py`` holds the port to on the
@@ -12,13 +13,16 @@ card::
 
     JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --psize 0.3 -T 30
     JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --psize 0.3 -T 30 --model torord_dyncl
+    JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --psize 0.3 -T 30 --model torord_dyncl_land
     JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --steady-states
+    JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --steady-states --model torord_dyncl_land
     JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --slab 0.05 -T 20
 
 the LV probe activation times (layers from ``init_state_values()``,
-unpaced), each ToR-ORd celltype's single-cell steady state after the LV
-demo's 2 beats at BCL 1000 ms (dt 0.05), and the slab demo's probe times
-and conduction velocity.
+unpaced), each ToR-ORd (or, with ``--model torord_dyncl_land``, ToR-ORd +
+Land) celltype's single-cell steady state after the LV demo's 2 beats at
+BCL 1000 ms (dt 0.05), and the slab demo's probe times and conduction
+velocity.
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ from fenicsx_beat_tpu_torch.benchmarks import slab as tslab  # noqa: E402
 
 def jax_model(model: str):
     """The JAX package's module of the port's ``benchmarks.lv.MODELS`` name."""
-    from fenicsx_beat_tpu.models import tentusscher_panfilov_2006, torord_dyncl
+    from fenicsx_beat_tpu.models import tentusscher_panfilov_2006, torord_dyncl, torord_dyncl_land
 
-    return {"tp06": tentusscher_panfilov_2006, "torord_dyncl": torord_dyncl}[model]
+    return {"tp06": tentusscher_panfilov_2006, "torord_dyncl": torord_dyncl,
+            "torord_dyncl_land": torord_dyncl_land}[model]
 
 
 def jax_lv_solver(psize: float, theta: float = 0.5, probe_points=None, model: str = "tp06",
@@ -119,19 +124,20 @@ def probe_values(solver) -> np.ndarray:
     return (np.asarray(solver.activation_times())[pdofs] * pw).sum(axis=1)
 
 
-def jax_steady_states(dt: float = 0.05, outdir=None) -> dict:
-    """The JAX package's ``get_steady_state`` for each ToR-ORd celltype of
-    the LV, as the port's ``benchmarks.lv.lv_steady_states`` runs it."""
+def jax_steady_states(dt: float = 0.05, outdir=None, model: str = "torord_dyncl") -> dict:
+    """The JAX package's ``get_steady_state`` for each celltype of the LV
+    (ToR-ORd, or ToR-ORd + Land), as the port's
+    ``benchmarks.lv.lv_steady_states`` runs it."""
     import tempfile
 
-    from fenicsx_beat_tpu.models import torord_dyncl
     from fenicsx_beat_tpu.single_cell import get_steady_state
 
+    m = jax_model(model)
     with tempfile.TemporaryDirectory() as tmp:
         return {
             marker: get_steady_state(
-                fun=torord_dyncl.generalized_rush_larsen, init_states=torord_dyncl.init_state_values(),
-                parameters=torord_dyncl.init_parameter_values(celltype=ct),
+                fun=m.generalized_rush_larsen, init_states=m.init_state_values(),
+                parameters=m.init_parameter_values(celltype=ct),
                 outdir=Path(outdir or tmp) / f"layer-{marker}", BCL=tlv.PREPACE_BCL,
                 nbeats=tlv.PREPACE_BEATS, dt=dt,
             )
@@ -145,7 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("-T", type=float, default=30.0)
     ap.add_argument("--dt", type=float, default=0.05)
     ap.add_argument("--model", choices=sorted(tlv.MODELS), default="tp06")
-    ap.add_argument("--steady-states", action="store_true", help="each ToR-ORd celltype's steady state")
+    ap.add_argument("--steady-states", action="store_true",
+                    help="each celltype's steady state (ToR-ORd unless --model names Land)")
     ap.add_argument("--slab", type=float, default=None, metavar="DX", help="the slab demo at bar thickness DX")
     args = ap.parse_args(argv)
 
@@ -154,9 +161,10 @@ def main(argv=None) -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     if args.steady_states:
-        states = jax_steady_states(dt=args.dt)
+        model = "torord_dyncl_land" if args.model == "torord_dyncl_land" else "torord_dyncl"
+        states = jax_steady_states(dt=args.dt, model=model)
         print(json.dumps({
-            "dt": args.dt, "nbeats": tlv.PREPACE_BEATS, "BCL": tlv.PREPACE_BCL,
+            "model": model, "dt": args.dt, "nbeats": tlv.PREPACE_BEATS, "BCL": tlv.PREPACE_BCL,
             "celltype_states": {f"{tlv.CELLTYPES[m]:g}": [float(x) for x in y] for m, y in states.items()},
         }))
         return 0
