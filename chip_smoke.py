@@ -12,7 +12,15 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    the median time of kernel, twin and the one PyTorch library call that
    computes the same function (where there is one) from CUDA events, and
    the least time the card could take (``bound_ms``):
-   - B1-B4 at the shapes of the dx=0.1 Niederer main path (n = 442,401).
+   - B1-B4 and B2·B4 (B4's update folded into B2's pass: p', Ap', pAp and
+     alpha, in its first-iteration and folded forms; its library yardstick
+     the CSR product plus ``torch.addcmul``, each printed) at the shapes of
+     the dx=0.1 Niederer main path (n = 442,401), then the PCG's two issue
+     sequences on the main path's operator, in turns: the old one (B2 with
+     its dot, a division, B3, a division, B4) and the new one (B2·B4, B3),
+     200 iterations each, wall and device time and device launches per
+     iteration; and the main path's solver for 40 steps: B2·B4 and B3
+     once a CG iteration, no B4.
      The ionic kernel is held row by row for each TP06 celltype (endo,
      epi, mid): every state's one-step increment (at physiological values
      and with each slow concentration scaled, see
@@ -50,7 +58,10 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    ``run_niederer_benchmark``; P1-P9 against the converged published row
    (<= 5%) and against the JAX package's Strang values (each within one
    dt), ms simulated per s, CG iterations and host syncs per step, and
-   the launch count of every kernel in that run (B1-B4 must be > 0);
+   the launch count of every kernel in that run (B1, B2, B2·B4 and B3 must
+   be > 0, B4 0: folded into B2·B4); then the same run with the old issue
+   sequence patched into the solver: its CG iterations within 1% of the
+   new run's, its ms/s beside;
 7. the LV path at full width: psize 0.1, Strang, dt=0.05, 30 ms timed,
    through ``benchmarks/lv.py`` (host setup seconds, nodes and cells,
    activated share, probes, ms/s, CG iterations and host syncs per step,
@@ -460,6 +471,9 @@ SOURCES = {
                                 "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
     "stencil_spmv_sym": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_sym.cu",
                          "fenicsx_beat_tpu/ops/pallas_spmv.py:175"),
+    # B2·B4: B4's update folded into B2's pass (the PCG body, fused.py:545-551)
+    "stencil_spmv_sym_dir_dot": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_sym.cu",
+                                 "fenicsx_beat_tpu/ops/pallas_spmv.py:175 + fenicsx_beat_tpu/ops/pallas_cg.py:124"),
     "cg_update": ("fenicsx_beat_tpu_torch/csrc/cg_update.cu",
                   "fenicsx_beat_tpu/ops/pallas_cg.py:41"),
     "axpy": ("fenicsx_beat_tpu_torch/csrc/cg_update.cu",
@@ -627,9 +641,10 @@ def stencil_csr(vals, pos, n):
     return torch.sparse_coo_tensor(idx, torch.cat(data), (n, n)).coalesce().to_sparse_csr()
 
 
-def phase_kernels(seed: int = 0) -> dict:
-    """B1-B4 against their twins at the Niederer main path's shapes;
-    returns per-kernel rows for the final JSON."""
+def phase_kernels(seed: int = 0) -> tuple[dict, object]:
+    """B1-B4 and B2·B4 against their twins at the Niederer main path's
+    shapes; returns per-kernel rows for the final JSON and the main path's
+    solver."""
     import numpy as np
     import torch
 
@@ -643,7 +658,7 @@ def phase_kernels(seed: int = 0) -> dict:
     solver = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
     n = solver.V.ndofs
     require(n == N_MAIN, f"dx=0.1 slab has {N_MAIN} nodes (got {n})")
-    A, _, minv = solver._operators(DT)
+    A, _, minv, (fused, update) = solver._operators(DT)
     pos = solver._pos
     print(f"[kernels] dx=0.1 operators: n={n}, Kp={len(pos)} offsets {pos}, "
           f"host setup {time.perf_counter() - tic:.1f} s")
@@ -763,15 +778,44 @@ def phase_kernels(seed: int = 0) -> dict:
         require(float((sparse_mv(S_A, x) - yt).abs().max()) <= REL_TOL * float(yt.abs().max()),
                 "the library SpMV of B2's operator computes the same y")
 
+    # B2·B4 on the same operator, through the main path's bound call: the
+    # first-iteration form (p' = z) and the folded one; its library
+    # yardstick is the CSR product plus torch.addcmul
+    z, p_old = on_card(rng.uniform(-90.0, 40.0, n)), on_card(rng.uniform(-90.0, 40.0, n))
+    rz_cur = on_card(np.float32(0.83)).reshape(())
+    rz_prev = on_card(np.float32(1.37)).reshape(())
+    errs = []
+    for prev in (None, rz_prev):
+        outk = fused(z, p_old, rz_cur, prev)
+        outt = cuda_spmv.stencil_spmv_sym_dir_dot_twin(A, z, p_old, pos, rz_cur, prev)
+        errs.append(compare(outk, outt))
+        print(f"[kernels] stencil_spmv_sym_dir_dot, {'first' if prev is None else 'folded'} form: p', Ap', pAp, "
+              "alpha max|k-w| / max|w|: " + " ".join(f"{e:.3e}" for e in (compare([a], [b])[1]
+                                                                         for a, b in zip(outk, outt))))
+    beta = rz_cur / rz_prev
+    lib_mv = library_time(lambda: sparse_mv(S_A, z))
+    lib_add = library_time(lambda: torch.addcmul(z, beta, p_old))
+    print(f"[kernels] stencil_spmv_sym_dir_dot library yardstick: torch.mv (CSR) "
+          f"{'refused' if lib_mv is None else f'{lib_mv:.4f} ms'}, torch.addcmul "
+          f"{'refused' if lib_add is None else f'{lib_add:.4f} ms'}")
+    rows["stencil_spmv_sym_dir_dot"] = row(
+        (max(e[0] for e in errs), max(e[1] for e in errs)),
+        time_ms(lambda: fused(z, p_old, rz_cur, rz_prev)),
+        time_ms(lambda: cuda_spmv.stencil_spmv_sym_dir_dot_twin(A, z, p_old, pos, rz_cur, rz_prev)),
+        # z, p_old and the columns read, p' and Ap' written; p' 2, the row 2 (2 Kp - 1), the dot 2 a row
+        bound((kp + 4) * n * f32, (2 + 2 * (2 * kp - 1) + 2) * n),
+        None if lib_mv is None or lib_add is None else lib_mv + lib_add,
+    )
     # B3 and B4 on random vectors, the main path's Jacobi preconditioner
     xv, r, p, ap = (on_card(rng.standard_normal(n)) for _ in range(4))
     alpha = on_card(np.float32(0.37)).reshape(())
     beta = on_card(np.float32(0.61)).reshape(())
-    outk = cuda_cg.cg_update(xv, r, p, ap, minv, alpha)
+    # B3 through the main path's bound call, as B2·B4
+    outk = update(xv, r, p, ap, minv, alpha)
     outt = cuda_cg.cg_update_twin(xv, r, p, ap, minv, alpha)
     rows["cg_update"] = row(
         compare(outk, outt),
-        time_ms(lambda: cuda_cg.cg_update(xv, r, p, ap, minv, alpha)),
+        time_ms(lambda: update(xv, r, p, ap, minv, alpha)),
         time_ms(lambda: cuda_cg.cg_update_twin(xv, r, p, ap, minv, alpha)),
         bound(8 * n * f32, 10 * n),
         None,
@@ -790,15 +834,16 @@ def phase_kernels(seed: int = 0) -> dict:
         "tp06_grl_node_step_v": device_us_per_call(
             lambda: cuda_ode.tp06_grl_node_step_v(scratch, v, 1.0, 0.025, mixed)),
         "stencil_spmv_sym": device_us_per_call(lambda: cuda_spmv.stencil_spmv_sym_dot(A, x, pos)),
-        "cg_update": device_us_per_call(lambda: cuda_cg.cg_update(xv, r, p, ap, minv, alpha)),
+        "stencil_spmv_sym_dir_dot": device_us_per_call(lambda: fused(z, p_old, rz_cur, rz_prev)),
+        "cg_update": device_us_per_call(lambda: update(xv, r, p, ap, minv, alpha)),
         "axpy": device_us_per_call(lambda: cuda_cg.axpy(xv, p, beta)),
     }
     print("[kernels] device time per call (torch.profiler, us): "
           + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
-    for name in ("stencil_spmv_sym", "cg_update", "axpy"):
+    for name in ("stencil_spmv_sym", "stencil_spmv_sym_dir_dot", "cg_update", "axpy"):
         require(rows[name]["rel_err"] <= REL_TOL,
                 f"{name} agrees with its twin (rel {rows[name]['rel_err']:.3e} <= {REL_TOL})")
-    return rows
+    return rows, solver
 
 
 def phase_lv_setup():
@@ -913,7 +958,7 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     )
 
     # B8 on the LV's theta-system operators
-    A, B, _ = solver._operators(DT)
+    A, B, _, _ = solver._operators(DT)
     x = on_card(rng.uniform(-90.0, 40.0, n))
     ys_k = [cuda_ell.csr_spmv(op, x) for op in (A, B)]
     ys_t = [cuda_ell.csr_spmv_twin(op, x) for op in (A, B)]
@@ -1253,8 +1298,8 @@ def phase_slab() -> dict:
           f"{res.host_syncs / res.n_steps:.3f}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
     require(res.n_nodes == N_SLAB and res.all_finite, f"the dx={SLAB_DX} bar ({N_SLAB} nodes), states finite")
     require(max(gaps) <= DT + 1e-6, "slab probe activation times within one dt of the JAX values")
-    for name in ("torord_grl_step_v", "stencil_spmv_sym", "cg_update", "axpy"):
-        require(launches[name] > 0, f"{name} launched on the slab path")
+    require(launches["torord_grl_step_v"] > 0, "torord_grl_step_v launched on the slab path")
+    require_structured_pcg(launches, "the slab path")
     return launches
 
 
@@ -1525,8 +1570,9 @@ def phase_mixed_path(solver, setup_s: float) -> dict:
     print("[mixed] P1-P9: " + ", ".join(f"{k}={v:.2f}" for k, v in res.activation_times.items()))
     print(f"[mixed] launches {json.dumps({k: v for k, v in launches.items() if v})}")
     require(res.all_finite, "Path M's states finite")
-    for name in ("tp06_grl_multi_step_v", "torord_land_grl_multi_step_v", "stencil_spmv_sym", "cg_update", "axpy"):
+    for name in ("tp06_grl_multi_step_v", "torord_land_grl_multi_step_v"):
         require(launches[name] > 0, f"{name} launched on Path M")
+    require_structured_pcg(launches, "Path M")
     require(res.activation_times["P1"] >= 0 and res.activation_times["P3"] >= 0,
             "Path M's wave started in the TP06 half and reached the Land half")
 
@@ -2172,8 +2218,8 @@ def phase_ode_main(ode: dict) -> dict:
     require(bool(torch.isfinite(k.states).all() and torch.isfinite(w.states).all()), "the custom-ODE run is finite")
     require(gap <= ODE_NOISE_FACTOR * noise, "the custom-ODE kernel run within 3x float32's noise of its twin run")
     grl = cuda_ode.ionic_model(m.generalized_rush_larsen).step.__name__
-    for name in (grl, "stencil_spmv_sym", "cg_update", "axpy"):
-        require(launches.get(name, 0) > 0, f"{name} launched on the custom-ODE path")
+    require(launches.get(grl, 0) > 0, f"{grl} launched on the custom-ODE path")
+    require_structured_pcg(launches, "the custom-ODE path")
     return {grl: launches.get(grl, 0)}
 
 
@@ -2294,6 +2340,14 @@ def phase_ode_paths(ode: dict) -> dict:
     return launches
 
 
+def require_structured_pcg(launches: dict, where: str) -> None:
+    """The structured PCG ran on its kernels: B2 (A x0, B v), B2·B4 and
+    B3, and no B4 of its own (folded into B2·B4)."""
+    for name in ("stencil_spmv_sym", "stencil_spmv_sym_dir_dot", "cg_update"):
+        require(launches.get(name, 0) > 0, f"{name} launched on {where}")
+    require(launches.get("axpy", 0) == 0, f"axpy not launched on {where} (folded into stencil_spmv_sym_dir_dot)")
+
+
 def zero_launches(wrappers: dict) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -2309,6 +2363,7 @@ def kernel_wrappers() -> dict:
         "torord_grl_node_step_v": cuda_ode.torord_grl_node_step_v,
         "torord_grl_multi_step_v": cuda_ode.torord_grl_multi_step_v,
         "stencil_spmv_sym": cuda_spmv.stencil_spmv_sym,
+        "stencil_spmv_sym_dir_dot": cuda_spmv.stencil_spmv_sym_dir_dot,
         "cg_update": cuda_cg.cg_update,
         "axpy": cuda_cg.axpy,
         "tp06_grl_multi_step_v": cuda_ode.tp06_grl_multi_step_v,
@@ -2324,10 +2379,130 @@ def kernel_wrappers() -> dict:
     }
 
 
+def old_pde_solve(solver, ops, v_prev, x0, t_stim, dt, amps):
+    """The structured PCG as the port ran it before B2·B4, for comparison
+    only: each iteration B2 with its dot, rz / pAp, B3, rz_new / rz and B4
+    (six launches: B3's dot has a second pass, B2's no longer)."""
+    import torch
+
+    from fenicsx_beat_tpu_torch.ops import cuda_spmv
+
+    A, B, minv, _ = ops
+    rtol, atol = float(solver._opts["ksp_rtol"]), float(solver._opts["ksp_atol"])
+    maxiter, pos = int(solver._opts["ksp_max_it"]), solver._pos
+    b = solver._assemble_rhs(B, v_prev, t_stim, dt, amps)
+    r = b - cuda_spmv.stencil_spmv_sym(A, x0, pos)
+    z = r * minv
+    rz, rr = torch.dot(r, z), torch.dot(r, r)
+    tol2 = torch.clamp(rtol * torch.sqrt(torch.dot(b, b)), min=atol) ** 2
+    x, p, k = x0, z, 0
+    while k < maxiter:
+        solver.host_syncs += 1
+        if not bool(rr > tol2):
+            break
+        x, r, z, rz, rr, p = old_iteration(A, pos, minv, x, r, z, rz, p)
+        k += 1
+    return x, k, rr, k < maxiter or bool(rr <= tol2)
+
+
+def old_iteration(A, pos, minv, x, r, z, rz, p):
+    """One PCG iteration in the old sequence: B2 dot, division, B3,
+    division, B4."""
+    from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_spmv
+
+    Ap, pAp = cuda_spmv.stencil_spmv_sym_dot(A, p, pos)
+    x, r, z, rz_new, rr = cuda_cg.cg_update(x, r, p, Ap, minv, rz / pAp)
+    return x, r, z, rz_new, rr, cuda_cg.axpy(z, p, rz_new / rz)
+
+
+def phase_pcg_sequences(solver) -> dict:
+    """The structured PCG's two issue sequences on the main path's
+    theta-system operator, in turns (old, new, new, old): 200 iterations,
+    25 solves of 8 from one right-hand side (the main path takes about 7
+    a step), each iteration with the main path's exit test read back to
+    the host (never met); wall time per iteration on the host clock, and
+    device time and device launches per iteration under torch.profiler,
+    the exit test's own device events (a comparison and the copy to the
+    host) counted apart.  Then 40 steps of the main path's solver from its
+    initial state: its launches per CG iteration and per step."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_events_per_call
+    from fenicsx_beat_tpu_torch.ops import cuda_spmv
+
+    solves, per_solve = 25, 8
+    A, _, minv, (dir_dot, update) = solver._operators(DT)
+    pos, n = solver._pos, solver._n
+    rng = np.random.default_rng(11)
+    x0 = torch.as_tensor(rng.uniform(-90.0, 40.0, n), device=A.device).to(A.dtype)
+    b = cuda_spmv.stencil_spmv_sym(A, x0 + torch.as_tensor(rng.uniform(-1.0, 1.0, n), device=A.device).to(A.dtype), pos)
+    r0 = b - cuda_spmv.stencil_spmv_sym(A, x0, pos)
+    z0 = r0 * minv
+    rz0, rr0 = torch.dot(r0, z0), torch.dot(r0, r0)
+    never = torch.zeros((), dtype=A.dtype, device=A.device)
+
+    def old():
+        x, r, z, rz, rr, p = x0, r0, z0, rz0, rr0, z0
+        for _ in range(per_solve):
+            require(bool(rr > never), "the exit test holds")
+            x, r, z, rz, rr, p = old_iteration(A, pos, minv, x, r, z, rz, p)
+
+    def new():
+        x, r, z, rz, rr, p, rz_prev = x0, r0, z0, rz0, rr0, None, None
+        for _ in range(per_solve):
+            require(bool(rr > never), "the exit test holds")
+            p, ap, _, alpha = dir_dot(z, p, rz, rz_prev)
+            x, r, z, rz_new, rr = update(x, r, p, ap, minv, alpha)
+            rz_prev, rz = rz, rz_new
+
+    _, exit_events = device_events_per_call(lambda: bool(rr0 > never), calls=solves * per_solve)
+    print(f"[pcg] the exit test's device events: {json.dumps(exit_events)}")
+    out = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        fn = {"old": old, "new": new}[name]
+        fn()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(solves):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6 / (solves * per_solve)
+        dev_us, events = device_events_per_call(fn, calls=solves)
+        launches = (sum(events.values()) - per_solve * sum(exit_events.values())) / per_solve
+        out[name].append((wall_us, dev_us / per_solve, launches))
+        print(f"[pcg] {name} sequence, {solves * per_solve} iterations: wall {wall_us:.2f} us, device "
+              f"{dev_us / per_solve:.2f} us per iteration; {launches:g} launches per iteration besides the exit "
+              f"test; device events per solve of {per_solve}: "
+              + json.dumps({k[:70]: c for k, c in events.items()}))
+    # the old sequence: B2 with its dot (one launch since its redesign),
+    # two divisions, B3 and its second pass, B4
+    for name, want in (("old", 6), ("new", 3)):
+        require(all(r[2] == want for r in out[name]),
+                f"the {name} sequence launches {want} kernels an iteration besides the exit test")
+    print("[pcg] per iteration, mean of two runs each: "
+          + "; ".join(f"{k} wall {statistics.mean(r[0] for r in v):.2f} us, device "
+                      f"{statistics.mean(r[1] for r in v):.2f} us" for k, v in out.items()))
+    # the main path's own solver: launches per CG iteration and per step
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    res = solver.run_chunk(0.0, DT, 40, solver.stimulus_amplitudes())
+    torch.cuda.synchronize()
+    it = res.iters_sum
+    per_it = {k: wrappers[k].launches / it for k in ("stencil_spmv_sym_dir_dot", "cg_update", "axpy")}
+    print(f"[pcg] main path solver, 40 steps, {it} CG iterations: launches per iteration "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_it.items())
+          + f"; stencil_spmv_sym per step {wrappers['stencil_spmv_sym'].launches / 40:.3f}")
+    require(per_it == {"stencil_spmv_sym_dir_dot": 1.0, "cg_update": 1.0, "axpy": 0.0},
+            "each main-path PCG iteration launches B2·B4 and B3 once and no B4")
+    return {k: statistics.mean(r[0] for r in v) for k, v in out.items()}
+
+
 def phase_main_path() -> dict:
     import math
 
     from fenicsx_beat_tpu_torch.benchmarks.niederer import run_niederer_benchmark
+    from fenicsx_beat_tpu_torch.fused import FusedMonodomainSolver
 
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
@@ -2343,11 +2518,30 @@ def phase_main_path() -> dict:
     print(f"[main] max_rel_err_vs_converged={err:.4%}, ms_per_s={res.ms_per_second:.3f}, "
           f"steps={res.n_steps}, cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f}, "
           f"host_syncs_per_step={res.host_syncs_per_step:.3f}")
-    print(f"[main] launches {json.dumps(launches)}")
+    print(f"[main] launches {json.dumps(launches)}; B2·B4 {launches['stencil_spmv_sym_dir_dot']} and B3 "
+          f"{launches['cg_update']} (once a CG iteration, the warm-up chunk's included), B4 {launches['axpy']}")
     require(err is not None and err <= 0.05, "max error vs the converged published row <= 5%")
     require(max(dev) <= DT + 1e-6, "P1-P9 within one dt of the JAX Strang values")
-    for name in ("tp06_grl_step_v", "stencil_spmv_sym", "cg_update", "axpy"):
-        require(launches[name] > 0, f"{name} launched on the main path")
+    require(launches["tp06_grl_step_v"] > 0, "tp06_grl_step_v launched on the main path")
+    require_structured_pcg(launches, "the main path")
+    require(launches["stencil_spmv_sym_dir_dot"] == launches["cg_update"],
+            "B2·B4 and B3 launched once each a CG iteration on the main path")
+
+    # the same run with the old issue sequence patched in: its CG
+    # iterations (and probes) are the same computation's
+    new_pde_solve = FusedMonodomainSolver._pde_solve
+    FusedMonodomainSolver._pde_solve = old_pde_solve
+    try:
+        old = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE)
+    finally:
+        FusedMonodomainSolver._pde_solve = new_pde_solve
+    old_at = [old.activation_times[f"P{i}"] for i in range(1, 10)]
+    gap = abs(res.cg_iters_sum - old.cg_iters_sum) / old.cg_iters_sum
+    print(f"[main] old sequence (B2 dot, division, B3, division, B4): ms_per_s={old.ms_per_second:.3f}, "
+          f"cg_iters sum={old.cg_iters_sum} mean={old.cg_iters_mean:.3f} (B2·B4: {res.cg_iters_sum}, "
+          f"{gap:.3%} apart), host_syncs_per_step={old.host_syncs_per_step:.3f}; P1-P9 "
+          + " ".join(f"{a:.2f}" for a in old_at))
+    require(gap <= 0.01, "the main path's CG iterations within 1% of the old sequence's")
     return launches
 
 
@@ -2536,6 +2730,7 @@ def _sym_spmv_other_order(solver) -> None:
     another order (what rounding alone puts between two correct runs)."""
     import torch
 
+    from fenicsx_beat_tpu_torch.ops.cuda_cg import axpy_twin
     from fenicsx_beat_tpu_torch.ops.cuda_stencil import stencil_spmv_twin
 
     pos = solver._pos
@@ -2560,7 +2755,12 @@ def _sym_spmv_other_order(solver) -> None:
         y = spmv(vals, x, _pos)
         return y, torch.dot(x, y)
 
-    solver._spmv, solver._spmv_dot = spmv, spmv_dot
+    def spmv_dir_dot(vals, z, p_old, pos, rz_cur, rz_prev):
+        p = z if rz_prev is None else axpy_twin(z, p_old, rz_cur / rz_prev)
+        ap, pap = spmv_dot(vals, p, pos)
+        return p, ap, pap, rz_cur / pap
+
+    solver._spmv, solver._spmv_dir_dot = spmv, spmv_dir_dot
 
 
 def _lead_gaps(a: dict, b: dict) -> dict:
@@ -2667,7 +2867,9 @@ def main() -> int:
     tic = time.perf_counter()
     device = phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows, main_solver = phase_kernels()
+    phase_pcg_sequences(main_solver)
+    del main_solver
     lv_solver, lv_setup = phase_lv_setup()
     rows.update(phase_lv_kernels(lv_solver))
     steady, prepace_s, _ = phase_steady_states()

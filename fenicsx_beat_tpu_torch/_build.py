@@ -30,7 +30,7 @@ import torch
 
 __all__ = [
     "KernelLibrary", "load_library", "load_model_library", "model_symbol", "NVCC_FLAGS",
-    "check", "require_cuda_f32", "require_cuda_i32", "stream_ptr", "num_blocks",
+    "check", "require_cuda_f32", "require_cuda_i32", "require_f32_like", "stream_ptr", "num_blocks",
 ]
 
 _CSRC = Path(__file__).with_name("csrc")
@@ -78,9 +78,13 @@ _SIGNATURES = {
     "fhn_step_v": _GRL_STEP,
     "fhn_node_step_v": _GRL_NODE_STEP,
     "fhn_multi_step_v": _GRL_MULTI_STEP,
-    "stencil_spmv_sym": (
+    "stencil_spmv_sym": (  # vals, x, y, n, offsets, kp, partials, counter, dot, stream
         ctypes.c_int,
-        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],
+        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P, _P],
+    ),
+    "stencil_spmv_sym_dir_dot": (  # vals, z, p_old, rz_cur, rz_prev, p, ap, n, offsets, kp,
+        ctypes.c_int,              # partials, counter, pap, alpha, stream
+        [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P, _P, _P],
     ),
     "cg_update": (
         ctypes.c_int,
@@ -269,6 +273,16 @@ def _require_cuda(dtype: torch.dtype, tensors: dict) -> None:
 def require_cuda_f32(**tensors) -> None:
     """The kernels take contiguous float32 tensors on one CUDA device."""
     _require_cuda(torch.float32, tensors)
+
+
+def require_f32_like(shape: tuple, device: torch.device, **tensors) -> None:
+    """Contiguous float32 tensors of ``shape`` on the CUDA ``device``: the
+    check of the kernels bound to an operator, kept short because it runs
+    every PCG iteration."""
+    for name, t in tensors.items():
+        if t.shape != shape or t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}, the kernel takes "
+                             f"contiguous {shape} float32 on {device}")
 
 
 def require_cuda_i32(**tensors) -> None:

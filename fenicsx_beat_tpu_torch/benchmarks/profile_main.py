@@ -26,7 +26,8 @@ prints:
 The profiler's trace is written under ``build/profile/`` in the checkout
 and deleted after it is read unless ``--keep-trace`` is given.
 :func:`device_us_per_call` gives the device time of one call of any
-function that launches kernels, and :func:`profile_window` where the time
+function that launches kernels (:func:`device_events_per_call` also its
+device events by name), and :func:`profile_window` where the time
 of any window of steps goes, from the same kind of trace.
 """
 
@@ -93,17 +94,23 @@ def _trace_path(tag: str) -> Path:
 
 
 def device_us_per_call(fn, calls: int = 50, attempts: int = 5) -> float:
-    """Device time (us) of one call of ``fn``: the kernel, copy and memset
-    time of ``calls`` calls under ``torch.profiler`` (after a warm-up),
-    summed, over ``calls``.  Unlike a back-to-back wall time it leaves out
-    the host's time between launches.  ``fn`` must launch the same device
-    work at every call, so every event name must occur a whole number of
-    times per call.  A trace that breaks this has lost events (traces
-    have been seen to hold only some of the calls, the first ones
-    missing): the profiler records the calls in its second step, after a
-    warm-up step of the same calls that starts its device tracing; a trace
-    still short is discarded and the calls are profiled again, up to
-    ``attempts`` times, then this raises."""
+    """Device time (us) of one call of ``fn`` (:func:`device_events_per_call`)."""
+    return device_events_per_call(fn, calls, attempts)[0]
+
+
+def device_events_per_call(fn, calls: int = 50, attempts: int = 5) -> tuple[float, dict]:
+    """Device time (us) of one call of ``fn`` and its device events (kernel
+    launches, copies and memsets) per call by name: the events of ``calls``
+    calls under ``torch.profiler`` (after a warm-up), summed, over
+    ``calls``.  Unlike a back-to-back wall time it leaves out the host's
+    time between launches.  ``fn`` must launch the same device work at
+    every call, so every event name must occur a whole number of times per
+    call.  A trace that breaks this has lost events (traces have been seen
+    to hold only some of the calls, the first ones missing): the profiler
+    records the calls in its second step, after a warm-up step of the same
+    calls that starts its device tracing; a trace still short is discarded
+    and the calls are profiled again, up to ``attempts`` times, then this
+    raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
@@ -126,7 +133,7 @@ def device_us_per_call(fn, calls: int = 50, attempts: int = 5) -> float:
         if counts and all(c % calls == 0 for c in counts.values()):
             if attempt:
                 print(f"[profile] {attempt} trace(s) discarded before a whole one")
-            return sum(e - s for s, e, _ in iv) / calls
+            return sum(e - s for s, e, _ in iv) / calls, {k: c // calls for k, c in counts.items()}
     raise RuntimeError(
         f"no trace of {attempts} held a whole number of device events per call "
         f"({calls} calls): last counts {dict(counts)}"

@@ -1,10 +1,15 @@
 // Shared pieces of the port's kernels: launch shape and the deterministic
-// two-pass reduction.
+// reductions across blocks.
 //
 // On the TPU the Pallas kernels summed their dot products in SMEM across
 // a grid that runs in order on one core.  On the H100 blocks run in
-// parallel and in no order, so each block writes its partial sum to its
-// own slot and a second one-block kernel adds the slots in a fixed order.
+// parallel and in no order, so each block writes its partial sum (f64) to
+// its own slot, and the slots are added in a fixed order by one of two
+// means: a second one-block kernel (finalize_sums: B3, B5, B6), or, in the
+// same launch, the last block to finish (B2 and B2·B4,
+// last_block_sum.cuh), which learns that it is last from
+// an unsigned int counter (an integer fetch_add of release-acquire order)
+// and sets the counter back to 0.
 // No float atomics: a kernel and its plain PyTorch twin can then be
 // compared run after run without the sum order changing under them.
 #pragma once

@@ -13,7 +13,10 @@ Two operator paths, chosen by the assembly as in JAX
 (``fem.assemble_mass_stiffness_auto``):
 
 - structured meshes (the Niederer slab): a symmetric stencil operator and
-  the fused-kernel PCG, B2 + B3 + B4 per iteration (``fused.py:520-556``);
+  the fused-kernel PCG (``fused.py:520-556``), three device launches per
+  iteration: B2·B4 (the search-direction update folded into the SpMV, with
+  pAp and alpha), B3 and B3's second pass, into buffers set up once per
+  operator;
 - unstructured meshes (the LV ellipsoid): the ELL pair packed into one
   shared CSR layout (:class:`~.ops.cuda_ell.CSRMatrix`), the theta-system
   operators built by value-level ``combine``, and the generic Jacobi-PCG
@@ -50,6 +53,7 @@ parameter fields, non-TimeWindow stimuli) raises ``NotImplementedError``.  The n
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass
 from pathlib import Path
@@ -206,9 +210,9 @@ class FusedMonodomainSolver:
         k = self.use_kernels
         if self._structured:
             self._spmv = cuda_spmv.stencil_spmv_sym if k else cuda_spmv.stencil_spmv_sym_twin
-            self._spmv_dot = cuda_spmv.stencil_spmv_sym_dot if k else cuda_spmv.stencil_spmv_sym_dot_twin
-            self._cg_update = cuda_cg.cg_update if k else cuda_cg.cg_update_twin
-            self._axpy = cuda_cg.axpy if k else cuda_cg.axpy_twin
+            # the PCG's two steps with use_kernels=False (else _operators binds the kernels)
+            self._spmv_dir_dot = cuda_spmv.stencil_spmv_sym_dir_dot_twin
+            self._cg_update = cuda_cg.cg_update_twin
         else:
             self._csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
         self.host_syncs = 0  # PCG exit tests read back to the host
@@ -227,22 +231,29 @@ class FusedMonodomainSolver:
 
     # ------------------------------------------------------------------
     def _operators(self, dt: float):
-        """``(A, B, diag)``: the theta-system operators ``C_m M + theta dt K``
-        and ``C_m M - (1 - theta) dt K`` and the Jacobi preconditioner, built
-        once per dt.  Structured: packed ``[Kp, n]`` stencil values and the
-        inverse diagonal; unstructured: :class:`~.ops.cuda_ell.CSRMatrix`
-        combinations and the diagonal (``fused.py:466-469``)."""
+        """``(A, B, diag, pcg)``: the theta-system operators ``C_m M + theta
+        dt K`` and ``C_m M - (1 - theta) dt K``, the Jacobi preconditioner
+        and the structured PCG's two steps bound to A, built once per dt.
+        Structured: packed ``[Kp, n]`` stencil values, the inverse diagonal,
+        and B2·B4 and B3 with their buffers (:class:`~.ops.cuda_spmv.SymDirDot`,
+        :class:`~.ops.cuda_cg.CGUpdate`; the twins with ``use_kernels=False``);
+        unstructured: :class:`~.ops.cuda_ell.CSRMatrix` combinations, the
+        diagonal and None (``fused.py:466-469``)."""
         if self._ops_cache is not None and self._ops_cache[0] == dt:
             return self._ops_cache[1]
         C_m, th = float(self.C_m), float(self.pde_theta)
         if self._structured:
             A = C_m * self._mT + (th * dt) * self._kT
             B = C_m * self._mT - ((1.0 - th) * dt) * self._kT
-            ops = (A, B, 1.0 / A[self._k0])
+            if self.use_kernels:
+                pcg = (cuda_spmv.SymDirDot(A, self._pos), cuda_cg.CGUpdate(self._n, A.device))
+            else:
+                pcg = (functools.partial(self._spmv_dir_dot, A, pos=self._pos), self._cg_update)
+            ops = (A, B, 1.0 / A[self._k0], pcg)
         else:
             A = self._mass.combine(C_m, self._stiff, th * dt)
             B = self._mass.combine(C_m, self._stiff, -(1.0 - th) * dt)
-            ops = (A, B, A.diagonal())
+            ops = (A, B, A.diagonal(), None)
         self._ops_cache = (dt, ops)
         return ops
 
@@ -259,10 +270,11 @@ class FusedMonodomainSolver:
     def _pde_solve(self, ops, v_prev, x0, t_stim, dt, amps):
         """PCG for ``A x = b`` from ``x0``; returns ``(x, iterations, rr,
         converged)`` with ``rr = <r, r>`` a 0-d tensor.  Structured: the
-        fused-kernel PCG (``fused.py:530-556``), B2, B3, B4 per iteration,
-        the scalars kept on the device.  Unstructured: the generic
-        Jacobi-PCG around B8 (``fused.py:560-572``)."""
-        A, B, prec = ops
+        fused-kernel PCG (``fused.py:530-556``), each iteration B2·B4 then
+        B3, the scalars kept on the device; on the card ``x`` and ``rr`` lie
+        in the operator's buffers until the next solve.  Unstructured: the
+        generic Jacobi-PCG around B8 (``fused.py:560-572``)."""
+        A, B, prec, pcg = ops
         rtol, atol = float(self._opts["ksp_rtol"]), float(self._opts["ksp_atol"])
         maxiter = int(self._opts["ksp_max_it"])
         b = self._assemble_rhs(B, v_prev, t_stim, dt, amps)
@@ -274,23 +286,23 @@ class FusedMonodomainSolver:
             converged = k < maxiter or bool(torch.sqrt(rr) <= tol)
             self.host_syncs += k + 1  # k + 1 exit tests, or maxiter and the test above
             return x, k, rr, converged
-        minv, pos = prec, self._pos
-        r = b - self._spmv(A, x0, pos)
+        dir_dot, update = pcg
+        minv = prec
+        r = b - self._spmv(A, x0, self._pos)
         z = r * minv
         rz = torch.dot(r, z)
         rr = torch.dot(r, r)
         tol2 = torch.clamp(rtol * torch.sqrt(torch.dot(b, b)), min=atol) ** 2
-        x, p = x0, z
+        # p' = z on the first iteration (rz_prev None), z + (rz / rz_prev) p after
+        x, p, rz_prev = x0, None, None
         k = 0
         while k < maxiter:
             self.host_syncs += 1
             if not bool(rr > tol2):
                 break
-            Ap, pAp = self._spmv_dot(A, p, pos)
-            alpha = rz / pAp
-            x, r, z, rz_new, rr = self._cg_update(x, r, p, Ap, minv, alpha)
-            p = self._axpy(z, p, rz_new / rz)
-            rz = rz_new
+            p, Ap, _, alpha = dir_dot(z=z, p_old=p, rz_cur=rz, rz_prev=rz_prev)
+            x, r, z, rz_new, rr = update(x, r, p, Ap, minv, alpha)
+            rz_prev, rz = rz, rz_new
             k += 1
         converged = k < maxiter or bool(rr <= tol2)
         return x, k, rr, converged
