@@ -12,9 +12,13 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    the median time of kernel, twin and the one PyTorch library call that
    computes the same function (where there is one) from CUDA events, and
    the least time the card could take (``bound_ms``):
+   - the registers and spill bytes of TP06's kernels (B1, its per-node
+     form, B7 in both forms) from the library's ptxas report (kept beside
+     the library, so the same whether it was built in this run or loaded);
    - B1-B4 and B2·B4 (B4's update folded into B2's pass: p', Ap', pAp and
      alpha, in its first-iteration and folded forms; its library yardstick
-     the CSR product plus ``torch.addcmul``, each printed) at the shapes of
+     the CSR product plus ``torch.addcmul``, each printed, and each
+     library call's device time from ``torch.profiler``) at the shapes of
      the dx=0.1 Niederer main path (n = 442,401), then the PCG's two issue
      sequences on the main path's operator, in turns: the old one (B2 with
      its dot, a division, B3, a division, B4) and the new one (B2·B4, B3),
@@ -33,7 +37,9 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      the LV's own transmural layers, held by the same per-row step and beat
      limits for each celltype (nodes of no layer must keep their states
      exactly), B8 on the LV's theta-system operators A and B, timed also
-     with its few very long (apex) rows emptied;
+     with its few very long (apex) rows emptied, beside ``torch.mv``'s
+     device time on the same operator; B8 must repeat its bits and stay
+     within 1.5x its bound;
    - ToR-ORd dynCl, the single-cell steady states first: 2 beats at BCL
      1000 ms, dt 0.05, for each celltype, through ``get_steady_state`` on
      the card (B1 with one node), held to the JAX package's float64 states
@@ -86,7 +92,8 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
 9. B5 and B6, plain and with the dot, against the twin they share on both
    slabs' mass and stiffness tables (n = 442,401 and 3,449,001), each timed
    at both sizes (the plain form five times, for the spread) beside the
-   library's CSR product of the same operator;
+   library's CSR product of the same operator (back to back and device
+   time);
 10. ECG Configuration 1: the dx=0.1 Strang slab for 40 ms with a pseudo-ECG
    frame every 1 ms (B5), through ``benchmarks/ecg_scale.py:run_niederer_ecg``,
    on the kernels and on the twins, and once more on the twins with the PDE
@@ -301,6 +308,10 @@ F32_MIN_NORMAL = 1.1754944e-38
 # max|kernel - twin| / max|twin| (rounding-order noise is ~1e-6).  B1 and
 # B7 are held per state row by the limits of benchmarks/kernel_check.py.
 REL_TOL = 1e-4
+# B8's device time at the psize 0.1 LV's operator, at most this share of its
+# bound (11.6 us against 9.16 on an H100 at 700 W: 1.27x; with one thread
+# for each apex row the kernel took 3.7x)
+CSR_BOUND_SHARE_MAX = 1.5
 BEAT_CELLS = 16_384  # cells of the TP06 ionic kernels' one-beat comparison
 TORORD_BEAT_CELLS = 4_096  # cells of the ToR-ORd ionic kernels' one-beat comparisons
 LONG_ROW = 64  # B8 rows with more entries than this are timed apart
@@ -648,11 +659,21 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     import numpy as np
     import torch
 
+    from fenicsx_beat_tpu_torch._build import load_library, ptxas_resources
     from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
     from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver
     from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
     from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
     from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_ode, cuda_spmv
+
+    # TP06's kernels (B1, its per-node form, B7 over every block and over a
+    # block list): registers a thread and spill bytes, from the library's
+    # ptxas report
+    tp06_res = {name: r for name, r in ptxas_resources(load_library().compiler_output).items()
+                if "tp06_grl" in name}
+    print("[kernels] TP06 kernels, registers / spill stores / spill loads (bytes): "
+          + ", ".join(f"{name} {r[0]} / {r[1]} / {r[2]}" for name, r in sorted(tp06_res.items())))
+    require(len(tp06_res) == 4, f"the build reports TP06's four kernels (got {sorted(tp06_res)})")
 
     tic = time.perf_counter()
     solver = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
@@ -840,6 +861,10 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     }
     print("[kernels] device time per call (torch.profiler, us): "
           + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
+    lib_us = {"torch.mv (CSR, B2's operator)": device_us_per_call(lambda: sparse_mv(S_A, x)),
+              "torch.addcmul": device_us_per_call(lambda: torch.addcmul(xv, beta, p))}
+    print("[kernels] library calls, device time per call (torch.profiler, us): "
+          + ", ".join(f"{k} {u:.2f}" for k, u in lib_us.items()))
     for name in ("stencil_spmv_sym", "stencil_spmv_sym_dir_dot", "cg_update", "axpy"):
         require(rows[name]["rel_err"] <= REL_TOL,
                 f"{name} agrees with its twin (rel {rows[name]['rel_err']:.3e} <= {REL_TOL})")
@@ -985,15 +1010,24 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     if rows["csr_spmv"]["library_ms"] is not None:
         require(float((sparse_mv(S_A, x) - ys_t[0]).abs().max()) <= REL_TOL * float(ys_t[0].abs().max()),
                 "the library SpMV of B8's operator computes the same y")
+        dev_us["library"] = device_us_per_call(lambda: sparse_mv(S_A, x))
+    share = dev_us["full"] / (1e3 * rows["csr_spmv"]["bound_ms"])
     print(f"[kernels] csr_spmv: n={n}, {A.nnz} entries, row length max {int(lengths.max())}, "
           f"mean {lengths.mean():.2f}; {long_rows.size} rows longer than {LONG_ROW} "
-          f"({int(lengths[long_rows].sum())} entries): device time {dev_us['full']:.2f} us with "
-          f"them, {dev_us['short']:.2f} us with them emptied (torch.profiler)")
+          f"({int(lengths[long_rows].sum())} entries), {A.long_rows.numel()} given a warp (longer than "
+          f"{cuda_ell.LONG_ROW}): device time {dev_us['full']:.2f} us with them, {dev_us['short']:.2f} us "
+          f"with them emptied ({dev_us['short'] / dev_us['full']:.3f}x), {share:.2f}x its bound; torch.mv "
+          + ("refused" if "library" not in dev_us else f"{dev_us['library']:.2f} us")
+          + " (torch.profiler)")
     print(f"[kernels] tp06_grl_multi_step_v: device time {dev_us['b7']:.2f} us per call (torch.profiler)")
     torch.cuda.synchronize()
     print_rows(rows)
     require(rows["csr_spmv"]["rel_err"] <= REL_TOL,
             f"csr_spmv agrees with its twin (rel {rows['csr_spmv']['rel_err']:.3e} <= {REL_TOL})")
+    require(all(torch.equal(ys_k[0], cuda_ell.csr_spmv(A, x)) for _ in range(3)),
+            "csr_spmv gives the same bits run after run")
+    require(share <= CSR_BOUND_SHARE_MAX,
+            f"csr_spmv's device time is within {CSR_BOUND_SHARE_MAX}x its bound (got {share:.2f}x)")
     return rows
 
 
@@ -2692,6 +2726,8 @@ def phase_stencil_kernels(main, scale, seed: int = 2) -> dict:
             y_ref = cs.stencil_spmv_twin(ecg._mT, x, offs)
             require(float((sparse_mv(S, x) - y_ref).abs().max()) <= REL_TOL * float(y_ref.abs().max()),
                     "the library SpMV of the stencil computes the same y")
+            print(f"[kernels] library SpMV (torch.mv, CSR) at n={n} (K={K}): device time "
+                  f"{device_us_per_call(lambda: sparse_mv(S, x)):.2f} us per call (torch.profiler)")
         del S
         for name, (plain, dot_form, twin, dot_twin) in kernels.items():
             outk, outt = [], []

@@ -6,7 +6,8 @@ shared library with a plain C interface, bound with :mod:`ctypes` (no
 PyTorch headers in the build, so it takes seconds, not minutes).  The
 library goes to ``build/torch_kernels/libfbt_kernels-<hash>.so`` beside
 the package, keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one is loaded as it is.  A model that
+rebuilds and an unchanged one is loaded as it is; the compiler's report is
+kept beside it (``.log``) and read back with it.  A model that
 ``odefile.load_ode`` generated gets a library of its own
 (:func:`load_model_library`): the templates ``csrc/ode_*.cu.in`` with its
 node body, keyed by a hash of body, templates and flags.  Nothing here runs
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,7 +31,7 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "KernelLibrary", "load_library", "load_model_library", "model_symbol", "NVCC_FLAGS",
+    "KernelLibrary", "load_library", "load_model_library", "model_symbol", "NVCC_FLAGS", "ptxas_resources",
     "check", "require_cuda_f32", "require_cuda_i32", "require_f32_like", "stream_ptr", "num_blocks",
 ]
 
@@ -49,11 +51,18 @@ NVCC_FLAGS = [
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
 _NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "fhn_", "ode_")
+# TP06's kernels divide with the card's approximate full-range division
+# (at most 2 ulp), not the IEEE sequence whose checks and slow-path branches
+# took about a third of their instructions: B1 at n = 442,401 runs in 31 us
+# instead of 49 on an H100, with the one-step and one-beat errors against
+# the twin what the IEEE build gives (benchmarks/b1_designs.py, PERF.md).
+_APPROX_DIV_SOURCES = ("tp06_grl",)
 
 
 def _nvcc_flags(src: Path) -> list[str]:
     """The nvcc flags of one source file."""
-    return NVCC_FLAGS + (["-fmad=false"] if src.stem.startswith(_NO_FMA_SOURCES) else [])
+    return (NVCC_FLAGS + (["-fmad=false"] if src.stem.startswith(_NO_FMA_SOURCES) else [])
+            + (["-prec-div=false"] if src.stem.startswith(_APPROX_DIV_SOURCES) else []))
 
 
 _P = ctypes.c_void_p
@@ -91,7 +100,10 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P],
     ),
     "axpy": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
-    "csr_spmv": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "csr_spmv": (  # indptr, cols, vals, x, y, n_rows, long_rows, n_long, long_len, stream
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, _P],
+    ),
     "stencil_spmv": (
         ctypes.c_int,
         [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P, _P],
@@ -108,7 +120,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when an existing build was loaded
-    compiler_output: str  # nvcc's -Xptxas -v report ("" when loaded)
+    compiler_output: str  # nvcc's -Xptxas -v report, of this build or the one loaded
 
 
 def _nvcc() -> str:
@@ -135,8 +147,9 @@ def _compile(sources: list[Path], out: Path, workdir: Path, include: list[Path])
     """Compile ``sources`` (one nvcc each, all started together) and link
     them into the shared library ``out``, renamed into place at the end,
     so a process that builds the same library at the same time never
-    loads half a file.  Returns (seconds, the compiler's report); raises
-    on a failed compile or link."""
+    loads half a file, after the report (``out`` with suffix ``.log``), so a
+    library on disk always has its report.  Returns (seconds, the
+    compiler's report); raises on a failed compile or link."""
     nvcc = _nvcc()
     incs = [f"-I{d}" for d in include]
     tic = time.perf_counter()
@@ -172,8 +185,23 @@ def _compile(sources: list[Path], out: Path, workdir: Path, include: list[Path])
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
     seconds = time.perf_counter() - tic
+    report = workdir / "report.log"
+    report.write_text(log)
+    os.replace(report, out.with_suffix(".log"))
     os.replace(tmp, out)
     return seconds, log
+
+
+def _built(out: Path, build) -> tuple[float, str]:
+    """(seconds, the compiler's report) of the library ``out``: read from
+    its saved report when the library and the report are both on disk,
+    else built by ``build(workdir)`` in a scratch directory."""
+    report = out.with_suffix(".log")
+    if out.is_file() and report.is_file():
+        return 0.0, report.read_text()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
+        return build(Path(td))
 
 
 def _bind(out: Path, signatures: dict) -> ctypes.CDLL:
@@ -193,11 +221,7 @@ def load_library() -> KernelLibrary:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {_CSRC}")
     out = _BUILD_DIR / f"libfbt_kernels-{_source_tag(sources + headers)}.so"
-    seconds, log = 0.0, ""
-    if not out.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
-            seconds, log = _compile(sources, out, Path(td), [])
+    seconds, log = _built(out, lambda work: _compile(sources, out, work, []))
     return KernelLibrary(lib=_bind(out, _SIGNATURES), path=out, build_seconds=seconds, compiler_output=log)
 
 
@@ -234,20 +258,33 @@ def load_model_library(body: str) -> KernelLibrary:
     failed build."""
     sym = model_symbol(body)
     out = _BUILD_DIR / f"libfbt_{sym}.so"
-    seconds, log = 0.0, ""
-    if not out.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as td:
-            work = Path(td)
-            (work / "ode_body.cuh").write_text(body)
-            sources = []
-            for name in _MODEL_TEMPLATES:
-                src = work / name[: -len(".in")]
-                src.write_text((_CSRC / name).read_text().replace("@SYM@", sym))
-                sources.append(src)
-            seconds, log = _compile(sources, out, work, [_CSRC])
+
+    def build(work: Path) -> tuple[float, str]:
+        (work / "ode_body.cuh").write_text(body)
+        sources = []
+        for name in _MODEL_TEMPLATES:
+            src = work / name[: -len(".in")]
+            src.write_text((_CSRC / name).read_text().replace("@SYM@", sym))
+            sources.append(src)
+        return _compile(sources, out, work, [_CSRC])
+
+    seconds, log = _built(out, build)
     signatures = {f"{sym}_{scheme}_{form}": sig for scheme in _MODEL_SCHEMES for form, sig in _MODEL_FORMS.items()}
     return KernelLibrary(lib=_bind(out, signatures), path=out, build_seconds=seconds, compiler_output=log)
+
+
+def ptxas_resources(log: str) -> dict[str, tuple[int, int, int]]:
+    """``{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)}`` from nvcc's ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line):
+            name = m.group(1)
+        elif name is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name] = (out.get(name, (0,))[0], int(m.group(1)), int(m.group(2)))
+        elif name is not None and (m := re.search(r"Used (\d+) registers", line)):
+            out[name] = (int(m.group(1)), *out.get(name, (0, 0, 0))[1:])
+    return out
 
 
 def check(err: int, name: str) -> None:

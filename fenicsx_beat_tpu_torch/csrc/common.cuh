@@ -23,8 +23,8 @@ namespace fbt {
 constexpr int kThreads = 256;          // threads per block of every kernel
 constexpr int kFinalizeThreads = 1024;
 
-inline int num_blocks(long long n) {
-    return static_cast<int>((n + kThreads - 1) / kThreads);
+inline int num_blocks(long long n, int block = kThreads) {
+    return static_cast<int>((n + block - 1) / block);
 }
 
 // B7's grid.  A launch covers every block of n nodes, or, in the

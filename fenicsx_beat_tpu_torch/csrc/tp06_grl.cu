@@ -6,24 +6,27 @@
 // fenicsx_beat_tpu/models/tentusscher_panfilov_2006.py:generalized_rush_larsen.
 // The formulas live in tp06.cuh, shared with the multi-marker kernel (B7).
 //
-// What bounds it on the H100: device memory by design.  At n = 442,401 in
-// f32 a step reads 18 state rows and v (row V is overwritten, never read)
-// and writes 19 rows back: about 67 MB (counted from the shapes), whose
-// floor at the H100 SXM data sheet's 3.35 TB/s is about 20 us.  The arithmetic is about 60 expf and 6 logf per
-// node.  The design is one thread per node, all 19 states in registers,
-// each state row read and written once, coalesced (row-major (19, n)
-// layout: neighbouring threads on neighbouring nodes), in place, so no
-// second state buffer exists.  The 54 parameters arrive by value in the
-// launch (constant bank), not from memory.  Measured on an H100 80GB HBM3
-// at a 700 W power limit: 59.7 us of device time per call inside the main
-// path (torch.profiler, benchmarks/profile_main.py) and 120 registers per
-// thread (ptxas) -- the exp-heavy body and its occupancy, not the bytes,
-// set the time so far.
+// What bounds it on the H100: by its bytes, device memory.  At n = 442,401
+// in f32 a step reads 18 state rows and v (row V is overwritten, never
+// read) and writes 19 rows back: about 67 MB (counted from the shapes),
+// whose floor at the H100 SXM data sheet's 3.35 TB/s is about 20 us.  In
+// practice the instructions bound it: about 60 expf, 6 logf and 120
+// divisions a node; with the IEEE division and the body in one phase the
+// kernel's SASS lists 3,584 instructions, about a third of them the
+// division's sequences, checks, slow-path calls and convergence barriers.
+// The design is one thread per node, coalesced on the row-major (19, n)
+// layout, in place, the 54 parameters by value in the launch (constant
+// bank); the body runs in two phases so few values are
+// live at once (tp06.cuh), at least TP06_MIN_BLOCKS blocks an SM, and the
+// card's approximate division (-prec-div=false, _build.py).  On an H100
+// 80GB HBM3 at 700 W (benchmarks/b1_designs.py): 116 registers and 60 us
+// of device time with the body in one phase and the IEEE division, 70
+// registers and 51 us in two phases, 59 registers and 30 us as built.
 #include "tp06.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(TP06_BLOCK, TP06_MIN_BLOCKS)
     tp06_grl_step_v_kernel(float* states, const float* vin,  // vin may alias row V
                            int n, float t, float dt, Tp06Params p) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -44,7 +47,7 @@ int tp06_grl_step_v(float* states, const float* v, long long n, float t, float d
     Tp06Params p;
     float* dst = reinterpret_cast<float*>(&p);
     for (int k = 0; k < kTp06NumParams; ++k) dst[k] = params[k];
-    tp06_grl_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
+    tp06_grl_step_v_kernel<<<fbt::num_blocks(n, TP06_BLOCK), TP06_BLOCK, 0,
                              static_cast<cudaStream_t>(stream)>>>(states, v, static_cast<int>(n),
                                                                   t, dt, p);
     return cudaGetLastError();

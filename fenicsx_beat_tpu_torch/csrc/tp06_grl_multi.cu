@@ -28,13 +28,15 @@
 // psize 0.1 (n = 243,518, f32) a step reads 18 state rows (row V is
 // overwritten, never read), v and the model index and writes 19 rows:
 // about 38 MB, a floor of about 11 us at the H100 SXM data sheet's
-// 3.35 TB/s.
+// 3.35 TB/s.  As for B1, its instructions set its time in practice, and it
+// takes B1's design (tp06_grl.cu): the two-phase body, the register cap
+// and the approximate division.
 #include "tp06.cuh"
 
 namespace {
 
 template <bool kBlocks>
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(fbt::kThreads, TP06_MIN_BLOCKS * TP06_BLOCK / fbt::kThreads)
     tp06_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row V
                                  const int* __restrict__ model, int n, float t, float dt,
                                  const Tp06Params* __restrict__ table, int nm,

@@ -13,12 +13,14 @@
 // What bounds it on the H100: device memory.  Beside B1's 18 state rows and
 // v read and 19 rows written, each node reads its 54 parameters once,
 // coalesced (neighbouring threads on neighbouring addresses of each
-// parameter row): 368 B a node against B1's 152.
+// parameter row): 368 B a node against B1's 152.  It takes B1's design
+// (tp06_grl.cu): the two-phase body, the register cap and the approximate
+// division.
 #include "tp06.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(TP06_BLOCK, TP06_MIN_BLOCKS)
     tp06_grl_node_step_v_kernel(float* states, const float* vin,  // vin may alias row V
                                 const float* __restrict__ params, int n, float t, float dt) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -36,7 +38,7 @@ extern "C" {
 int tp06_grl_node_step_v(float* states, const float* v, const float* params, long long n,
                          float t, float dt, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
-    tp06_grl_node_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
+    tp06_grl_node_step_v_kernel<<<fbt::num_blocks(n, TP06_BLOCK), TP06_BLOCK, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
         states, v, params, static_cast<int>(n), t, dt);
     return cudaGetLastError();

@@ -6,7 +6,9 @@ Counterpart of ``fenicsx_beat_tpu/ops/pallas_ell.py``: ``pack_lane_gather``,
 ``build_lane_gather_spmv`` with its COO tail.  The paged lane format exists
 only to work around the TPU's gather limits; on the H100 the device format
 is plain CSR (:class:`CSRMatrix`) and ``A @ x`` is one launch of
-``csrc/csr_spmv.cu`` (:func:`csr_spmv`).
+``csrc/csr_spmv.cu`` (:func:`csr_spmv`): a warp for each row longer than
+:data:`LONG_ROW` entries (listed once per operator, ``CSRMatrix.long_rows``),
+a thread for each other row.
 
 The packing contract is the JAX one: duplicate entries are summed,
 entries that are exactly zero in every operator of a group are dropped,
@@ -15,7 +17,8 @@ one layout, so :meth:`CSRMatrix.combine` works on values alone (the
 theta-system ``C_m M + theta dt K`` every solver builds) and the diagonal
 combines the same way.  CSR has no page cap: the rows that spill to the
 TPU format's COO tail stay in their rows, and the product equals the JAX
-kernel's plus its tail.
+kernel's plus its tail; the kernel's list of long rows is the port's form of
+that split.
 
 On a CUDA tensor :func:`csr_spmv` launches the kernel; on a CPU tensor it
 runs the plain PyTorch twin :func:`csr_spmv_twin` (gather, multiply and a
@@ -24,14 +27,17 @@ fixed-order segment sum per row, in the tensor's own dtype).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from .._build import check, load_library, require_cuda_f32, require_cuda_i32, stream_ptr
 
-__all__ = ["CSRMatrix", "pack_csr", "csr_spmv", "csr_spmv_twin"]
+__all__ = ["CSRMatrix", "LONG_ROW", "long_rows_of", "pack_csr", "csr_spmv", "csr_spmv_twin"]
+
+# Rows with more entries than this get a warp of their own in the kernel.
+LONG_ROW = 32
 
 
 def pack_csr(rows, cols, vals, shape: tuple[int, int]):
@@ -64,6 +70,12 @@ def pack_csr(rows, cols, vals, shape: tuple[int, int]):
     return indptr, uniq % n_cols, summed if stacked else summed[0]
 
 
+def long_rows_of(indptr: torch.Tensor) -> torch.Tensor:
+    """The rows of ``indptr`` longer than :data:`LONG_ROW` entries, int32,
+    on ``indptr``'s device."""
+    return torch.nonzero(indptr[1:] - indptr[:-1] > LONG_ROW).flatten().to(torch.int32)
+
+
 def _as_csr(A):
     import scipy.sparse as sp
 
@@ -76,13 +88,21 @@ def _as_csr(A):
 class CSRMatrix:
     """Sparse matrix in CSR form, on one device: ``indptr`` [n_rows + 1]
     and ``cols`` [nnz] int32, ``vals`` [nnz]; ``diag`` [n] for square
-    operators, captured at pack time.  ``@`` is :func:`csr_spmv`."""
+    operators, captured at pack time; ``long_rows``, the rows longer than
+    :data:`LONG_ROW` entries (int32, :func:`long_rows_of`), always found
+    from ``indptr`` when a matrix is made (a list that missed a long row
+    would leave its output unwritten), so never given.  ``@`` is
+    :func:`csr_spmv`."""
 
     indptr: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
     shape: tuple[int, int]
     diag: torch.Tensor | None = None
+    long_rows: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.long_rows = long_rows_of(self.indptr)
 
     @classmethod
     def from_operator(cls, A) -> "CSRMatrix":
@@ -182,7 +202,7 @@ def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return csr_spmv_twin(A, x)
     require_cuda_f32(vals=A.vals, x=x)
-    require_cuda_i32(indptr=A.indptr, cols=A.cols)
+    require_cuda_i32(indptr=A.indptr, cols=A.cols, long_rows=A.long_rows)
     n_rows, n_cols = A.shape
     if x.shape != (n_cols,) or A.indptr.shape != (n_rows + 1,) or A.vals.shape != A.cols.shape:
         raise ValueError(
@@ -190,9 +210,10 @@ def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
             f"and x {tuple(x.shape)} do not match"
         )
     y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
+    n_long = int(A.long_rows.shape[0])
     err = load_library().lib.csr_spmv(
         A.indptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-        n_rows, stream_ptr(x),
+        n_rows, A.long_rows.data_ptr() if n_long else None, n_long, LONG_ROW, stream_ptr(x),
     )
     check(err, "csr_spmv")
     csr_spmv.launches += 1
