@@ -12,9 +12,12 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    the median time of kernel, twin and the one PyTorch library call that
    computes the same function (where there is one) from CUDA events, and
    the least time the card could take (``bound_ms``):
-   - the registers and spill bytes of TP06's kernels (B1, its per-node
-     form, B7 in both forms) from the library's ptxas report (kept beside
-     the library, so the same whether it was built in this run or loaded);
+   - the register gate: the registers and spill bytes of the ionic
+     kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land (each model's
+     B1, its per-node form, B7 over every block and over a block list:
+     twelve kernels, all reported, none spilling) from the library's ptxas
+     report (kept beside the library, so the same whether it was built in
+     this run or loaded);
    - B1-B4 and B2·B4 (B4's update folded into B2's pass: p', Ap', pAp and
      alpha, in its first-iteration and folded forms; its library yardstick
      the CSR product plus ``torch.addcmul``, each printed, and each
@@ -234,6 +237,11 @@ JAX_LV_PSIZE03_PROBES = {
     "torord_dyncl_land": (JAX_LAND_LV_PSIZE03, 0.25),
 }
 LV_TAGS = {"tp06": "lv", "torord_dyncl": "torord_lv", "torord_dyncl_land": "land_lv"}  # print tags
+# CG iterations a step of the full-width LV paths (by print tag) and of Path
+# M in the run of the tree before ToR-ORd's and Land's kernels divided
+# approximately (an H100 80GB HBM3 at 700 W): each run prints its count
+# beside these, the ionic kernels' rounding seen through the PDE solve
+PRIOR_CG_PER_STEP = {"lv": 4.878, "torord_lv": 4.198, "land_lv": 4.263, "mixed": 6.824}
 # The slab demo (dx=0.05 bar, 3,636 nodes, 20 ms): activation times (ms) at
 # x = 0.3 and 0.7, float64 on the CPU, from
 #   JAX_PLATFORMS=cpu python tests/torch_lv_reference.py --slab 0.05 -T 20
@@ -469,6 +477,9 @@ JAX_CUSTOM_ODE_DX05_CPU_GAP = {
 }
 ODE_DEMO_SEEDS = (1, 2, 3)
 
+# the ionic sources whose four kernels the register gate holds (phase 3)
+IONIC_GATED = ("tp06_grl", "torord_grl", "torord_land_grl")
+
 SOURCES = {
     "tp06_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl.cu",
                         "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
@@ -518,6 +529,12 @@ SOURCES = {
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def prior_cg(tag: str, mean: float) -> str:
+    """A path's CG iterations a step beside :data:`PRIOR_CG_PER_STEP`'s."""
+    prior = PRIOR_CG_PER_STEP[tag]
+    return f"before {prior:.3f}, {100 * (mean - prior) / prior:+.2f}%"
 
 
 def time_ms(fn, launches: int = 20, reps: int = 7) -> float:
@@ -666,14 +683,17 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
     from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_ode, cuda_spmv
 
-    # TP06's kernels (B1, its per-node form, B7 over every block and over a
-    # block list): registers a thread and spill bytes, from the library's
-    # ptxas report
-    tp06_res = {name: r for name, r in ptxas_resources(load_library().compiler_output).items()
-                if "tp06_grl" in name}
-    print("[kernels] TP06 kernels, registers / spill stores / spill loads (bytes): "
-          + ", ".join(f"{name} {r[0]} / {r[1]} / {r[2]}" for name, r in sorted(tp06_res.items())))
-    require(len(tp06_res) == 4, f"the build reports TP06's four kernels (got {sorted(tp06_res)})")
+    # The ionic kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land (B1,
+    # its per-node form, B7 over every block and over a block list):
+    # registers a thread and spill bytes, from the library's ptxas report;
+    # all twelve reported, none spilling
+    resources = ptxas_resources(load_library().compiler_output)
+    for prefix in IONIC_GATED:
+        res = {name: r for name, r in resources.items() if f"{prefix}_" in name}
+        print(f"[kernels] {prefix} kernels, registers / spill stores / spill loads (bytes): "
+              + ", ".join(f"{name} {r[0]} / {r[1]} / {r[2]}" for name, r in sorted(res.items())))
+        require(len(res) == 4, f"the build reports {prefix}'s four kernels (got {sorted(res)})")
+        require(all(r[1] == 0 and r[2] == 0 for r in res.values()), f"{prefix}'s kernels do not spill")
 
     tic = time.perf_counter()
     solver = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
@@ -1598,7 +1618,8 @@ def phase_mixed_path(solver, setup_s: float) -> dict:
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"[mixed] dx={MIXED_DX} {res.model}, {res.n_nodes} nodes (markers {res.marker_nodes}), Strang dt={DT} "
           f"{res.simulated_ms:g} ms: ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.3f} s, host setup "
-          f"{setup_s:.1f} s), cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f}, host_syncs_per_step="
+          f"{setup_s:.1f} s), cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f} "
+          f"({prior_cg('mixed', res.cg_iters_mean)}), host_syncs_per_step="
           f"{res.host_syncs_per_step:.3f}; B7 launches per model {json.dumps(res.launches)}, blocks per model "
           f"{json.dumps(res.blocks_per_model)} of {res.n_blocks}, two-model share {res.two_model_share:.3e}")
     print("[mixed] P1-P9: " + ", ".join(f"{k}={v:.2f}" for k, v in res.activation_times.items()))
@@ -2606,7 +2627,7 @@ def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict,
           f"{stim_share:.4f}, all fired: {fired}); probes "
           + ", ".join(f"{k}={v:.2f}" for k, v in res.probes.items()))
     print(f"[{tag}] ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.3f} s), steps={res.n_steps}, "
-          f"cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f}, "
+          f"cg_iters max={res.cg_iters_max} mean={res.cg_iters_mean:.3f} ({prior_cg(tag, res.cg_iters_mean)}), "
           f"host_syncs_per_step={res.host_syncs_per_step:.3f}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[{tag}] launches {json.dumps(launches)}")

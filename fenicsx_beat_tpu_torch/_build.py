@@ -51,12 +51,16 @@ NVCC_FLAGS = [
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
 _NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "fhn_", "ode_")
-# TP06's kernels divide with the card's approximate full-range division
-# (at most 2 ulp), not the IEEE sequence whose checks and slow-path branches
-# took about a third of their instructions: B1 at n = 442,401 runs in 31 us
-# instead of 49 on an H100, with the one-step and one-beat errors against
-# the twin what the IEEE build gives (benchmarks/b1_designs.py, PERF.md).
-_APPROX_DIV_SOURCES = ("tp06_grl",)
+# The kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land divide with
+# the card's approximate full-range division (at most 2 ulp), not the IEEE
+# sequence whose checks and slow-path branches took about a third of TP06's
+# instructions: TP06's B1 at n = 442,401 runs in 30 us instead of 51 on an
+# H100, with the one-step and one-beat errors against the twin what the
+# IEEE build gives (benchmarks/b1_designs.py, PERF.md).  B1, the per-node
+# form and B7 of each model share the flags, so a uniform parameter field
+# gives B1's bits.  FitzHugh-Nagumo and the generated models keep the IEEE
+# division.
+_APPROX_DIV_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl")
 
 
 def _nvcc_flags(src: Path) -> list[str]:

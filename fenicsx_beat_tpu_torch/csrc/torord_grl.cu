@@ -8,26 +8,33 @@
 // The formulas live in torord.cuh, shared with the node-parameter form and
 // the multi-marker kernel (B7).
 //
-// What bounds it on the H100: device memory by design.  A step reads 44
+// What bounds it on the H100: by its bytes, device memory.  A step reads 44
 // state rows and v (row v is overwritten, never read) and writes 45 rows
 // back, 360 B a node in f32 (87.7 MB at the LV's n = 243,518: 26.2 us at
-// the H100 SXM data sheet's 3.35 TB/s), against about 1,000 float operations a node (3.6 us at
-// 67 TFLOP/s).  The design is TP06's (tp06_grl.cu): one thread per node,
-// the node's states in registers, each state row read once and written
-// once, coalesced, in place; the 108 parameters (432 B) arrive by value
-// in the launch (constant bank).  45 states and about 110 transcendental
-// results press against the 255-register limit: torord.cuh stores each
-// gate as soon as its new value is known.
+// the H100 SXM data sheet's 3.35 TB/s), against about 1,700 float
+// operations a node (6.2 us at 67 TFLOP/s).  In practice its instructions
+// set its time: with the IEEE division 6,800 SASS instructions a node (208
+// FCHK and 256 CALL of the division's checks and slow path) and 83 us on an
+// H100 80GB HBM3 at 700 W; with the card's approximate division
+// (-prec-div=false, _build.py) 4,500 and 58 us (benchmarks/b1_designs.py).
+// The design: one thread per node, the 108 parameters by value in the
+// launch (constant bank), the body in two phases so few values are live
+// (torord.cuh), and the nodes staged (staged.cuh): persistent blocks of
+// TORORD_BLOCK threads that load the next tile's states into shared memory
+// while they step the current one, coalesced, in place.
 #include "torord.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     torord_grl_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                              int n, float t, float dt, TorordParams p) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    fbt::torord_grl_node(states + i, n, vin[i], t, dt, fbt::ParamSet<TorordParams>{p});
+    fbt::staged_steps<TORORD_NUM_STATES, TORORD_BLOCK, false>(
+        states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
+        [&](float* row, long long ld, float v, int i, int) {
+            fbt::torord_grl_node(row, ld, v, t, dt, fbt::ParamSet<TorordParams>{p});
+            return static_cast<int>(TORORD_NUM_STATES);
+        });
 }
 
 }  // namespace
@@ -43,9 +50,13 @@ int torord_grl_step_v(float* states, const float* v, long long n, float t, float
     TorordParams p;
     float* dst = reinterpret_cast<float*>(&p);
     for (int k = 0; k < kTorordNumParams; ++k) dst[k] = params[k];
-    torord_grl_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(states, v, static_cast<int>(n),
-                                                                    t, dt, p);
+    static int cap = 0;
+    const long long ntiles = fbt::num_blocks(n, TORORD_BLOCK);
+    const auto kernel = &torord_grl_step_v_kernel;
+    const auto launch =
+        fbt::torord_launch<TORORD_NUM_STATES, false>(kernel, true, TORORD_BLOCK, ntiles, cap);
+    kernel<<<launch.grid, TORORD_BLOCK, launch.smem, static_cast<cudaStream_t>(stream)>>>(
+        states, v, static_cast<int>(n), t, dt, p);
     return cudaGetLastError();
 }
 

@@ -18,28 +18,29 @@
 // state rows (row v is overwritten, never read), v and the int32 model
 // index and writes 45 rows: 364 B a node, 88.6 MB at the LV of psize 0.1
 // (n = 243,518), a floor of 26.5 us at the H100 SXM data sheet's
-// 3.35 TB/s.
+// 3.35 TB/s.  As for B1, its instructions set its time.  Over every block it
+// runs one node a thread, at least TORORD_MULTI_MIN_BLOCKS blocks an SM (80
+// registers); over a block list staged (staged.cuh), where the staging
+// measured faster and over every block slower (benchmarks/b1_designs.py).
 #include "torord.cuh"
 
 namespace {
 
 template <bool kBlocks>
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(fbt::kThreads, fbt::torord_b7_min_blocks(kBlocks, TORORD_MULTI_MIN_BLOCKS))
     torord_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                                    const int* __restrict__ model, int n, float t, float dt,
                                    const TorordParams* __restrict__ table, int nm,
-                                   const int* __restrict__ blocks) {
-    const int i = fbt::multi_node<kBlocks>(blocks);
-    if (i >= n) return;
-    const int mi = model[i];
-    if (kBlocks && mi == fbt::kOtherModel) return;  // another model's node (the mixed form)
-    const float v = vin[i];
-    if (mi < 0 || mi >= nm) {
-        states[i] = v;  // row v (TR_v = 0); the other rows stay
-        return;
-    }
-    const float* row = reinterpret_cast<const float*>(table + mi);
-    fbt::torord_grl_node(states + i, n, v, t, dt, fbt::StridedParams{row, 1});
+                                   const int* __restrict__ blocks, int ntiles) {
+    fbt::torord_steps<TORORD_NUM_STATES, fbt::kThreads, true, kBlocks>(
+        states, vin, model, n, ntiles, [&](int k) { return kBlocks ? __ldg(blocks + k) : k; },
+        [&](float* row, long long ld, float v, int, int mi) {
+            if (kBlocks && mi == fbt::kOtherModel) return 0;  // another model's node (the mixed form)
+            if (mi < 0 || mi >= nm) return 1;  // in no layer: V injected, the other rows stay
+            const float* prow = reinterpret_cast<const float*>(table + mi);
+            fbt::torord_grl_node(row, ld, v, t, dt, fbt::StridedParams{prow, 1});
+            return static_cast<int>(TORORD_NUM_STATES);
+        });
 }
 
 }  // namespace
@@ -57,9 +58,14 @@ int torord_grl_multi_step_v(float* states, const float* v, const int* model, lon
                             void* stream) {
     if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(TR_v == 0, "row v is row 0");
+    static int caps[2] = {0, 0};
     const auto kernel = blocks ? &torord_grl_multi_step_v_kernel<true> : &torord_grl_multi_step_v_kernel<false>;
-    kernel<<<fbt::multi_grid(n, blocks, nblocks), fbt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const TorordParams*>(table), nm, blocks);
+    const long long ntiles = fbt::multi_grid(n, blocks, nblocks);
+    const auto launch = fbt::torord_launch<TORORD_NUM_STATES, true>(
+        kernel, blocks != nullptr, fbt::kThreads, ntiles, caps[blocks != nullptr]);
+    kernel<<<launch.grid, fbt::kThreads, launch.smem, static_cast<cudaStream_t>(stream)>>>(
+        states, v, model, static_cast<int>(n), t, dt, reinterpret_cast<const TorordParams*>(table), nm, blocks,
+        static_cast<int>(ntiles));
     return cudaGetLastError();
 }
 

@@ -13,17 +13,23 @@
 // What bounds it on the H100: device memory.  Beside B1's 44 state rows
 // and v read and 45 rows written, each node reads its 108 parameters once,
 // coalesced (neighbouring threads on neighbouring addresses of each
-// parameter row): 792 B a node against B1's 360.
+// parameter row): 792 B a node against B1's 360.  It takes B1's design
+// (torord_grl.cu): staged, 128 registers a thread; the staging overlaps the
+// state loads with the step, 116 us unstaged against 94 us at the LV's
+// n = 243,518 (H100 80GB HBM3, 700 W, benchmarks/b1_designs.py).
 #include "torord.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     torord_grl_node_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                                   const float* __restrict__ params, int n, float t, float dt) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    fbt::torord_grl_node(states + i, n, vin[i], t, dt, fbt::StridedParams{params + i, n});
+    fbt::staged_steps<TORORD_NUM_STATES, TORORD_BLOCK, false>(
+        states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
+        [&](float* row, long long ld, float v, int i, int) {
+            fbt::torord_grl_node(row, ld, v, t, dt, fbt::StridedParams{params + i, n});
+            return static_cast<int>(TORORD_NUM_STATES);
+        });
 }
 
 }  // namespace
@@ -37,8 +43,12 @@ extern "C" {
 int torord_grl_node_step_v(float* states, const float* v, const float* params, long long n,
                            float t, float dt, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
-    torord_grl_node_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+    static int cap = 0;
+    const long long ntiles = fbt::num_blocks(n, TORORD_BLOCK);
+    const auto kernel = &torord_grl_node_step_v_kernel;
+    const auto launch =
+        fbt::torord_launch<TORORD_NUM_STATES, false>(kernel, true, TORORD_BLOCK, ntiles, cap);
+    kernel<<<launch.grid, TORORD_BLOCK, launch.smem, static_cast<cudaStream_t>(stream)>>>(
         states, v, params, static_cast<int>(n), t, dt);
     return cudaGetLastError();
 }

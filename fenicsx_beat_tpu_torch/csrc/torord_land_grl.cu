@@ -12,20 +12,23 @@
 // What bounds it on the H100: device memory by design.  A step reads 51
 // state rows and v (row v is overwritten, never read) and writes 52 rows
 // back, 416 B a node in f32 (184 MB at the Niederer slab's n = 442,401:
-// 55 us at the H100 SXM data sheet's 3.35 TB/s).  torord_grl.cu's design:
-// one thread per node, the node's states in registers, each state row
-// read once and written once, coalesced, in place; the 136 parameters
-// (544 B) arrive by value in the launch (constant bank).
+// 55 us at the H100 SXM data sheet's 3.35 TB/s).  As ToR-ORd's B1, its
+// instructions set its time, and it takes that kernel's design
+// (torord_grl.cu): the 136 parameters (544 B) by value in the launch,
+// staged, the approximate division.
 #include "torord_land.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(fbt::kThreads)
+__global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     torord_land_grl_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                                   int n, float t, float dt, TorordLandParams p) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    fbt::torord_grl_node<true>(states + i, n, vin[i], t, dt, fbt::ParamSet<TorordLandParams>{p});
+    fbt::staged_steps<TORORD_LAND_NUM_STATES, TORORD_BLOCK, false>(
+        states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
+        [&](float* row, long long ld, float v, int i, int) {
+            fbt::torord_grl_node<true>(row, ld, v, t, dt, fbt::ParamSet<TorordLandParams>{p});
+            return static_cast<int>(TORORD_LAND_NUM_STATES);
+        });
 }
 
 }  // namespace
@@ -41,8 +44,12 @@ int torord_land_grl_step_v(float* states, const float* v, long long n, float t, 
     TorordLandParams p;
     float* dst = reinterpret_cast<float*>(&p);
     for (int k = 0; k < kTorordLandNumParams; ++k) dst[k] = params[k];
-    torord_land_grl_step_v_kernel<<<fbt::num_blocks(n), fbt::kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+    static int cap = 0;
+    const long long ntiles = fbt::num_blocks(n, TORORD_BLOCK);
+    const auto kernel = &torord_land_grl_step_v_kernel;
+    const auto launch =
+        fbt::torord_launch<TORORD_LAND_NUM_STATES, false>(kernel, true, TORORD_BLOCK, ntiles, cap);
+    kernel<<<launch.grid, TORORD_BLOCK, launch.smem, static_cast<cudaStream_t>(stream)>>>(
         states, v, static_cast<int>(n), t, dt, p);
     return cudaGetLastError();
 }

@@ -19,10 +19,7 @@ on the CPU (the port on its kernels' twins).
   ``FusedMonodomainSolver``'s; the probes' active tension.
 """
 
-import ctypes
 import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -30,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_host_body import build_host_body, run_host_step
 from torch_lv_reference import jax_lv_solver, probe_values
 
 from fenicsx_beat_tpu import odesolver as jode
@@ -195,31 +193,11 @@ def test_cuda_source_tables_match_model():
     assert re.search(rf"kTorordLandNumParams\s*=\s*{len(tland._PARAM_NAMES)};", src)
 
 
-# host stand-ins for the CUDA names the ionic headers use, so the host's
-# g++ compiles the card's node body as it is
-_CUDA_STUB = r"""
-#pragma once
-#include <cmath>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __shared__ static
-#define __restrict__
-struct fbt_dim3 { unsigned x = 0; };
-static fbt_dim3 threadIdx, blockIdx, blockDim;
-template <class T> inline T __shfl_down_sync(unsigned, T v, int) { return v; }
-inline void __syncthreads() {}
-template <class T> inline T __ldg(const T* p) { return *p; }
-"""
 _HARNESS = r"""
 #include "torord_land.cuh"
-struct Strided {
-    const float* base;
-    long long ld;
-    float operator()(int k) const { return base[k * ld]; }
-};
 extern "C" void step(float* states, const float* v, const float* params, long long n, float t, float dt) {
-    for (long long i = 0; i < n; ++i) fbt::torord_grl_node<true>(states + i, n, v[i], t, dt, Strided{params + i, n});
+    for (long long i = 0; i < n; ++i)
+        fbt::torord_grl_node<true>(states + i, n, v[i], t, dt, fbt::StridedParams{params + i, n});
 }
 """
 
@@ -229,15 +207,7 @@ def host_body(tmp_path_factory):
     """The Land node body built by the host's g++ into a ctypes library:
     the card's float32 arithmetic, without contraction (-ffp-contract=off,
     as the card builds with -fmad=false)."""
-    gpp = shutil.which("g++")
-    if gpp is None:
-        pytest.skip("needs the host's g++")
-    d = tmp_path_factory.mktemp("land_body")
-    (d / "cuda_runtime.h").write_text(_CUDA_STUB)
-    (d / "harness.cpp").write_text(_HARNESS)
-    subprocess.run([gpp, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC", f"-I{d}", f"-I{CSRC}",
-                    "-o", str(d / "body.so"), str(d / "harness.cpp")], check=True, capture_output=True)
-    return ctypes.CDLL(str(d / "body.so"))
+    return build_host_body(tmp_path_factory, "land_body", _HARNESS)
 
 
 @pytest.mark.parametrize("t", [0.5, 10.5])
@@ -246,9 +216,7 @@ def test_cuda_body_matches_float32_twin_on_host(host_body, t):
     s, v = perturbed(n=n, seed=8)
     field = celltype_field(n, seed=9, lmbda=1.05, dLambda=0.01)
     sf, vf, pf = (np.ascontiguousarray(a, dtype=np.float32) for a in (s, v, field))
-    out = sf.copy()
-    host_body.step(*(a.ctypes.data_as(ctypes.c_void_p) for a in (out, vf, pf)), ctypes.c_longlong(n),
-                   ctypes.c_float(t), ctypes.c_float(0.05))
+    out = run_host_step(host_body.step, sf, vf, pf, t, 0.05)
 
     def twin(S, v_, t_, dt, p):
         return cuda_ode.torord_land_grl_step_v_twin(S, v_, t_, dt, p)

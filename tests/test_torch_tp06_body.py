@@ -13,20 +13,16 @@ held by ``chip_smoke.py``.
   node-aligned field (the per-node form) gives the same bits.
 """
 
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
+
+from torch_host_body import build_host_body, run_host_step
 
 from fenicsx_beat_tpu_torch.benchmarks import kernel_check
 from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
 from fenicsx_beat_tpu_torch.ops import cuda_ode
 
-CSRC = Path(cuda_ode.__file__).resolve().parent.parent / "csrc"
 N = 2048
 DT = 0.05
 
@@ -41,22 +37,6 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-# host stand-ins for the CUDA names the ionic headers use, so the host's
-# g++ compiles the card's node body as it is
-_CUDA_STUB = r"""
-#pragma once
-#include <cmath>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __shared__ static
-#define __restrict__
-struct fbt_dim3 { unsigned x = 0; };
-static fbt_dim3 threadIdx, blockIdx, blockDim;
-template <class T> inline T __shfl_down_sync(unsigned, T v, int) { return v; }
-inline void __syncthreads() {}
-template <class T> inline T __ldg(const T* p) { return *p; }
-"""
 # the body over n nodes: parameters from a node-aligned [54, n] field (the
 # per-node form's source), or one set by value (B1's)
 _HARNESS = r"""
@@ -77,22 +57,11 @@ extern "C" void step_set(float* states, const float* v, const float* params, lon
 @pytest.fixture(scope="module")
 def host_body(tmp_path_factory):
     """The TP06 node body built by the host's g++ into a ctypes library."""
-    gpp = shutil.which("g++")
-    if gpp is None:
-        pytest.skip("needs the host's g++")
-    d = tmp_path_factory.mktemp("tp06_body")
-    (d / "cuda_runtime.h").write_text(_CUDA_STUB)
-    (d / "harness.cpp").write_text(_HARNESS)
-    subprocess.run([gpp, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC", f"-I{d}", f"-I{CSRC}",
-                    "-o", str(d / "body.so"), str(d / "harness.cpp")], check=True, capture_output=True)
-    return ctypes.CDLL(str(d / "body.so"))
+    return build_host_body(tmp_path_factory, "tp06_body", _HARNESS)
 
 
 def _run(fn, states: np.ndarray, v: np.ndarray, params: np.ndarray, t: float) -> np.ndarray:
-    out, vf, pf = (np.ascontiguousarray(a, dtype=np.float32).copy() for a in (states, v, params))
-    fn(*(a.ctypes.data_as(ctypes.c_void_p) for a in (out, vf, pf)), ctypes.c_longlong(states.shape[1]),
-       ctypes.c_float(t), ctypes.c_float(DT))
-    return out
+    return run_host_step(fn, states, v, params, t, DT)
 
 
 @pytest.mark.parametrize("t", [10.5, 5.0], ids=["stimulus", "no-stimulus"])
