@@ -179,6 +179,30 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    over each half printed); the same at dx=0.5 against the
    JAX package's float64 P1-P9 (``tests/torch_mixed_reference.py``), each
    within one dt.
+18. (run after the per-node paths, before Land) the object-oriented path,
+   ``MonodomainModel`` + the ODE adapters + ``MonodomainSplittingSolver``,
+   on the kernels above (no kernel of its own): (a) the dx=0.1 Niederer
+   slab, TP06 through ``DolfinODESolver``, Strang, dt 0.05, 40 ms, with a
+   ``PerformanceMonitor`` (``benchmarks/niederer.py:run_niederer_oo``):
+   ms/s, CG iterations, host syncs and voltage host crossings per step,
+   the launches of B1, B2, B2·B4 and B3 (B1 twice a step, B2·B4 and B3
+   once a CG iteration), the monitor's summary; P1-P9 from the host
+   voltage each step writes, each within one dt of the JAX package's
+   Strang values and of the fused main path's in this run; (b) the LV
+   demo's own choreography at psize 0.1 (``benchmarks/lv_endocardial.py``:
+   the pre-paced ToR-ORd layers through ``DolfinMultiODESolver``, Godunov,
+   30 ms, the voltage range every 2 ms, the electrode potential at
+   (2, 7, 0) through ``ECGRecovery``): every probe within one dt of the
+   fused solver's at theta=1 from the same states and stimulus, with its
+   PCG started from v + dv (its own start) and from v_prev (the OO
+   model's), the activated share within 0.5 points of the run from v_prev
+   (against the run from v + dv it is printed and gates nothing), every
+   state finite, ToR-ORd's B1 3 times a step, B8 launched; (c) the psize
+   0.3 OO LV for 40 steps on the kernels and on the twins from a shared
+   state at 5 ms: max |dv| < 1e-2; (d) B1 of the four hand-written models,
+   both forms, given the state tensor's own voltage row as the OO adapters
+   give it: the bits of B1 given a copy of the row.  Every line names the
+   card and its power limit.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -908,7 +932,7 @@ def phase_lv_setup():
     model = lv_layers(solver)[0]
     print(f"[lv] psize {LV_PSIZE}: n={n} nodes, {solver.mesh.num_cells} cells, layers "
           f"(model index: count) {torch.bincount(model.long() + 1).tolist()[1:]}, "
-          f"{solver._mass.nnz} operator entries, host setup {setup:.1f} s")
+          f"{solver._pde.mass.nnz} operator entries, host setup {setup:.1f} s")
     require(n == N_LV, f"psize {LV_PSIZE} LV has {N_LV} nodes (got {n})")
     return solver, setup
 
@@ -2597,7 +2621,7 @@ def phase_main_path() -> dict:
           f"{gap:.3%} apart), host_syncs_per_step={old.host_syncs_per_step:.3f}; P1-P9 "
           + " ".join(f"{a:.2f}" for a in old_at))
     require(gap <= 0.01, "the main path's CG iterations within 1% of the old sequence's")
-    return launches
+    return launches, at
 
 
 def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict, float]:
@@ -2655,6 +2679,238 @@ def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict,
         print(f"[{tag}] Land active tension at the probes at {t:g} ms (kPa): "
               + ", ".join(f"{k}={v:.4e}" for k, v in zip(res.active_tension, probe_active_tension(solver))))
     return launches, t
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if not hasattr(card, "line"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+        card.line = smi.stdout.strip().splitlines()[0]
+    return card.line
+
+
+def oo_launches(wrappers: dict) -> dict:
+    return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def phase_oo_niederer(main_at: list) -> None:
+    """The OO path on the main path's configuration: ``MonodomainModel``
+    (PDE theta 0.5) + ``DolfinODESolver`` (TP06's B1) +
+    ``MonodomainSplittingSolver(theta=0.5)``, dx=0.1, dt 0.05, 40 ms, with
+    a ``PerformanceMonitor`` (``benchmarks/niederer.py:run_niederer_oo``);
+    P1-P9 from the host voltage each step writes, held to the JAX
+    package's Strang values and to the fused main path's in this run."""
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import run_niederer_oo
+    from fenicsx_beat_tpu_torch.telemetry import PerformanceMonitor
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    mon = PerformanceMonitor(log_frequency=0)
+    res = run_niederer_oo(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, monitor=mon)
+    launches = oo_launches(wrappers)
+    at = [res.activation_times[f"P{i}"] for i in range(1, 10)]
+    dev_jax = [abs(a - b) for a, b in zip(at, JAX_STRANG_DX01)]
+    dev_main = [abs(a - b) for a, b in zip(at, main_at)]
+    tag = f"[oo_niederer] ({card()})"
+    print(f"{tag} dx=0.1 Strang dt={DT} {res.simulated_ms:g} ms, n={res.n_nodes}: P1-P9 "
+          + " ".join(f"{a:.2f}" for a in at) + f"; max |P - P_jax| {max(dev_jax):.3f}, max |P - P_fused| "
+          f"{max(dev_main):.3f}; host setup {res.setup_s:.1f} s")
+    print(f"{tag} ms_per_s={res.ms_per_second:.3f} (wall {res.wall_time_s:.3f} s, {res.n_steps} steps, the monitor's "
+          f"synchronize at every section's end included), cg_iters mean={res.cg_iters_mean:.3f}, "
+          f"host_syncs_per_step={res.host_syncs_per_step:.3f}, voltage host crossings per step "
+          f"{res.host_transfers_per_step:.3f} ({4 * res.n_nodes} B each)")
+    print(f"{tag} launches {json.dumps(launches)}: B1 {launches.get('tp06_grl_step_v', 0)}, B2·B4 "
+          f"{launches.get('stencil_spmv_sym_dir_dot', 0)}, B3 {launches.get('cg_update', 0)}, B2 "
+          f"{launches.get('stencil_spmv_sym', 0)}")
+    for line in "\n".join(mon._summary_lines()).splitlines():
+        if line.strip():
+            print(f"{tag} {line}")
+    require(res.status.name == "OK", "every OO Niederer CG converged")
+    require(max(dev_jax) <= DT + 1e-6, "OO Niederer P1-P9 within one dt of the JAX Strang values")
+    require(max(dev_main) <= DT + 1e-6, "OO Niederer P1-P9 within one dt of the fused main path's in this run")
+    require(launches.get("tp06_grl_step_v", 0) == 2 * res.n_steps, "the OO Niederer launches B1 twice a step")
+    require_structured_pcg(launches, "the OO Niederer path")
+    require(launches.get("stencil_spmv_sym_dir_dot") == launches.get("cg_update") == res.cg_iters_sum,
+            "the OO Niederer PCG launches B2·B4 and B3 once a CG iteration")
+
+
+def phase_oo_lv(torord_lv, steady: dict) -> None:
+    """The LV demo's own choreography at psize 0.1 through the OO API
+    (``benchmarks/lv_endocardial.py``): the pre-paced ToR-ORd dynCl layers,
+    Godunov, 30 ms, the voltage range every 2 ms and the electrode
+    potential at (2, 7, 0); held to the fused solver at theta=1 from the
+    same states and stimulus (``torord_lv`` reset and rerun): its PCG
+    warm-started from v + dv as it runs, and from v_prev as the OO model's
+    starts (the JAX package's ``BaseModel``; ``_pde_solve`` overridden on
+    this instance only).  Every probe within one dt of both; the activated
+    share, which at rtol 1e-6 in float32 moves with the CG's start alone
+    (``benchmarks/lv_cg_start.py``), within 0.5 points of the run that
+    starts where the OO model does.  The share against the run from
+    v + dv, the limit as first set, is printed as met or not met and gates
+    nothing."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES, lv_probe_points, run_lv_solver
+    from fenicsx_beat_tpu_torch.benchmarks.lv_endocardial import build_oo_lv, electrode_potential, run_oo_lv
+    from fenicsx_beat_tpu_torch.convert import states_from_numpy
+
+    tag = f"[oo_lv] ({card()})"
+    markers = np.array(sorted(CELLTYPES))[torord_lv._ionic_groups[0].index.cpu().numpy()]
+    tic = time.perf_counter()
+    solver = build_oo_lv(torord_lv.mesh, markers, torord_lv.M, torord_lv.I_s, steady, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    oo = run_oo_lv(solver, LV_T, DT, lv_probe_points(LV_PSIZE), verbose=False)
+    launches = oo_launches(wrappers)
+    phi = electrode_potential(solver.pde, torord_lv.M)
+    for t, lo, hi in oo.v_range:
+        print(f"{tag} t={t:6.1f}  v_range=[{lo:8.2f}, {hi:8.2f}]")
+    print(f"{tag} Electrode potential: {phi:.6e}")
+    # the fused solver at theta=1 from the same pre-paced states: its PCG
+    # warm-started from v + dv, then from v_prev as the OO model's is
+    refs = {}
+    torord_lv.theta = 1.0
+    warm = torord_lv._pde_solve
+    for name in ("fused, CG from v + dv", "fused, CG from v_prev"):
+        torord_lv.states = states_from_numpy(np.asarray(torord_lv.init_states), torord_lv.device, torord_lv.dtype)
+        torord_lv.activation_time.fill_(-1.0)
+        if name.endswith("v_prev"):
+            torord_lv._pde_solve = lambda ops, v, x0, t, dt, amps: warm(ops, v, v, t, dt, amps)
+        try:
+            ref = run_lv_solver(torord_lv, LV_PSIZE, T=LV_T, dt=DT)
+        finally:
+            vars(torord_lv).pop("_pde_solve", None)
+        act = torord_lv.activation_time.double().cpu().numpy()
+        both = (act >= 0) & (oo.activation >= 0)
+        refs[name] = ref
+        print(f"{tag} {name}: probes " + ", ".join(f"{k}={v:.2f}" for k, v in ref.probes.items())
+              + f"; max |OO - fused| {max(abs(oo.probes[k] - v) for k, v in ref.probes.items()):.3f}; activated "
+              f"share {ref.activated_share:.4f} (OO {oo.activated_share:.4f}); nodes activated in one run only "
+              f"{int(((act >= 0) != (oo.activation >= 0)).sum())}, max |OO - fused| activation time over both "
+              f"{float(np.abs(act - oo.activation)[both].max()):.3f} ms; ms_per_s={ref.ms_per_second:.3f}, "
+              f"cg_iters mean={ref.cg_iters_mean:.3f}")
+    n = solver.pde.V.ndofs
+    print(f"{tag} psize {LV_PSIZE} Godunov dt={DT} {oo.simulated_ms:g} ms, n={n}, OO setup {setup_s:.1f} s: OO probes "
+          + ", ".join(f"{k}={v:.2f}" for k, v in oo.probes.items()) + f"; activated share {oo.activated_share:.4f}")
+    print(f"{tag} OO ms_per_s={oo.ms_per_second:.3f} (wall {oo.wall_s:.3f} s), cg_iters mean="
+          f"{oo.cg_iters_sum / oo.n_steps:.3f}, host_syncs_per_step={oo.host_syncs / oo.n_steps:.3f}, voltage host "
+          f"crossings per step {oo.host_transfers / oo.n_steps:.3f} ({4 * n} B each)")
+    print(f"{tag} launches {json.dumps(launches)}")
+    require(oo.all_finite and math.isfinite(phi), "every OO LV state and the electrode potential finite")
+    for name, ref in refs.items():
+        require(max(abs(oo.probes[k] - v) for k, v in ref.probes.items()) <= DT + 1e-6,
+                f"OO LV probes within one dt of the {name} run's")
+    first = abs(oo.activated_share - refs["fused, CG from v + dv"].activated_share)
+    print(f"{tag} activated share within 0.5 points of the fused theta=1 run's with its own CG start (v + dv): "
+          f"{'met' if first <= 0.005 else 'not met'} ({100 * first:.2f} points; gates nothing, ROADMAP Queue C)")
+    # the share at rtol 1e-6 in float32 moves with the CG's start (PERF.md
+    # section 5): held against the run that starts where the OO model does
+    require(abs(oo.activated_share - refs["fused, CG from v_prev"].activated_share) <= 0.005,
+            "OO LV activated share within 0.5 points of the fused theta=1 run's (CG from v_prev)")
+    require(launches.get("torord_grl_step_v", 0) == 3 * oo.n_steps, "the OO LV launches ToR-ORd's B1 3 times a step")
+    require(launches.get("csr_spmv", 0) > 0, "the OO LV runs B8")
+
+
+def phase_oo_kernel_check(steady: dict) -> None:
+    """The OO LV at psize 0.3 (the pre-paced ToR-ORd layers, Godunov), 40
+    steps on the kernels and on the twins from the state the twins reach at
+    the kernel check's start (after the stimulated layer's upstroke):
+    max |dv| < 1e-2, ``kernel_check``'s limit."""
+    import numpy as np
+
+    from fenicsx_beat_tpu_torch import fem
+    from fenicsx_beat_tpu_torch.benchmarks.kernel_check import LV_CHECK_START, THRESHOLD
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES, lv_amplitude, lv_layers
+    from fenicsx_beat_tpu_torch.benchmarks.lv_endocardial import build_oo_lv
+    from fenicsx_beat_tpu_torch.conductivities import default_conductivities, define_conductivity_tensor
+    from fenicsx_beat_tpu_torch.geometry import get_lv_ellipsoid_geometry
+    from fenicsx_beat_tpu_torch.stimulation import define_stimulus
+    from fenicsx_beat_tpu_torch.units import ureg
+
+    geo = get_lv_ellipsoid_geometry(psize_ref=LV_CHECK_PSIZE)
+    layers = lv_layers(geo, fem.functionspace(geo.mesh, ("P", 1)), precond="jacobi", device=DEVICE)
+    M = define_conductivity_tensor(f0=geo.f0, **default_conductivities("Niederer"))
+
+    def build(use_kernels):
+        I_s = define_stimulus(mesh=geo.mesh, chi=1400.0 * ureg("cm**-1"), time=fem.Constant(0.0),
+                              subdomain_data=geo.ffun, marker=geo.markers["ENDO"][0], mesh_unit="cm",
+                              amplitude=lv_amplitude(LV_CHECK_PSIZE), duration=1.0)
+        return build_oo_lv(geo.mesh, layers, M, I_s, steady, device=DEVICE, use_kernels=use_kernels)
+
+    def march(solver, t0, n_steps):
+        for i in range(n_steps):
+            solver.step((t0 + i * DT, t0 + (i + 1) * DT))
+
+    ref = build(False)
+    march(ref, 0.0, int(round(LV_CHECK_START / DT)))
+    wrappers = kernel_wrappers()
+    v = {}
+    for k in (True, False):
+        solver = build(k)
+        for m in CELLTYPES:
+            solver.ode.values(m).copy_(ref.ode.values(m))
+        solver.pde.state.x.array[:] = ref.pde.state.x.array
+        solver.pde.assign_previous()
+        zero_launches(wrappers)
+        march(solver, LV_CHECK_START, 40)
+        v[k] = np.array(solver.pde.state.x.array)
+        launches = oo_launches(wrappers)
+        print(f"[oo_kernel_check] ({card()}) {'kernels' if k else 'twins'}: launches {json.dumps(launches)}")
+        if k:
+            require(launches.get("torord_grl_step_v", 0) == 3 * 40 and launches.get("csr_spmv", 0) > 0,
+                    "the OO LV kernel run launches ToR-ORd's B1 3 times a step and B8")
+        else:
+            require(not launches, "the OO LV twin run launches no kernel")
+    dv = float(np.abs(v[True] - v[False]).max())
+    print(f"[oo_kernel_check] ({card()}) OO LV psize {LV_CHECK_PSIZE}, n={v[True].size}, 40 steps from "
+          f"{LV_CHECK_START:g} ms: max|dv| kernels vs twins {dv:.3e} (limit {THRESHOLD:g})")
+    require(dv < THRESHOLD, "OO LV kernels vs twins max|dv| < 1e-2")
+
+
+def phase_oo_row_aliasing() -> None:
+    """B1 as the OO adapters call it, with the state tensor's own voltage
+    row as its voltage input (B1 reads V from that input and writes the
+    row), against B1 given a copy of the row: the same bits after 3 steps
+    at the Niederer slab's width, for the four hand-written models in both
+    B1 forms, from states spread over the action potential (V from -90 to
+    40 mV; the staged ToR-ORd and Land kernels prefetch states with
+    ``cp.async``)."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.models import fitzhughnagumo, tentusscher_panfilov_2006, torord_dyncl
+    from fenicsx_beat_tpu_torch.models import torord_dyncl_land
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    rng = np.random.default_rng(7)
+    for model in (tentusscher_panfilov_2006, torord_dyncl, torord_dyncl_land, fitzhughnagumo):
+        spec = cuda_ode.IONIC_MODELS[model.generalized_rush_larsen]
+        init = np.asarray(model.init_state_values(), dtype=np.float64)
+        states = np.tile(init[:, None], (1, N_MAIN)) * (1.0 + 0.01 * rng.standard_normal((init.size, N_MAIN)))
+        states[spec.v_index] = rng.uniform(-90.0, 40.0, N_MAIN)
+        params = np.asarray(model.init_parameter_values(), dtype=np.float64)
+        field = torch.tensor(np.tile(params[:, None], (1, N_MAIN)), dtype=torch.float32, device=DEVICE)
+        for form, step, p in (("vector", spec.step, params), ("field", spec.node_step, field)):
+            a = torch.tensor(states, dtype=torch.float32, device=DEVICE)
+            b = a.clone()
+            for k in range(3):
+                step(a, a[spec.v_index], DT * k, DT, p)
+                step(b, b[spec.v_index].clone(), DT * k, DT, p)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(a, b))
+            print(f"[oo_aliasing] ({card()}) {model.__name__.rsplit('.', 1)[1]} {form} form, n={N_MAIN}, 3 steps: "
+                  f"B1 with its own voltage row {'gives' if same else 'does not give'} a copy's bits")
+            require(same and bool(torch.isfinite(a).all()),
+                    f"{model.__name__} B1 ({form} form) with its own voltage row gives a copy's bits")
+        del field
 
 
 def general_stencil_csr(offsets, vals, n):
@@ -2817,7 +3073,7 @@ def _sym_spmv_other_order(solver) -> None:
         ap, pap = spmv_dot(vals, p, pos)
         return p, ap, pap, rz_cur / pap
 
-    solver._spmv, solver._spmv_dir_dot = spmv, spmv_dir_dot
+    solver._pde.spmv, solver._pde.spmv_dir_dot = spmv, spmv_dir_dot
 
 
 def _lead_gaps(a: dict, b: dict) -> dict:
@@ -2936,7 +3192,7 @@ def main() -> int:
     phase_kernel_checks()
     phase_lv_parity()
     phase_torord_lv_parity()
-    launches = phase_main_path()
+    launches, main_at = phase_main_path()
     lv_launches, _ = phase_lv_path(lv_solver, lv_setup)
     for name in ("tp06_grl_multi_step_v", "csr_spmv"):
         launches[name] = lv_launches[name]
@@ -2945,7 +3201,12 @@ def main() -> int:
     launches["torord_grl_multi_step_v"] = torord_launches["torord_grl_multi_step_v"]
     launches["torord_grl_step_v"] = phase_slab()["torord_grl_step_v"]
     launches.update(phase_node_paths(torord_lv, t_end))
+    # the OO path (MonodomainModel + the ODE adapters + the splitting solver)
+    phase_oo_niederer(main_at)
+    phase_oo_lv(torord_lv, steady)
     del torord_lv
+    phase_oo_kernel_check(steady)
+    phase_oo_row_aliasing()
     # ToR-ORd dynCl + Land: pre-pacing (its B1's path), its kernels, the
     # psize 0.3 parity, Path L (B7, B8) and its layers as a per-node field
     land_steady, land_prepace_s, launches["torord_land_grl_step_v"] = phase_steady_states("torord_dyncl_land")

@@ -3,6 +3,11 @@
 The JAX package stays the reference; this package grows beside it, slice
 by slice, and imports neither ``jax`` nor ``fenicsx_beat_tpu``.  Its paths:
 
+- the reference's object-oriented surface: :class:`~.monodomain_model.MonodomainModel`,
+  the ODE adapters of :mod:`.odesolver` and
+  :class:`~.monodomain_solver.MonodomainSplittingSolver`, with the
+  monitors of :mod:`.telemetry` (:mod:`.benchmarks.lv_endocardial`,
+  :mod:`.benchmarks.verification`);
 - the monodomain splitting solver :class:`~.fused.FusedMonodomainSolver`
   on the Niederer slab (:func:`~.benchmarks.niederer.run_niederer_benchmark`),
   the slab demo (:mod:`.benchmarks.slab`), the idealized left ventricle
@@ -22,10 +27,49 @@ PyTorch twin for the CPU: one for each of the JAX package's eight Pallas
 builders (B1-B8) and model (B1, its per-node form and B7 per ionic model),
 and three templates (``csrc/ode_*.cu.in``) that a loaded model's generated
 node body completes, built by ``nvcc`` at its first step.  Entry points run
-on the card unless the caller names the CPU.
+on the card unless the caller names the CPU.  Importing the package builds
+nothing: the kernels build at their first launch.
 """
 
-from . import ecg, odefile
+from . import (
+    base_model,
+    conductivities,
+    ecg,
+    geometry,
+    monodomain_model,
+    monodomain_solver,
+    odefile,
+    odesolver,
+    single_cell,
+    stimulation,
+    telemetry,
+    utils,
+)
 from .ecg import ECGRecovery, Leads12
+from .monodomain_model import MonodomainModel
+from .monodomain_solver import MonodomainSplittingSolver
+from .stimulation import Stimulus
+from .telemetry import BaseMonitor, NullMonitor, PerformanceMonitor
 
-__all__ = ["ecg", "odefile", "ECGRecovery", "Leads12"]
+__all__ = [
+    "monodomain_model",
+    "odesolver",
+    "base_model",
+    "MonodomainModel",
+    "monodomain_solver",
+    "MonodomainSplittingSolver",
+    "utils",
+    "conductivities",
+    "stimulation",
+    "geometry",
+    "single_cell",
+    "ecg",
+    "odefile",
+    "Stimulus",
+    "ECGRecovery",
+    "Leads12",
+    "telemetry",
+    "BaseMonitor",
+    "NullMonitor",
+    "PerformanceMonitor",
+]

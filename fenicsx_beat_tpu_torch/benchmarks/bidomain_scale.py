@@ -54,6 +54,7 @@ from ..geometry import get_3D_slab_geometry, get_lv_ellipsoid_geometry
 from ..models import fitzhughnagumo as fhn
 from ..models import tentusscher_panfilov_2006 as tp06
 from ..stimulation import define_stimulus
+from ..telemetry import NullMonitor
 from ..units import ureg
 from .niederer import LX, LY, LZ
 
@@ -65,7 +66,7 @@ __all__ = [
 CHUNK_STEPS = 100  # steps per chunk of the timed runs (the JAX script's)
 
 
-class _IterMonitor:
+class _IterMonitor(NullMonitor):
     """Collects each chunk's worst-step CG iterations."""
 
     def __init__(self):

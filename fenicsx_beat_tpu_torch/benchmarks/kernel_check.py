@@ -387,7 +387,7 @@ def lv_kernel_check(psize: float = 0.3, dt: float = 0.05, n_steps: int = 40, dev
 
     solvers = {k: build(k) for k in (True, False)}
     other = build(False)
-    other._csr_spmv = _spmv_other_order
+    other._pde.csr_spmv = _spmv_other_order
     v0 = {}
     for k, solver in [*solvers.items(), ("other", other)]:
         solver.solve((0.0, n_steps * dt), dt=dt)

@@ -3,6 +3,9 @@
 The ionic model is TP06 GRL unless the caller names another ``model`` and
 ``scheme`` (a gotran model loaded at run time by ``odefile.load_ode``, as
 ``benchmarks/custom_ode.py`` does), as in the JAX function.
+:func:`run_niederer_oo` runs the same configuration through the
+object-oriented API (``MonodomainModel`` + ``DolfinODESolver`` +
+``MonodomainSplittingSolver``), the reference's own choreography.
 
 Port of ``fenicsx_beat_tpu/benchmarks/niederer.py``: S1 stimulus in a
 1.5 mm corner cube, Niederer conductivities (g_il=0.17, g_it=0.019,
@@ -22,12 +25,17 @@ import numpy as np
 import torch
 
 from .. import fem
+from ..base_model import Status
 from ..conductivities import default_conductivities, define_conductivity_tensor
 from ..fused import FusedMonodomainSolver
 from ..geometry import get_3D_slab_geometry
 from ..mesh import locate_entities, meshtags
 from ..models import tentusscher_panfilov_2006 as tp06
+from ..monodomain_model import MonodomainModel
+from ..monodomain_solver import MonodomainSplittingSolver
+from ..odesolver import DolfinODESolver
 from ..stimulation import define_stimulus
+from ..telemetry import BaseMonitor
 from ..units import ureg
 
 __all__ = [
@@ -37,6 +45,8 @@ __all__ = [
     "niederer_setup",
     "NiedererResult",
     "run_niederer_benchmark",
+    "OOResult",
+    "run_niederer_oo",
 ]
 
 # Published reference activation times (ms) at (dx, dt) -> P1..P9, from the
@@ -55,6 +65,10 @@ PUBLISHED_ACTIVATION_TIMES = {
 
 LX, LY, LZ = 20.0, 7.0, 3.0  # mm
 POINT_NAMES = ["P1", "P2", "P3", "P4", "P5", "P6", "P7", "P8", "P9"]
+
+# mV: the host activation stamps of the OO runs use the fused solver's
+# default threshold (``FusedMonodomainSolver.activation_threshold``)
+ACTIVATION_THRESHOLD = 0.0
 
 
 def benchmark_points() -> dict[str, tuple[float, float, float]]:
@@ -226,11 +240,13 @@ def run_niederer_benchmark(
     device=None,
     dtype=None,
     check_interval_ms: float = 20.0,
+    monitor: BaseMonitor | None = None,
     **solver_kwargs,
 ) -> NiedererResult:
     """Run the benchmark on the port's fused solver, on the card unless
     ``device`` names the CPU; ``model`` and ``scheme`` as
-    :func:`_build_solver` takes them.
+    :func:`_build_solver` takes them; ``monitor`` receives each chunk
+    (the warm-up chunk too).
 
     Chunks of ``check_interval_ms`` run back to back with the probe readout
     fused into each chunk; the timed horizon is the full ``T`` and ends with
@@ -246,6 +262,7 @@ def run_niederer_benchmark(
         device=device,
         dtype=dtype,
         probe_points=np.array(list(points.values())),
+        monitor=monitor,
         **solver_kwargs,
     )
     dev = solver.device
@@ -297,5 +314,106 @@ def run_niederer_benchmark(
         cg_iters_max=it_max,
         cg_iters_sum=it_sum,
         host_syncs=solver.host_syncs,
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    )
+
+
+@dataclass
+class OOResult:
+    """A run of :func:`run_niederer_oo`: probe activation times, the timed
+    loop's wall and ms simulated per s, CG iterations and the PCG exit
+    tests read back, and the voltage's crossings between device and host
+    (the splitting solver's count)."""
+
+    dx: float
+    dt: float
+    theta: float
+    activation_times: dict[str, float]
+    wall_time_s: float
+    setup_s: float
+    simulated_ms: float
+    n_nodes: int
+    n_steps: int
+    cg_iters_sum: int
+    host_syncs: int
+    host_transfers: int
+    status: Status
+    device: str
+
+    @property
+    def ms_per_second(self) -> float:
+        return self.simulated_ms / self.wall_time_s if self.wall_time_s > 0 else 0.0
+
+    @property
+    def cg_iters_mean(self) -> float:
+        return self.cg_iters_sum / self.n_steps if self.n_steps else 0.0
+
+    @property
+    def host_syncs_per_step(self) -> float:
+        return self.host_syncs / self.n_steps if self.n_steps else 0.0
+
+    @property
+    def host_transfers_per_step(self) -> float:
+        return self.host_transfers / self.n_steps if self.n_steps else 0.0
+
+
+def run_niederer_oo(
+    dx: float = 0.5,
+    dt: float = 0.05,
+    T: float = 40.0,
+    theta: float = 0.5,
+    device=None,
+    monitor: BaseMonitor | None = None,
+) -> OOResult:
+    """The benchmark through the object-oriented API: ``MonodomainModel``
+    (PDE theta 0.5, the "direct" CG profile, clamped in float32) +
+    ``DolfinODESolver`` (TP06 GRL, B1 on the card) +
+    ``MonodomainSplittingSolver(theta)``, stepped from 0 to ``T`` by
+    ``dt``, on the card unless ``device`` names the CPU.  After each step
+    the host copy of v the step wrote (``pde.state.x.array``) gives the
+    activation times (the step's start time where v first exceeds
+    :data:`ACTIVATION_THRESHOLD`, the fused solver's rule), read at P1-P9 with
+    the probe tables.  The timed loop is every step and this readout,
+    ending with a device synchronize; ``monitor`` goes to the model, the
+    ODE adapter and the splitting solver."""
+    tic = _time.perf_counter()
+    mesh, M, I_s, C_m = niederer_setup(dx)
+    pde = MonodomainModel(time=fem.Constant(0.0), mesh=mesh, M=M, I_s=I_s, C_m=C_m, device=device,
+                          monitor=monitor)
+    init = tp06.init_state_values()
+    kw = {} if monitor is None else {"monitor": monitor}
+    ode = DolfinODESolver(
+        v_ode=fem.Function(pde.V), v_pde=pde.state, init_states=init,
+        parameters=tp06.init_parameter_values(stim_amplitude=0.0), fun=tp06.generalized_rush_larsen,
+        num_states=len(init), v_index=tp06.state_index("V"), device=pde.device, **kw,
+    )
+    solver = MonodomainSplittingSolver(pde=pde, ode=ode, theta=theta, **kw)
+    points = benchmark_points()
+    pdofs, pw = fem.point_evaluation_tables(pde.V, np.array(list(points.values())))
+    dev = pde.device
+    _sync(dev)
+    setup_s = _time.perf_counter() - tic
+
+    n_steps = int(round(T / dt))
+    act = np.full(pde.V.ndofs, -1.0)
+    transfers0 = solver.host_transfers
+    converged = True
+    tic = _time.perf_counter()
+    for k in range(n_steps):
+        t0 = k * dt
+        solver.step((t0, t0 + dt))
+        converged &= pde._last_solve_converged
+        v = pde.state.x.array
+        act[(v > ACTIVATION_THRESHOLD) & (act < 0)] = t0
+    _sync(dev)
+    wall = _time.perf_counter() - tic
+    probes = (act[pdofs] * pw).sum(axis=1)
+    return OOResult(
+        dx=dx, dt=dt, theta=theta,
+        activation_times={name: float(a) for name, a in zip(points, probes)},
+        wall_time_s=wall, setup_s=setup_s, simulated_ms=n_steps * dt, n_nodes=pde.V.ndofs, n_steps=n_steps,
+        cg_iters_sum=pde.cg_iterations, host_syncs=pde._pde.host_syncs,
+        host_transfers=solver.host_transfers - transfers0,
+        status=Status.OK if converged else Status.NOT_CONVERGING,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     )

@@ -69,7 +69,8 @@ from .ops import cuda_ell, cuda_stencil
 from .ops.cg import CGInfo, cg_solve
 from .ops.sparse import StencilMatrix, pack_values
 from .ops.spectral import dct_solve, stencil_dct_eigenvalues
-from .splitting import check_ionic_scope, ionic_layer, stimulus_loads
+from .splitting import check_ionic_scope, ionic_layer
+from .theta_system import stimulus_loads
 
 __all__ = ["BidomainSolver", "BidomainChunk"]
 

@@ -3,9 +3,15 @@ stencil and ELL assembly, cell and facet quadrature, scalar forms,
 Dirichlet dofs and probe tables.
 
 Host-side (numpy) port of the parts of ``fenicsx_beat_tpu/fem.py`` that the
-fused monodomain solver, the transmural layer labelling and ECG recovery
-run at setup time (and the lazily assembled forms of ``ECGRecovery.eval``).  Every array here is built once on the host; the solver moves the
-results to its device.  Where the JAX package calls its native C++ kit,
+fused monodomain solver, the object-oriented models, the transmural layer
+labelling and ECG recovery run at setup time (and the lazily assembled
+forms of ``ECGRecovery.eval``).  Every array here is built once on the
+host; the solver moves the results to its device.  The one per-step
+piece is :meth:`CellQuadData.assemble_load`, a general stimulus
+expression's load vector on the solver's device: the expression at the
+quadrature points, then the cell-to-dof sum as one CSR product (B8,
+``ops/cuda_ell.csr_spmv``) through a map built once on the host, so the
+sum has a fixed order and no float atomics.  Where the JAX package calls its native C++ kit,
 the port takes the kit's numpy branch: the slot loop of
 ``assemble_mass_stiffness_stencil``, the COO pipeline of
 ``assemble_mass_stiffness`` (not the one-pass native ELL assembly, which
@@ -17,9 +23,10 @@ the operator disk cache are not ported yet.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .convert import stencil_from_numpy
 from .mesh import Mesh
@@ -34,6 +41,7 @@ __all__ = [
     "Constant",
     "CellGeometry",
     "cell_geometry",
+    "interpolation_points",
     "assemble_mass_stiffness_stencil",
     "assemble_mass_stiffness_coo",
     "assemble_mass_stiffness",
@@ -76,6 +84,11 @@ class Element:
                 f"element ({self.family}, {self.degree}): the port supports P1 only"
             )
 
+    def dof_ref_points(self, tdim: int) -> np.ndarray:
+        """Interpolation points in the reference cell, one per local dof
+        (P1: the vertices)."""
+        return np.concatenate([np.zeros((1, tdim)), np.eye(tdim)], axis=0)
+
     def tabulate(self, tdim: int, pts: np.ndarray) -> np.ndarray:
         """Basis values [np, tdim+1] at reference points [np, tdim]."""
         return _bary(pts)
@@ -100,6 +113,9 @@ class FunctionSpace:
     def dof_coords(self) -> np.ndarray:
         """[ndofs, gdim] coordinates of the dofs (P1: the vertices)."""
         return self.mesh.coords
+
+    def tabulate_dof_coordinates(self) -> np.ndarray:
+        return self.dof_coords
 
 
 def functionspace(mesh: Mesh, element) -> FunctionSpace:
@@ -196,6 +212,12 @@ class Constant:
 
     def __array__(self, dtype=None):
         return np.asarray(self._value, dtype=dtype)
+
+
+def interpolation_points(V: FunctionSpace) -> np.ndarray:
+    """The element's interpolation points in the reference cell
+    (reference ``utils.py:19-23``)."""
+    return V.element.dof_ref_points(V.mesh.tdim)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +465,33 @@ class CellQuadData:
     N: np.ndarray
     dofs: np.ndarray
     ndofs: int
+    _device_tables: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+
+    def device_tables(self, device=None, dtype: torch.dtype | None = None) -> "_QuadTables":
+        """The tables on ``device`` (the card when None) in ``dtype`` (the
+        device's working dtype when None), made once and kept."""
+        from .config import default_dtype, resolve_device
+
+        dev = resolve_device(device)
+        dtype = dtype or default_dtype(dev)
+        key = (str(dev), dtype)
+        if key not in self._device_tables:
+            self._device_tables[key] = _QuadTables.build(self, dev, dtype)
+        return self._device_tables[key]
+
+    def assemble_load(self, fn, t, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """b_i = sum_q W_q phi_i(x_q) fn(x_q, t) on ``device`` (the card
+        when None): ``fn`` takes the quadrature points as a ``[gdim, ne,
+        nq]`` tensor and ``t`` as a 0-d tensor.  The cell-to-dof sum is one
+        CSR product (B8 on the card, its twin on the CPU), in element
+        order within each dof."""
+        tab = self.device_tables(device, dtype)
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(float(t), dtype=tab.W.dtype, device=tab.W.device)
+        vals = torch.as_tensor(fn(tab.X, t), device=tab.W.device).to(tab.W.dtype)
+        vals = torch.broadcast_to(vals, tab.W.shape) * tab.W
+        cellvals = vals @ tab.N  # [ne, nd]
+        return tab.csr_spmv(tab.scatter, cellvals.reshape(-1))
 
     def assemble_load_host(self, fn=None, t=0.0) -> np.ndarray:
         """b_i = sum_q W_q phi_i(x_q) fn(x_q, t); ``fn=None`` means the unit
@@ -467,6 +516,41 @@ class CellQuadData:
         if t is not None:
             args.append(t)
         return float(np.sum(self.W * integrand(*args)))
+
+
+@dataclass
+class _QuadTables:
+    """A :class:`CellQuadData` on one device: ``X`` [gdim, ne, nq], ``W``
+    [ne, nq], ``N`` [nq, nd] and ``scatter``, the [ndofs, ne * nd] 0/1 CSR
+    map from cell values to dofs (columns ascending, so each dof sums its
+    cells in element order), with ``csr_spmv`` the product to apply it."""
+
+    X: torch.Tensor
+    W: torch.Tensor
+    N: torch.Tensor
+    scatter: object  # ops.cuda_ell.CSRMatrix
+    csr_spmv: object
+
+    @classmethod
+    def build(cls, quad: CellQuadData, device: torch.device, dtype: torch.dtype) -> "_QuadTables":
+        from .ops.cuda_ell import CSRMatrix, csr_spmv
+
+        flat = np.asarray(quad.dofs, dtype=np.int64).ravel()
+        order = np.argsort(flat, kind="stable")
+        indptr = np.zeros(quad.ndofs + 1, dtype=np.int64)
+        np.cumsum(np.bincount(flat, minlength=quad.ndofs), out=indptr[1:])
+        scatter = CSRMatrix(
+            indptr=torch.from_numpy(indptr.astype(np.int32)),
+            cols=torch.from_numpy(order.astype(np.int32)),
+            vals=torch.ones(flat.size, dtype=torch.float64),
+            shape=(int(quad.ndofs), int(flat.size)),
+        ).to(device, dtype)
+
+        def on_dev(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
+
+        return cls(X=on_dev(np.moveaxis(quad.X, -1, 0)), W=on_dev(quad.W), N=on_dev(quad.N),
+                   scatter=scatter, csr_spmv=csr_spmv)
 
 
 def cell_quadrature(

@@ -9,20 +9,14 @@ is the only value that comes back to the host, once per iteration
 (``iterations + 1`` host syncs per step, counted in
 :attr:`FusedMonodomainSolver.host_syncs`).
 
-Two operator paths, chosen by the assembly as in JAX
-(``fem.assemble_mass_stiffness_auto``):
-
-- structured meshes (the Niederer slab): a symmetric stencil operator and
-  the fused-kernel PCG (``fused.py:520-556``), three device launches per
-  iteration: B2·B4 (the search-direction update folded into the SpMV, with
-  pAp and alpha), B3 and B3's second pass, into buffers set up once per
-  operator;
-- unstructured meshes (the LV ellipsoid): the ELL pair packed into one
-  shared CSR layout (:class:`~.ops.cuda_ell.CSRMatrix`), the theta-system
-  operators built by value-level ``combine``, and the generic Jacobi-PCG
-  of :mod:`.ops.cg` around the CSR SpMV kernel B8 (``fused.py:558-572``).
-  Its exit test is ``sqrt(rr) > tol``, as JAX's ``cg``, so the iteration
-  counts match the JAX solver's.
+The diffusion step is :class:`~.theta_system.ThetaSystem`, shared with
+the object-oriented model (:class:`~.base_model.BaseModel`): on
+structured meshes (the Niederer slab) a symmetric stencil operator and the
+fused-kernel PCG, three device launches per iteration (B2·B4, B3 and B3's
+second pass); on unstructured meshes (the LV ellipsoid) the operator pair
+in one shared CSR layout and the generic Jacobi-PCG around the CSR SpMV
+kernel B8, whose exit test ``sqrt(rr) > tol`` is JAX's ``cg``'s, so the
+iteration counts match the JAX solver's.
 
 The ionic model is TP06, ToR-ORd dynCl or ToR-ORd dynCl + Land generalized
 Rush-Larsen (V in row 0), FitzHugh-Nagumo forward Euler (V in row 1), or
@@ -53,7 +47,6 @@ parameter fields, non-TimeWindow stimuli) raises ``NotImplementedError``.  The n
 
 from __future__ import annotations
 
-import functools
 import logging
 from dataclasses import dataclass
 from pathlib import Path
@@ -68,10 +61,10 @@ from .conductivities import as_cell_tensors
 from .config import default_dtype, resolve_device
 from .convert import states_from_numpy
 from .mesh import Mesh
-from .ops import cuda_cg, cuda_ell, cuda_spmv
-from .ops.cg import CGInfo, cg_solve
-from .ops.sparse import StencilMatrix, pack_sym_values, stencil_is_symmetric
-from .splitting import check_ionic_scope, ionic_layer, stimulus_loads
+from .ops.cg import CGInfo
+from .splitting import check_ionic_scope, ionic_layer
+from .telemetry import NullMonitor
+from .theta_system import ThetaSystem, stimulus_loads
 
 __all__ = ["FusedMonodomainSolver", "ChunkResult"]
 
@@ -109,7 +102,10 @@ class FusedMonodomainSolver:
     I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell or
         exterior-facet measures)
     theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
-    monitor : any object with ``record_ksp(CGInfo)``, called once per chunk
+    monitor : a :class:`~.telemetry.BaseMonitor`: each chunk runs in its
+        ``fused_chunk`` section, then ``record_ksp`` (the chunk's largest
+        CG count, last residual, convergence) and ``advance_step`` over the
+        chunk's interval; the ``NullMonitor`` when None
     device, dtype : where the state lives: the card unless the CPU is
         named; float32 on CUDA, float64 on CPU by default (:mod:`.config`)
     use_kernels : False runs the plain PyTorch twins of the kernels
@@ -127,7 +123,7 @@ class FusedMonodomainSolver:
     pde_theta: float = 0.5  # PDE time discretization (Crank-Nicolson)
     C_m: float = 1.0
     params: dict | None = None
-    monitor: Any = None
+    monitor: Any = None  # BaseMonitor; NullMonitor when None
     activation_threshold: float = 0.0
     probe_points: Any = None  # [np, gdim] physical probe coordinates
     device: Any = None
@@ -138,6 +134,7 @@ class FusedMonodomainSolver:
 
     def __post_init__(self):
         self._check_scope()
+        self.monitor = self.monitor or NullMonitor()
         self.device = resolve_device(self.device)
         self.dtype = self.dtype or default_dtype(self.device)
         if self.device.type == "cuda" and self.dtype != torch.float32:
@@ -166,29 +163,13 @@ class FusedMonodomainSolver:
         self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators: assembled in float64 on the host (stencil first, ELL
-        # otherwise, fem.assemble_mass_stiffness_auto)
+        # otherwise, fem.assemble_mass_stiffness_auto), the theta system on
+        # the device
         M_cells = as_cell_tensors(self.M, self.mesh)
         mass, stiff = fem.assemble_mass_stiffness_auto(self.V, M_cells)
-        self._structured = isinstance(mass, StencilMatrix)
-        if self._structured:
-            for A in (mass, stiff):
-                if not stencil_is_symmetric(A.offsets, A.vals.numpy()):
-                    raise NotImplementedError(
-                        "non-symmetric stencil operators (general stencil SpMV) are not ported yet"
-                    )
-            self._pos, mT = pack_sym_values(mass)
-            _, kT = pack_sym_values(stiff)
-            self._mT = mT.to(device=dev, dtype=dt_)
-            self._kT = kT.to(device=dev, dtype=dt_)
-            self._k0 = self._pos.index(0)
-        else:
-            # one shared CSR layout for the pair (fused.py:446-464), so the
-            # theta-system operators combine by value
-            self._pos = None
-            self._mass, self._stiff = (
-                A.to(dev, dt_) for A in cuda_ell.CSRMatrix.from_operator_pair(mass, stiff)
-            )
-        self._ops_cache: tuple | None = None
+        self._pde = ThetaSystem(mass, stiff, self.C_m, self.pde_theta, p["ksp_rtol"], p["ksp_atol"],
+                                p["ksp_max_it"], dev, dt_, self.use_kernels)
+        self._structured, self._pos = self._pde.structured, self._pde.pos
 
         # stimuli: separable TimeWindow loads, assembled once on the host
         self._stim_quads, self._stim_terms, self._b_units = stimulus_loads(
@@ -207,15 +188,6 @@ class FusedMonodomainSolver:
         else:
             self._probe_dofs = self._probe_w = None
 
-        k = self.use_kernels
-        if self._structured:
-            self._spmv = cuda_spmv.stencil_spmv_sym if k else cuda_spmv.stencil_spmv_sym_twin
-            # the PCG's two steps with use_kernels=False (else _operators binds the kernels)
-            self._spmv_dir_dot = cuda_spmv.stencil_spmv_sym_dir_dot_twin
-            self._cg_update = cuda_cg.cg_update_twin
-        else:
-            self._csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
-        self.host_syncs = 0  # PCG exit tests read back to the host
         self.cg_iterations = 0  # over every step
         self.steps = 0
         self.last_solve_converged = True
@@ -230,86 +202,37 @@ class FusedMonodomainSolver:
             raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")
 
     # ------------------------------------------------------------------
+    @property
+    def host_syncs(self) -> int:
+        """PCG exit tests read back to the host, over every step."""
+        return self._pde.host_syncs
+
+    @host_syncs.setter
+    def host_syncs(self, value: int) -> None:
+        self._pde.host_syncs = value
+
     def _operators(self, dt: float):
-        """``(A, B, diag, pcg)``: the theta-system operators ``C_m M + theta
-        dt K`` and ``C_m M - (1 - theta) dt K``, the Jacobi preconditioner
-        and the structured PCG's two steps bound to A, built once per dt.
-        Structured: packed ``[Kp, n]`` stencil values, the inverse diagonal,
-        and B2·B4 and B3 with their buffers (:class:`~.ops.cuda_spmv.SymDirDot`,
-        :class:`~.ops.cuda_cg.CGUpdate`; the twins with ``use_kernels=False``);
-        unstructured: :class:`~.ops.cuda_ell.CSRMatrix` combinations, the
-        diagonal and None (``fused.py:466-469``)."""
-        if self._ops_cache is not None and self._ops_cache[0] == dt:
-            return self._ops_cache[1]
-        C_m, th = float(self.C_m), float(self.pde_theta)
-        if self._structured:
-            A = C_m * self._mT + (th * dt) * self._kT
-            B = C_m * self._mT - ((1.0 - th) * dt) * self._kT
-            if self.use_kernels:
-                pcg = (cuda_spmv.SymDirDot(A, self._pos), cuda_cg.CGUpdate(self._n, A.device))
-            else:
-                pcg = (functools.partial(self._spmv_dir_dot, A, pos=self._pos), self._cg_update)
-            ops = (A, B, 1.0 / A[self._k0], pcg)
-        else:
-            A = self._mass.combine(C_m, self._stiff, th * dt)
-            B = self._mass.combine(C_m, self._stiff, -(1.0 - th) * dt)
-            ops = (A, B, A.diagonal(), None)
-        self._ops_cache = (dt, ops)
-        return ops
+        """The theta-system operators of ``dt``
+        (:meth:`~.theta_system.ThetaSystem.operators`)."""
+        return self._pde.operators(dt)
 
     def _assemble_rhs(self, B, v_prev, t_stim, dt, amps):
         """b = B v_prev + the stimulus loads whose window holds ``t_stim``
         (inclusive at both ends, compared in the working dtype)."""
-        b = self._spmv(B, v_prev, self._pos) if self._structured else self._csr_spmv(B, v_prev)
-        w = self._np_dtype
-        for i, _, _, b_idx, (start, dur) in self._stim_terms:
-            if w(start) <= t_stim <= w(start + dur):
-                b = b + float(w(dt) * amps[i]) * self._b_units[b_idx]
-        return b
+        return self._pde.rhs(B, v_prev, self._stim_terms, self._b_units, t_stim, dt, amps)
 
     def _pde_solve(self, ops, v_prev, x0, t_stim, dt, amps):
-        """PCG for ``A x = b`` from ``x0``; returns ``(x, iterations, rr,
-        converged)`` with ``rr = <r, r>`` a 0-d tensor.  Structured: the
-        fused-kernel PCG (``fused.py:530-556``), each iteration B2·B4 then
-        B3, the scalars kept on the device; on the card ``x`` and ``rr`` lie
-        in the operator's buffers until the next solve.  Unstructured: the
-        generic Jacobi-PCG around B8 (``fused.py:560-572``)."""
-        A, B, prec, pcg = ops
-        rtol, atol = float(self._opts["ksp_rtol"]), float(self._opts["ksp_atol"])
-        maxiter = int(self._opts["ksp_max_it"])
-        b = self._assemble_rhs(B, v_prev, t_stim, dt, amps)
-        if not self._structured:
-            spmv = self._csr_spmv
-            x, k, rr, tol = cg_solve(
-                lambda u: spmv(A, u), b, x0, precond_diag=prec, rtol=rtol, atol=atol, maxiter=maxiter
-            )
-            converged = k < maxiter or bool(torch.sqrt(rr) <= tol)
-            self.host_syncs += k + 1  # k + 1 exit tests, or maxiter and the test above
-            return x, k, rr, converged
-        dir_dot, update = pcg
-        minv = prec
-        r = b - self._spmv(A, x0, self._pos)
-        z = r * minv
-        rz = torch.dot(r, z)
-        rr = torch.dot(r, r)
-        tol2 = torch.clamp(rtol * torch.sqrt(torch.dot(b, b)), min=atol) ** 2
-        # p' = z on the first iteration (rz_prev None), z + (rz / rz_prev) p after
-        x, p, rz_prev = x0, None, None
-        k = 0
-        while k < maxiter:
-            self.host_syncs += 1
-            if not bool(rr > tol2):
-                break
-            p, Ap, _, alpha = dir_dot(z=z, p_old=p, rz_cur=rz, rz_prev=rz_prev)
-            x, r, z, rz_new, rr = update(x, r, p, Ap, minv, alpha)
-            rz_prev, rz = rz, rz_new
-            k += 1
-        converged = k < maxiter or bool(rr <= tol2)
-        return x, k, rr, converged
+        """PCG for the step's system from ``x0``; returns ``(x, iterations,
+        rr, converged)`` (:meth:`~.theta_system.ThetaSystem.solve`)."""
+        b = self._assemble_rhs(ops[1], v_prev, t_stim, dt, amps)
+        return self._pde.solve(ops, b, x0)
 
     def run_chunk(self, t0, dt: float, n_steps: int, amps=None, probed: bool = False) -> ChunkResult:
         """Advance ``n_steps`` steps of ``dt`` from time ``t0``, updating
-        :attr:`states` and :attr:`activation_time` (``fused.py:604-693``)."""
+        :attr:`states` and :attr:`activation_time` (``fused.py:604-693``).
+        The steps run in the monitor's ``fused_chunk`` section; then the
+        monitor records the chunk's CG statistics and advances over
+        ``(t0, t)``, as the JAX solver's ``solve`` does per chunk."""
         w = self._np_dtype
         amps = self.stimulus_amplitudes() if amps is None else amps
         dtw = w(dt)
@@ -328,27 +251,28 @@ class FusedMonodomainSolver:
         it_max = it_sum = 0
         all_conv = True
         rr = None
-        for _ in range(n_steps):
-            # tentative ODE step (monodomain_solver.py:68), PDE voltage injected
-            self._ode_step(states, v_cur, float(t), tent_dt)
-            v = states[vi]
-            # PDE theta-step; stimulus at the PDE theta point; CG warm-started
-            # from the previous step's increment
-            t_stim = t + w(self.pde_theta) * dtw
-            v_new, iters, rr, conv = self._pde_solve(ops, v, v + dv, t_stim, dt_f, amps)
-            dv = v_new - v
-            if strang:
-                # corrective ODE step (Strang, monodomain_solver.py:99-113)
-                self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt)
-                v_new = states[vi]
-            act = torch.where((v_new > thr) & (act < 0), float(t), act)
-            t = t + dtw
-            v_cur = v_new
-            it_max = max(it_max, iters)
-            it_sum += iters
-            all_conv &= conv
-        # one voltage-row write-back per chunk (Godunov: v_cur is the PDE result)
-        states[vi].copy_(v_cur)
+        with self.monitor.track_time("fused_chunk"):
+            for _ in range(n_steps):
+                # tentative ODE step (monodomain_solver.py:68), PDE voltage injected
+                self._ode_step(states, v_cur, float(t), tent_dt)
+                v = states[vi]
+                # PDE theta-step; stimulus at the PDE theta point; CG warm-started
+                # from the previous step's increment
+                t_stim = t + w(self.pde_theta) * dtw
+                v_new, iters, rr, conv = self._pde_solve(ops, v, v + dv, t_stim, dt_f, amps)
+                dv = v_new - v
+                if strang:
+                    # corrective ODE step (Strang, monodomain_solver.py:99-113)
+                    self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt)
+                    v_new = states[vi]
+                act = torch.where((v_new > thr) & (act < 0), float(t), act)
+                t = t + dtw
+                v_cur = v_new
+                it_max = max(it_max, iters)
+                it_sum += iters
+                all_conv &= conv
+            # one voltage-row write-back per chunk (Godunov: v_cur is the PDE result)
+            states[vi].copy_(v_cur)
         self.activation_time = act
         self.cg_iterations += it_sum
         self.steps += n_steps
@@ -356,6 +280,8 @@ class FusedMonodomainSolver:
         if probed:
             probes = (act[self._probe_dofs] * self._probe_w).sum(dim=1)
         rnorm = torch.sqrt(rr) if rr is not None else torch.zeros((), dtype=self.dtype, device=self.device)
+        self.monitor.record_ksp(CGInfo(it_max, rnorm, all_conv))
+        self.monitor.advance_step(float(t0), float(t))
         return ChunkResult(float(t), it_max, it_sum, rnorm, all_conv, probes)
 
     # ------------------------------------------------------------------
@@ -376,7 +302,8 @@ class FusedMonodomainSolver:
         save_freq: int | None = None,
         save_callback: Callable[[float, np.ndarray], None] | None = None,
     ) -> Status:
-        """Run the time loop on (T0, T] in chunks of ``save_freq`` steps;
+        """Run the time loop on (T0, T] in chunks of ``save_freq`` steps
+        (:meth:`run_chunk`, each reported to the monitor);
         ``save_callback(t, v_host)`` fires after each chunk.  Returns
         ``Status.NOT_CONVERGING`` if any step's CG stopped at ``ksp_max_it``
         without meeting its tolerance."""
@@ -399,8 +326,6 @@ class FusedMonodomainSolver:
                     "t=%g (last residual norm %.3e)", res.t, rnorm,
                 )
             self.last_cg = CGInfo(res.iters_max, rnorm, res.converged)
-            if self.monitor is not None:
-                self.monitor.record_ksp(self.last_cg)
             if save_callback is not None:
                 save_callback(res.t, np.array(self.v.cpu()))  # a copy, not a view of the stepped state
         self.last_solve_converged = all_converged

@@ -6,9 +6,9 @@
   :data:`~.ops.cuda_ode.IONIC_MODELS` steps the states (B1 for one
   parameter vector, B1's per-node form for a node-aligned ``[NP, n]``
   field, B7 for marker layers: one launch per model, in its block-list
-  form where the markers mix models), or its twin;
-- :func:`stimulus_loads`: the separable TimeWindow stimulus loads,
-  assembled once on the host.
+  form where the markers mix models), or its twin.
+
+The stimulus loads and the diffusion step are :mod:`.theta_system`'s.
 """
 
 from __future__ import annotations
@@ -19,15 +19,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import fem
-from .base_model import _transform_I_s
-from .mesh import Mesh
 from .odesolver import MarkerModels, check_multi_models, make_multi_ode
 from .ops import cuda_ode
-from .stimulation import TimeWindow, separable_stimulus_terms
-from .stimulation import dx as dx_measure
 
-__all__ = ["IonicLayer", "check_ionic_scope", "ionic_layer", "stimulus_loads"]
+__all__ = ["IonicLayer", "check_ionic_scope", "ionic_layer"]
 
 
 def check_ionic_scope(ode_fun, ode_markers, init_states, parameters,
@@ -106,27 +101,3 @@ def ionic_layer(ionic: cuda_ode.IonicModel | MarkerModels, ode_fun, ode_markers,
         return IonicLayer(init_states, v_index, lambda states, v, t, dt: step(states, v, t, dt, field))
     step = ionic.step if k else ionic.step_twin
     return IonicLayer(init_states, v_index, lambda states, v, t, dt: step(states, v, t, dt, params))
-
-
-def stimulus_loads(V, I_s, mesh: Mesh, degree: int, device: torch.device, dtype: torch.dtype):
-    """The separable TimeWindow stimuli of ``I_s`` on ``V``:
-    ``(stim_quads, terms, b_units)``, each load assembled once on the host
-    with quadrature of ``degree`` (cell or exterior-facet measures) and
-    stacked on the device as ``b_units`` [n_loads, n] (None without one);
-    ``terms`` as :func:`~.stimulation.separable_stimulus_terms` gives them.
-    Other stimulus expressions raise ``NotImplementedError``."""
-    stim_quads = []
-    for s in _transform_I_s(I_s, dZ=dx_measure(mesh)):
-        ents = s.dz.entities()
-        if len(ents) == 0:
-            continue
-        if not isinstance(s.expr, TimeWindow):
-            raise NotImplementedError("only TimeWindow stimuli are ported (general expressions are not)")
-        if s.dz.integral_type() == "cell":
-            quad = fem.cell_quadrature(V, ents, degree=degree)
-        else:
-            quad = fem.facet_quadrature(V, ents, degree=degree)
-        stim_quads.append((quad, s.expr.indicator, s))
-    terms, b_units = separable_stimulus_terms(stim_quads)
-    b = torch.as_tensor(np.stack(b_units), device=device).to(dtype) if b_units else None
-    return stim_quads, terms, b

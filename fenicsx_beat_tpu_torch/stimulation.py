@@ -1,11 +1,14 @@
-"""Stimulus protocols: measures, unit-aware amplitudes, time windows.
+"""Stimulus protocols: measures, unit-aware amplitudes, activation patterns.
 
-Subset of ``fenicsx_beat_tpu/stimulation.py`` that the fused solver's
-separable-stimulus path needs.  A :class:`TimeWindow` stimulus is a 0/1
-window in time times a fixed spatial load, so the load is assembled once
-on the host (:func:`separable_stimulus_terms`) and the solver evaluates
-only the window per step.  Facet measures, random activation patterns and
-general space-time expressions are not ported yet.
+Port of ``fenicsx_beat_tpu/stimulation.py``.  A :class:`TimeWindow`
+stimulus is a 0/1 window in time times a fixed spatial load, so the load
+is assembled once on the host (:func:`separable_stimulus_terms`) and the
+solvers evaluate only the window per step.  Any other stimulus is a
+general space-time expression: a callable ``expr(x, t) -> value`` on
+torch tensors, ``x`` shaped ``[gdim, ...]`` and ``t`` a 0-d tensor
+(scalars are wrapped as constants), evaluated at the quadrature points on
+the solver's device each step (``fem.CellQuadData.assemble_load``); the
+random activation pattern (:func:`generate_random_activation`) is one.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+import torch
+
 from .mesh import Mesh, MeshTags
 from .units import Quantity, ureg
 
@@ -24,6 +29,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "Measure",
     "dx",
+    "ds",
     "Stimulus",
     "TimeWindow",
     "compute_effective_dim",
@@ -32,7 +38,11 @@ __all__ = [
     "compute_stimulus_unit",
     "convert_chi",
     "define_stimulus",
+    "stimulus_quadratures",
     "separable_stimulus_terms",
+    "near",
+    "RandomActivation",
+    "generate_random_activation",
 ]
 
 
@@ -65,6 +75,10 @@ class Measure:
 
 def dx(domain: Mesh, subdomain_data: MeshTags | None = None, metadata: dict | None = None) -> Measure:
     return Measure("cell", domain, subdomain_data, None, metadata)
+
+
+def ds(domain: Mesh, subdomain_data: MeshTags | None = None, metadata: dict | None = None) -> Measure:
+    return Measure("exterior_facet", domain, subdomain_data, None, metadata)
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +124,53 @@ class Stimulus(NamedTuple):
 
     def assign(self, amp: float) -> None:
         self.expr.amplitude = amp
+
+
+def _transform_I_s(I_s, dZ: Measure) -> list[Stimulus]:
+    """Normalize the stimulus argument to a list of Stimulus
+    (mirrors reference ``base_model.py:33-45``)."""
+    if I_s is None:
+        return []
+    if isinstance(I_s, Stimulus):
+        return [I_s]
+    if callable(I_s) or np.isscalar(I_s):
+        return [Stimulus(expr=I_s, dZ=dZ)]
+    return list(I_s)
+
+
+def _as_expr(expr):
+    """Wrap scalars as constant space-time callables of torch tensors."""
+    if callable(expr):
+        return expr
+    val = float(expr)
+    return lambda x, t: val * torch.ones_like(x[0])
+
+
+def stimulus_quadratures(V, stimuli, degree: int = 4, dtype=None):
+    """Quadrature triples ``(quad, expr, stim)`` for a list of
+    :class:`Stimulus`: the entities of each measure, cell or facet
+    quadrature by its integral type, and the expression: a TimeWindow's
+    0/1 ``indicator`` with ``stim`` its Stimulus (the live amplitude
+    multiplies the window), any other expression (scalars wrapped as
+    constants) with ``stim`` None.  Empty measures are skipped."""
+    from . import fem  # lazy: fem imports ops that import the models
+
+    dtype = dtype or np.float64
+    out = []
+    for s in stimuli:
+        measure = s.dz
+        ents = measure.entities()
+        if len(ents) == 0:
+            continue
+        if measure.integral_type() == "cell":
+            quad = fem.cell_quadrature(V, ents, degree=degree, dtype=dtype)
+        else:
+            quad = fem.facet_quadrature(V, ents, degree=degree, dtype=dtype)
+        if isinstance(s.expr, TimeWindow):
+            out.append((quad, s.expr.indicator, s))
+        else:
+            out.append((quad, _as_expr(s.expr), None))
+    return out
 
 
 def separable_stimulus_terms(stim_quads):
@@ -213,3 +274,58 @@ def define_stimulus(
     amp = (A / chi_q).to(unit.units).magnitude
     expr = TimeWindow(amplitude=amp, start=start, duration=duration)
     return Stimulus(dZ=dZ, marker=marker, expr=expr)
+
+
+def near(a, b, tol: float = 1e-12):
+    """``b - tol <= a <= b + tol``, elementwise (tensors or arrays)."""
+    return (a >= b - tol) & (a <= b + tol)
+
+
+@dataclass
+class RandomActivation:
+    """Spatio-temporal activation pattern over discrete points: amplitude
+    where ``x`` lies within ``tol`` of a point (every coordinate) while
+    that point's delayed window holds.
+
+    Evaluation is one broadcast over the point and delay arrays (the
+    reference builds an N-term UFL conditional tree,
+    ``stimulation.py:335-362``), on the device of ``x``."""
+
+    points: np.ndarray  # [N, d]
+    delays: np.ndarray  # [N]
+    stim_start: float = 0.0
+    stim_duration: float = 2.0
+    amplitude: float = 1.0
+    tol: float = 1e-12
+
+    def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
+        P = torch.as_tensor(self.points, device=x.device).to(x.dtype)  # [N, d]
+        D = torch.as_tensor(self.delays, device=x.device).to(x.dtype)  # [N]
+        xd = torch.stack([x[i] for i in range(P.shape[1])], dim=-1)  # [..., d]
+        near_all = ((xd[..., None, :] - P).abs() <= self.tol).all(dim=-1)  # [..., N]
+        t_on = (t >= self.stim_start + D) & (t <= self.stim_start + self.stim_duration + D)  # [N]
+        return self.amplitude * (near_all & t_on).any(dim=-1).to(xd.dtype)
+
+
+def generate_random_activation(
+    mesh: Mesh,
+    time,
+    points: np.ndarray,
+    delays: np.ndarray,
+    stim_start: float = 0.0,
+    stim_duration: float = 2.0,
+    stim_amplitude: float = 1.0,
+    tol: float = 1e-12,
+) -> RandomActivation:
+    """Random multi-point (Purkinje-like) activation pattern (reference
+    ``stimulation.py:279-363``) as a data-driven callable."""
+    if len(points) != len(delays):
+        raise AssertionError("Points and delays must have the same length")
+    return RandomActivation(
+        points=np.asarray(points, dtype=np.float64),
+        delays=np.asarray(delays, dtype=np.float64),
+        stim_start=stim_start,
+        stim_duration=stim_duration,
+        amplitude=stim_amplitude,
+        tol=tol,
+    )

@@ -1,7 +1,11 @@
-"""Transmural layer labelling by a Laplace solve.
+"""FEM helper utilities: projection between spaces, space parsing,
+transmural layer labelling by a Laplace solve.
 
-Port of ``laplace_solve`` (its Jacobi branch) and ``expand_layer`` from
-``fenicsx_beat_tpu/utils.py``: endo/epi surface markers become
+Port of ``fenicsx_beat_tpu/utils.py``: ``local_project`` between equal
+spaces (a copy; projection between different spaces waits for the spaces
+themselves, ROADMAP A7), ``parse_element`` / ``space_from_string`` for the
+P1 space, ``interpolation_points``, and ``laplace_solve`` (its Jacobi
+branch) and ``expand_layer``: endo/epi surface markers become
 endo/mid/epi volume layers by thresholding the solution of -Laplace(u) = 0
 with u = 0 on the endocardium and u = 1 on the epicardium.  The solve is
 the port's Jacobi-PCG (:mod:`.ops.cg`) on the device, with the CSR SpMV
@@ -24,11 +28,72 @@ from .mesh import MeshTags
 from .ops.cg import cg
 from .ops.cuda_ell import CSRMatrix, csr_spmv
 
-__all__ = ["laplace_solve", "expand_layer", "AMG_MIN_DOFS"]
+__all__ = [
+    "interpolation_points",
+    "local_project",
+    "parse_element",
+    "space_from_string",
+    "laplace_solve",
+    "expand_layer",
+    "AMG_MIN_DOFS",
+]
 
 logger = logging.getLogger(__name__)
 
 AMG_MIN_DOFS = 5000  # "auto" takes AMG from here on in the JAX package
+
+# re-exported for parity with reference utils
+interpolation_points = fem.interpolation_points
+
+
+def local_project(
+    v: fem.Function,
+    V: fem.FunctionSpace,
+    u: fem.Function | None = None,
+) -> fem.Function:
+    """Element-wise projection/interpolation between spaces (reference
+    ``utils.py:26-58``): a copy into ``u`` (a new function of ``V`` when
+    None) when the two spaces have the same number of dofs, as the JAX
+    package does.  Any other pair raises ``NotImplementedError``."""
+    U = u if u is not None else fem.Function(V)
+    if v.x.array.size != U.x.array.size:
+        raise NotImplementedError(
+            f"local_project between spaces of {v.x.array.size} and {U.x.array.size} dofs: projection "
+            "between different spaces is not ported yet (ROADMAP A7: higher-degree, DG and Quadrature spaces)"
+        )
+    U.x.array[:] = v.x.array[:]
+    return U
+
+
+def parse_element(space_string: str, mesh, dim: int = 1) -> fem.Element:
+    """Parse '{family}_{degree}' strings, e.g. 'P_1' (reference
+    ``utils.py:61-84``); the port's element is P1, so 'DG_1',
+    'Quadrature_4' and degrees above 1 raise ``NotImplementedError``."""
+    family_str, degree_str = space_string.split("_")
+    aliases = {
+        "Lagrange": "P",
+        "P": "P",
+        "CG": "P",
+        "Discontinuous Lagrange": "DG",
+        "DG": "DG",
+        "dP": "DG",
+        "Quadrature": "Quadrature",
+        "Q": "Quadrature",
+        "Quad": "Quadrature",
+    }
+    if family_str not in aliases:
+        msg = f"Unknown element family: {family_str}, available families: {sorted(set(aliases))}"
+        raise ValueError(msg)
+    return fem.Element(aliases[family_str], int(degree_str))
+
+
+def space_from_string(space_string: str, mesh, dim: int = 1) -> fem.FunctionSpace:
+    """Function space from a '{family}_{degree}' string (reference
+    ``utils.py:87-112``); blocked spaces (``dim > 1``) are not ported."""
+    el = parse_element(space_string, mesh, dim)
+    if dim > 1:
+        raise NotImplementedError("blocked (vector) spaces are not ported yet")
+    return fem.functionspace(mesh, el)
 
 
 def laplace_solve(

@@ -223,7 +223,12 @@ def test_port_imports_neither_jax_nor_jax_package():
         "fenicsx_beat_tpu_torch.single_cell, fenicsx_beat_tpu_torch.models.torord_dyncl, "
         "fenicsx_beat_tpu_torch.models._common, fenicsx_beat_tpu_torch.models.fitzhughnagumo, "
         "fenicsx_beat_tpu_torch.bidomain, fenicsx_beat_tpu_torch.ops.spectral, "
-        "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale; "
+        "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale, fenicsx_beat_tpu_torch.telemetry, "
+        "fenicsx_beat_tpu_torch.base_model, fenicsx_beat_tpu_torch.monodomain_model, "
+        "fenicsx_beat_tpu_torch.monodomain_solver, fenicsx_beat_tpu_torch.theta_system, "
+        "fenicsx_beat_tpu_torch.stimulation, fenicsx_beat_tpu_torch.fem, "
+        "fenicsx_beat_tpu_torch.benchmarks.lv_endocardial, fenicsx_beat_tpu_torch.benchmarks.verification, "
+        "fenicsx_beat_tpu_torch.benchmarks.lv_cg_start; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -130,7 +130,7 @@ def test_structured_pcg_equals_generic_cg(dtype, warm_steps, use_kernels):
     pos = ts._pos
     opts = ts._opts
     xg, kg, rrg, _ = cg_solve(
-        lambda u: cuda_spmv.stencil_spmv_sym_twin(A, u, pos), b, x0, precond_diag=A[ts._k0],
+        lambda u: cuda_spmv.stencil_spmv_sym_twin(A, u, pos), b, x0, precond_diag=A[ts._pde.k0],
         rtol=opts["ksp_rtol"], atol=opts["ksp_atol"], maxiter=opts["ksp_max_it"],
     )
     assert k == kg
