@@ -27,6 +27,7 @@ from __future__ import annotations
 import abc
 import logging
 from enum import Enum, auto
+from time import perf_counter
 from typing import Any, Literal, NamedTuple
 
 import numpy as np
@@ -104,7 +105,10 @@ class BaseModel(abc.ABC):
             self.parameters.update(params)
 
         self._I_s = _transform_I_s(I_s, dZ=self.dx)
+        self.setup_s: dict[str, float] = {}  # host setup seconds by part
+        tic = perf_counter()
         self._setup_state_space()
+        self.setup_s["space"] = perf_counter() - tic
         self._timestep = fem.Constant(self.parameters["default_timestep"])
         self._setup_solver()
 
@@ -178,15 +182,24 @@ class BaseModel(abc.ABC):
         return np.asarray(amps or [0.0], dtype=self._np_dtype)
 
     def _setup_solver(self) -> None:
+        """The theta system and the stimulus loads, timed by part in
+        :attr:`setup_s`: ``assembly`` (:meth:`_operators`), ``packing`` (the
+        operators on the device, CSR packing included) and ``stimulus``."""
+        tic = perf_counter()
         mass, stiff, C_m = self._operators()
+        self.setup_s["assembly"] = perf_counter() - tic
         self._C_m = float(C_m)
         rtol, atol, maxiter = self._solver_tolerances()
+        tic = perf_counter()
         self._pde = ThetaSystem(mass, stiff, self._C_m, float(self.parameters["theta"]), rtol, atol, maxiter,
                                 self.device, self._dtype, self.use_kernels)
+        self.setup_s["packing"] = perf_counter() - tic
         qdeg = int(self.parameters.get("quadrature_degree", 4))
+        tic = perf_counter()
         self._stim_quads, self._stim_terms, self._b_units = stimulus_loads(
             self.V, self._I_s, self._mesh, qdeg, self.device, self._dtype, general=True
         )
+        self.setup_s["stimulus"] = perf_counter() - tic
 
     def _update_matrices(self) -> None:
         """No-op: the operators of a new dt are combined at its first solve

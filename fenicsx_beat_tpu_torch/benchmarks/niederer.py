@@ -5,7 +5,9 @@ The ionic model is TP06 GRL unless the caller names another ``model`` and
 ``benchmarks/custom_ode.py`` does), as in the JAX function.
 :func:`run_niederer_oo` runs the same configuration through the
 object-oriented API (``MonodomainModel`` + ``DolfinODESolver`` +
-``MonodomainSplittingSolver``), the reference's own choreography.
+``MonodomainSplittingSolver``), the reference's own choreography, with
+the PDE on Lagrange elements of any ``degree`` and the ODE on any space
+(``ode_space``, e.g. ``"Quadrature_2"``).
 
 Port of ``fenicsx_beat_tpu/benchmarks/niederer.py``: S1 stimulus in a
 1.5 mm corner cube, Niederer conductivities (g_il=0.17, g_it=0.019,
@@ -46,6 +48,8 @@ __all__ = [
     "NiedererResult",
     "run_niederer_benchmark",
     "OOResult",
+    "OOSetup",
+    "build_niederer_oo",
     "run_niederer_oo",
 ]
 
@@ -322,8 +326,9 @@ def run_niederer_benchmark(
 class OOResult:
     """A run of :func:`run_niederer_oo`: probe activation times, the timed
     loop's wall and ms simulated per s, CG iterations and the PCG exit
-    tests read back, and the voltage's crossings between device and host
-    (the splitting solver's count)."""
+    tests read back, the voltage's crossings between device and host (the
+    splitting solver's count), the host setup by part
+    (:attr:`OOSetup.setup_s`) and the ODE's number of points."""
 
     dx: float
     dt: float
@@ -339,6 +344,8 @@ class OOResult:
     host_transfers: int
     status: Status
     device: str
+    setup_parts: dict | None = None
+    n_ode_points: int = 0
 
     @property
     def ms_per_second(self) -> float:
@@ -357,6 +364,76 @@ class OOResult:
         return self.host_transfers / self.n_steps if self.n_steps else 0.0
 
 
+@dataclass
+class OOSetup:
+    """The object-oriented configuration of :func:`build_niederer_oo`: the
+    splitting solver, the probe tables on the PDE space, and the host
+    setup seconds by part (``mesh``; the model's ``space``, ``assembly``,
+    ``packing`` and ``stimulus`` (:attr:`~.base_model.BaseModel.setup_s`);
+    ``ode``, the ODE adapter with its own space; ``transfer``, both
+    transfer matrices on the device when the ODE space is not the PDE's)."""
+
+    solver: MonodomainSplittingSolver
+    probe_dofs: np.ndarray
+    probe_weights: np.ndarray
+    setup_s: dict
+
+    def probes(self, act: np.ndarray) -> dict[str, float]:
+        """Activation times at P1-P9, interpolated from per-dof times (-1
+        where a dof of the probe's cell has not fired)."""
+        near = act[self.probe_dofs]
+        vals = np.where((near >= 0).all(axis=1), (near * self.probe_weights).sum(axis=1), -1.0)
+        return {name: float(a) for name, a in zip(benchmark_points(), vals)}
+
+
+def build_niederer_oo(
+    dx: float = 0.5,
+    degree: int = 1,
+    ode_space: str | None = None,
+    theta: float = 0.5,
+    device=None,
+    monitor: BaseMonitor | None = None,
+    use_kernels: bool = True,
+) -> OOSetup:
+    """The benchmark through the object-oriented API: ``MonodomainModel``
+    with ``params={"degree": degree}`` (the PDE's Lagrange degree; theta
+    0.5, the "direct" CG profile, clamped in float32) + ``DolfinODESolver``
+    (TP06 GRL, B1 on the card) on the PDE's space, or on
+    ``utils.space_from_string(ode_space)`` (``"Quadrature_2"``: the
+    ODE at the quadrature points) + ``MonodomainSplittingSolver(theta)``,
+    on the card unless ``device`` names the CPU; ``use_kernels=False`` runs
+    the kernels' twins.  ``monitor`` goes to the model, the ODE adapter and
+    the splitting solver."""
+    from ..utils import space_from_string
+
+    parts = {}
+    tic = _time.perf_counter()
+    mesh, M, I_s, C_m = niederer_setup(dx)
+    parts["mesh"] = _time.perf_counter() - tic
+    kw = {} if monitor is None else {"monitor": monitor}
+    pde = MonodomainModel(time=fem.Constant(0.0), mesh=mesh, M=M, I_s=I_s, C_m=C_m, params={"degree": degree},
+                          device=device, use_kernels=use_kernels, **kw)
+    parts.update(pde.setup_s)
+    tic = _time.perf_counter()
+    V_ode = pde.V if ode_space is None else space_from_string(ode_space, mesh)
+    init = tp06.init_state_values()
+    ode = DolfinODESolver(
+        v_ode=fem.Function(V_ode), v_pde=pde.state, init_states=init,
+        parameters=tp06.init_parameter_values(stim_amplitude=0.0), fun=tp06.generalized_rush_larsen,
+        num_states=len(init), v_index=tp06.state_index("V"), device=pde.device, use_kernels=use_kernels, **kw,
+    )
+    parts["ode"] = _time.perf_counter() - tic
+    if V_ode.ndofs != pde.V.ndofs:
+        tic = _time.perf_counter()
+        for Vs, Vt in ((V_ode, pde.V), (pde.V, V_ode)):
+            fem.transfer_operator(Vs, Vt, pde.device, pde._dtype)
+        parts["transfer"] = _time.perf_counter() - tic
+    solver = MonodomainSplittingSolver(pde=pde, ode=ode, theta=theta, **kw)
+    pdofs, pw = fem.point_evaluation_tables(pde.V, np.array(list(benchmark_points().values())))
+    _sync(pde.device)
+    return OOSetup(solver=solver, probe_dofs=pdofs, probe_weights=pw, setup_s=parts)
+
+
 def run_niederer_oo(
     dx: float = 0.5,
     dt: float = 0.05,
@@ -364,34 +441,20 @@ def run_niederer_oo(
     theta: float = 0.5,
     device=None,
     monitor: BaseMonitor | None = None,
+    degree: int = 1,
+    ode_space: str | None = None,
 ) -> OOResult:
-    """The benchmark through the object-oriented API: ``MonodomainModel``
-    (PDE theta 0.5, the "direct" CG profile, clamped in float32) +
-    ``DolfinODESolver`` (TP06 GRL, B1 on the card) +
-    ``MonodomainSplittingSolver(theta)``, stepped from 0 to ``T`` by
-    ``dt``, on the card unless ``device`` names the CPU.  After each step
-    the host copy of v the step wrote (``pde.state.x.array``) gives the
-    activation times (the step's start time where v first exceeds
-    :data:`ACTIVATION_THRESHOLD`, the fused solver's rule), read at P1-P9 with
-    the probe tables.  The timed loop is every step and this readout,
-    ending with a device synchronize; ``monitor`` goes to the model, the
-    ODE adapter and the splitting solver."""
+    """:func:`build_niederer_oo`'s configuration stepped from 0 to ``T``
+    by ``dt``.  After each step the host copy of v the step wrote
+    (``pde.state.x.array``) gives the activation times (the step's start
+    time where v first exceeds :data:`ACTIVATION_THRESHOLD`, the fused
+    solver's rule) at every PDE dof, read at P1-P9 with the PDE space's
+    probe tables.  The timed loop is every step and this readout, ending
+    with a device synchronize.  With the defaults (P1, the ODE on the PDE's
+    space) this is the main path's configuration through the OO API."""
     tic = _time.perf_counter()
-    mesh, M, I_s, C_m = niederer_setup(dx)
-    pde = MonodomainModel(time=fem.Constant(0.0), mesh=mesh, M=M, I_s=I_s, C_m=C_m, device=device,
-                          monitor=monitor)
-    init = tp06.init_state_values()
-    kw = {} if monitor is None else {"monitor": monitor}
-    ode = DolfinODESolver(
-        v_ode=fem.Function(pde.V), v_pde=pde.state, init_states=init,
-        parameters=tp06.init_parameter_values(stim_amplitude=0.0), fun=tp06.generalized_rush_larsen,
-        num_states=len(init), v_index=tp06.state_index("V"), device=pde.device, **kw,
-    )
-    solver = MonodomainSplittingSolver(pde=pde, ode=ode, theta=theta, **kw)
-    points = benchmark_points()
-    pdofs, pw = fem.point_evaluation_tables(pde.V, np.array(list(points.values())))
-    dev = pde.device
-    _sync(dev)
+    setup = build_niederer_oo(dx, degree, ode_space, theta, device, monitor)
+    solver, pde = setup.solver, setup.solver.pde
     setup_s = _time.perf_counter() - tic
 
     n_steps = int(round(T / dt))
@@ -405,15 +468,15 @@ def run_niederer_oo(
         converged &= pde._last_solve_converged
         v = pde.state.x.array
         act[(v > ACTIVATION_THRESHOLD) & (act < 0)] = t0
-    _sync(dev)
+    _sync(pde.device)
     wall = _time.perf_counter() - tic
-    probes = (act[pdofs] * pw).sum(axis=1)
     return OOResult(
         dx=dx, dt=dt, theta=theta,
-        activation_times={name: float(a) for name, a in zip(points, probes)},
+        activation_times=setup.probes(act),
         wall_time_s=wall, setup_s=setup_s, simulated_ms=n_steps * dt, n_nodes=pde.V.ndofs, n_steps=n_steps,
         cg_iters_sum=pde.cg_iterations, host_syncs=pde._pde.host_syncs,
         host_transfers=solver.host_transfers - transfers0,
         status=Status.OK if converged else Status.NOT_CONVERGING,
-        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        device=torch.cuda.get_device_name(pde.device) if pde.device.type == "cuda" else "cpu",
+        setup_parts=setup.setup_s, n_ode_points=solver.ode.num_points,
     )

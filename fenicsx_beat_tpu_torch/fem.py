@@ -1,27 +1,42 @@
-"""Finite-element layer, P1 subset: spaces, functions, cell geometry,
+"""Finite-element layer: elements, spaces, functions, cell geometry,
 stencil and ELL assembly, cell and facet quadrature, scalar forms,
-Dirichlet dofs and probe tables.
+Dirichlet dofs, point evaluation and transfer between spaces.
 
-Host-side (numpy) port of the parts of ``fenicsx_beat_tpu/fem.py`` that the
-fused monodomain solver, the object-oriented models, the transmural layer
-labelling and ECG recovery run at setup time (and the lazily assembled
-forms of ``ECGRecovery.eval``).  Every array here is built once on the
-host; the solver moves the results to its device.  The one per-step
-piece is :meth:`CellQuadData.assemble_load`, a general stimulus
-expression's load vector on the solver's device: the expression at the
-quadrature points, then the cell-to-dof sum as one CSR product (B8,
-``ops/cuda_ell.csr_spmv``) through a map built once on the host, so the
-sum has a fixed order and no float atomics.  Where the JAX package calls its native C++ kit,
-the port takes the kit's numpy branch: the slot loop of
-``assemble_mass_stiffness_stencil``, the COO pipeline of
-``assemble_mass_stiffness`` (not the one-pass native ELL assembly, which
-gives the same operator in another ELL layout) and the barycentric sweep
-of ``_locate_cells``.  Higher-degree, discontinuous and blocked spaces and
-the operator disk cache are not ported yet.
+Host-side (numpy) port of ``fenicsx_beat_tpu/fem.py``: continuous
+Lagrange of any degree, discontinuous Lagrange of any degree (0
+included), Quadrature spaces, blocked (vector) spaces over any of them,
+and embedded meshes in the cell geometry.  The dof numbering is the JAX
+package's: vertices, then each edge's interior dofs in ``mesh.entities(1)``
+order, then face and cell interiors; ``dof_owner_cell`` is the last cell
+holding a dof.  Every array here is built once on the host; the solvers
+move the results to their device.
+
+Two products run on the device: :meth:`CellQuadData.assemble_load` (a
+general stimulus expression's load: the expression at the quadrature
+points, then the cell-to-dof sum as one CSR product through a 0/1 map
+built once on the host, so the sum has a fixed order and no float
+atomics) and :meth:`Function.interpolate` from another function (one
+product with the transfer matrix of :func:`build_transfer_matrix`, a
+rectangular :class:`~.ops.cuda_ell.CSRMatrix` kept per device).  Each is
+one launch of B8 (``ops/cuda_ell.csr_spmv``) on a CUDA tensor and its twin
+on a CPU tensor.
+
+Assembly above P1 uses the affine reference tensors: on a simplex with
+a cellwise-constant conductivity every element matrix is a cell constant
+times a matrix tabulated once, ``Me = |K| M_hat`` and ``Ke = |K| sum_ts
+(G M G^T)_ts S_hat_ts`` with ``G`` the cell's inverse Jacobian, which
+equals the JAX package's exact quadrature to rounding at a fraction of
+its host time.  The triplets pack into one CSR pattern without a global
+sort (:func:`_cell_blocks_to_csr`), and P1 keeps the closed form and the
+COO pipeline of the JAX package's numpy branch.  Where the JAX package
+calls its native C++ kit, the port takes the kit's numpy branch: the slot
+loop of ``assemble_mass_stiffness_stencil`` and the barycentric sweep of
+``_locate_cells``.  The operator disk cache is not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 
@@ -29,9 +44,9 @@ import numpy as np
 import torch
 
 from .convert import stencil_from_numpy
-from .mesh import Mesh
+from .mesh import Mesh, _row_searchsorted
 from .ops.quadrature import simplex_rule
-from .ops.sparse import coo_to_ell_group, ell_to_stencil
+from .ops.sparse import ELLMatrix, _build_ell, coo_to_ell_group, ell_to_stencil
 
 __all__ = [
     "Element",
@@ -56,7 +71,10 @@ __all__ = [
     "locate_dofs_topological",
     "DirichletBC",
     "dirichletbc",
+    "evaluate_function",
     "point_evaluation_tables",
+    "build_transfer_matrix",
+    "transfer_operator",
 ]
 
 
@@ -70,28 +88,189 @@ def _bary(pts: np.ndarray) -> np.ndarray:
     return np.concatenate([lam0, pts], axis=1)
 
 
-_FAMILY_ALIASES = {"P": "P", "CG": "P", "Lagrange": "P"}
+def _edge_combos(tdim: int) -> list[tuple[int, int]]:
+    return list(itertools.combinations(range(tdim + 1), 2))
+
+
+def _face_combos(tdim: int) -> list[tuple[int, int, int]]:
+    return list(itertools.combinations(range(tdim + 1), 3))
+
+
+def _interior_multiindices(nverts: int, p: int) -> list[tuple[int, ...]]:
+    """Barycentric multi-indices with every component >= 1 summing to p,
+    in lexicographic order: the canonical order of entity-interior lattice
+    dofs shared between cells."""
+    out = []
+    for combo in itertools.product(range(1, p), repeat=nverts - 1):
+        last = p - sum(combo)
+        if last >= 1:
+            out.append(combo + (last,))
+    return sorted(out)
+
+
+def _lattice_multiindices(tdim: int, p: int) -> np.ndarray:
+    """Equispaced-lattice barycentric multi-indices [nd, tdim+1] of the
+    degree-``p`` simplex Lagrange element, in the canonical dof order:
+    vertices, then per-edge interior (k = multiplicity at the edge's
+    second vertex), then per-face interior, then cell interior."""
+    nv = tdim + 1
+    rows: list[tuple[int, ...]] = []
+    for i in range(nv):  # vertices
+        a = [0] * nv
+        a[i] = p
+        rows.append(tuple(a))
+    for i, j in _edge_combos(tdim):  # edges
+        for k in range(1, p):
+            a = [0] * nv
+            a[i] = p - k
+            a[j] = k
+            rows.append(tuple(a))
+    if tdim >= 2:
+        for combo in _face_combos(tdim) if tdim == 3 else [tuple(range(nv))]:
+            if tdim == 2 and p < 3:
+                continue
+            for m in _interior_multiindices(3, p):
+                a = [0] * nv
+                for pos, mult in zip(combo, m):
+                    a[pos] = mult
+                rows.append(tuple(a))
+    if tdim == 3 and p >= 4:
+        for m in _interior_multiindices(4, p):
+            rows.append(tuple(m))
+    return np.asarray(rows, dtype=np.int64)
+
+
+def _silvester_factors(lam_i: np.ndarray, a: int, p: int):
+    """P(lam) = prod_{k<a} (p lam - k) / a!  and its lam-derivative, at points."""
+    if a == 0:
+        return np.ones_like(lam_i), np.zeros_like(lam_i)
+    terms = [p * lam_i - k for k in range(a)]
+    P = np.ones_like(lam_i)
+    for t in terms:
+        P = P * t
+    dP = np.zeros_like(lam_i)
+    for k in range(a):
+        prod = np.ones_like(lam_i)
+        for k2 in range(a):
+            if k2 != k:
+                prod = prod * terms[k2]
+        dP = dP + p * prod
+    fact = math.factorial(a)
+    return P / fact, dP / fact
 
 
 @dataclass(frozen=True)
 class Element:
-    family: str  # "P"
+    family: str  # "P" | "DG" | "Quadrature"
     degree: int
 
-    def __post_init__(self):
-        if self.family != "P" or self.degree != 1:
-            raise NotImplementedError(
-                f"element ({self.family}, {self.degree}): the port supports P1 only"
-            )
+    @property
+    def discontinuous(self) -> bool:
+        return self.family in ("DG", "Quadrature")
+
+    @property
+    def family_name(self) -> str:
+        return {"P": "Lagrange", "DG": "Discontinuous Lagrange", "Quadrature": "Quadrature"}[self.family]
+
+    def ndofs_per_cell(self, tdim: int) -> int:
+        if self.family == "Quadrature":
+            return simplex_rule(tdim, self.degree)[0].shape[0]
+        if self.degree == 0:
+            return 1
+        if self.degree == 1:
+            return tdim + 1
+        if self.degree == 2:
+            return (tdim + 1) + len(_edge_combos(tdim))
+        return math.comb(self.degree + tdim, tdim)
 
     def dof_ref_points(self, tdim: int) -> np.ndarray:
-        """Interpolation points in the reference cell, one per local dof
-        (P1: the vertices)."""
-        return np.concatenate([np.zeros((1, tdim)), np.eye(tdim)], axis=0)
+        """Interpolation points in the reference cell, one per local dof."""
+        verts = np.concatenate([np.zeros((1, tdim)), np.eye(tdim)], axis=0)
+        if self.family == "Quadrature":
+            return simplex_rule(tdim, self.degree)[0]
+        if self.degree == 0:
+            return verts.mean(axis=0, keepdims=True)
+        if self.degree == 1:
+            return verts
+        if self.degree == 2:
+            mids = np.stack([(verts[i] + verts[j]) / 2 for i, j in _edge_combos(tdim)])
+            return np.concatenate([verts, mids], axis=0)
+        alphas = _lattice_multiindices(tdim, self.degree)
+        return (alphas[:, 1:] / self.degree).astype(np.float64)
 
     def tabulate(self, tdim: int, pts: np.ndarray) -> np.ndarray:
-        """Basis values [np, tdim+1] at reference points [np, tdim]."""
-        return _bary(pts)
+        """Basis values [np, ndofs_per_cell] at reference points [np, tdim]."""
+        if self.family == "Quadrature":
+            raise TypeError("Quadrature elements have no pointwise basis")
+        lam = _bary(pts)
+        if self.degree == 0:
+            return np.ones((pts.shape[0], 1))
+        if self.degree == 1:
+            return lam
+        if self.degree == 2:
+            vert = lam * (2 * lam - 1)
+            edge = np.stack([4 * lam[:, i] * lam[:, j] for i, j in _edge_combos(tdim)], axis=1)
+            return np.concatenate([vert, edge], axis=1)
+        # any degree: Silvester's closed form on the equispaced lattice
+        p = self.degree
+        alphas = _lattice_multiindices(tdim, p)
+        phi = np.ones((pts.shape[0], alphas.shape[0]))
+        for d, alpha in enumerate(alphas):
+            for i, a in enumerate(alpha):
+                if a:
+                    P, _ = _silvester_factors(lam[:, i], int(a), p)
+                    phi[:, d] *= P
+        return phi
+
+    def tabulate_grad(self, tdim: int, pts: np.ndarray) -> np.ndarray:
+        """Reference gradients [np, ndofs_per_cell, tdim]."""
+        npts = pts.shape[0]
+        lam = _bary(pts)
+        # d(lam)/d(xi): lam0 -> -1 each direction; lam_i -> e_i
+        dlam = np.concatenate([-np.ones((1, tdim)), np.eye(tdim)], axis=0)  # [tdim+1, tdim]
+        if self.degree == 1:
+            return np.broadcast_to(dlam, (npts, tdim + 1, tdim)).copy()
+        if self.degree == 2:
+            parts = []
+            for i in range(tdim + 1):
+                parts.append((4 * lam[:, i : i + 1] - 1) * dlam[i][None, :])
+            for i, j in _edge_combos(tdim):
+                parts.append(4 * (lam[:, i : i + 1] * dlam[j][None, :] + lam[:, j : j + 1] * dlam[i][None, :]))
+            return np.stack(parts, axis=1)
+        if self.degree == 0:
+            return np.zeros((npts, 1, tdim))
+        # any degree: product rule over the per-coordinate Silvester
+        # factors, then the chain rule lambda -> xi
+        p = self.degree
+        alphas = _lattice_multiindices(tdim, p)
+        nd = alphas.shape[0]
+        grad_lam = np.zeros((npts, nd, tdim + 1))
+        for d, alpha in enumerate(alphas):
+            Ps, dPs = [], []
+            for i, a in enumerate(alpha):
+                P, dP = _silvester_factors(lam[:, i], int(a), p)
+                Ps.append(P)
+                dPs.append(dP)
+            for i in range(tdim + 1):
+                g = dPs[i].copy()
+                for j in range(tdim + 1):
+                    if j != i:
+                        g *= Ps[j]
+                grad_lam[:, d, i] = g
+        return np.einsum("pdi,it->pdt", grad_lam, dlam)
+
+
+_FAMILY_ALIASES = {
+    "P": "P",
+    "CG": "P",
+    "Lagrange": "P",
+    "DG": "DG",
+    "dP": "DG",
+    "Discontinuous Lagrange": "DG",
+    "Q": "Quadrature",
+    "Quad": "Quadrature",
+    "Quadrature": "Quadrature",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -100,39 +279,251 @@ class Element:
 
 @dataclass
 class FunctionSpace:
+    """A space on ``mesh``: ``cell_dofs`` [nc, ndpc] int32, ``ndofs``,
+    ``dof_coords`` [ndofs, gdim].  Blocked (vector) spaces use the dolfinx
+    interleaved layout, global dof = scalar dof * ``block_size`` +
+    component, over ``scalar_base``.  ``dof_owner_cell`` [ndofs] int32 is
+    the largest index of a cell holding the dof (the cell every transfer
+    evaluates a dof in), made at its first use."""
+
     mesh: Mesh
     element: Element
-    cell_dofs: np.ndarray  # [nc, tdim+1] int32
+    cell_dofs: np.ndarray
     ndofs: int
+    dof_coords: np.ndarray
+    block_size: int = 1
+    scalar_base: "FunctionSpace | None" = None
+    _owner: np.ndarray | None = field(default=None, repr=False, compare=False)
 
     @property
     def ndofs_per_cell(self) -> int:
         return self.cell_dofs.shape[1]
 
     @property
-    def dof_coords(self) -> np.ndarray:
-        """[ndofs, gdim] coordinates of the dofs (P1: the vertices)."""
-        return self.mesh.coords
+    def value_shape(self) -> tuple:
+        return () if self.block_size == 1 else (self.block_size,)
+
+    @property
+    def scalar_space(self) -> "FunctionSpace":
+        """The scalar component space (self when already scalar)."""
+        return self.scalar_base if self.scalar_base is not None else self
+
+    @property
+    def dof_owner_cell(self) -> np.ndarray:
+        if self._owner is None:
+            if self.scalar_base is not None:
+                self._owner = np.repeat(self.scalar_base.dof_owner_cell, self.block_size)
+            else:
+                nc, ndpc = self.cell_dofs.shape
+                owner = np.full(self.ndofs, -1, dtype=np.int64)
+                np.maximum.at(owner, self.cell_dofs.ravel(), np.repeat(np.arange(nc), ndpc))
+                self._owner = owner.astype(np.int32)
+        return self._owner
+
+    # dolfinx-style names
+    @property
+    def dofmap(self):
+        return self
+
+    @property
+    def index_map(self):
+        return self
+
+    @property
+    def size_local(self) -> int:
+        return self.ndofs
+
+    @property
+    def num_ghosts(self) -> int:
+        return 0
 
     def tabulate_dof_coordinates(self) -> np.ndarray:
         return self.dof_coords
 
 
-def functionspace(mesh: Mesh, element) -> FunctionSpace:
-    """P1 function space; ``element`` is an Element or a ("P", 1) tuple."""
-    if isinstance(element, tuple):
-        if len(element) != 2:
-            raise NotImplementedError("blocked (vector) spaces are not ported yet")
-        family, degree = element
-        if family not in _FAMILY_ALIASES:
-            raise NotImplementedError(f"element family {family!r} is not ported yet")
-        element = Element(_FAMILY_ALIASES[family], int(degree))
+def _space_from_element(mesh: Mesh, element: Element) -> FunctionSpace:
+    tdim = mesh.tdim
+    ndpc = element.ndofs_per_cell(tdim)
+    nc = mesh.num_cells
+
+    if element.family == "P" and element.degree == 1:
+        cell_dofs = mesh.cells
+        ndofs = mesh.num_vertices
+        dof_coords = mesh.coords
+    elif element.family == "P" and element.degree == 2:
+        edges = mesh.entities(1)
+        order = np.lexsort(edges.T[::-1])
+        sorted_edges = edges[order]
+        edge_ids = np.empty((nc, len(_edge_combos(tdim))), dtype=np.int64)
+        for li, (i, j) in enumerate(_edge_combos(tdim)):
+            local = np.sort(mesh.cells[:, [i, j]], axis=1)
+            edge_ids[:, li] = order[_row_searchsorted(sorted_edges, local)]
+        cell_dofs = np.concatenate([mesh.cells.astype(np.int64), mesh.num_vertices + edge_ids], axis=1)
+        ndofs = mesh.num_vertices + edges.shape[0]
+        mids = mesh.coords[edges].mean(axis=1)
+        dof_coords = np.concatenate([mesh.coords, mids], axis=0)
+    elif element.discontinuous:
+        cell_dofs = np.arange(nc * ndpc, dtype=np.int32).reshape(nc, ndpc)
+        ndofs = nc * ndpc
+        refpts = element.dof_ref_points(tdim)
+        geom = cell_geometry(mesh)
+        x0 = mesh.coords[mesh.cells[:, 0]]  # x = x0 + refpts @ E, per cell
+        dof_coords = (x0[:, None, :] + np.einsum("qd,cdg->cqg", refpts, geom.edges)).reshape(ndofs, mesh.gdim)
+    elif element.family == "P":
+        cell_dofs, ndofs, dof_coords = _generic_lagrange_dofmap(mesh, element.degree)
+    else:
+        raise NotImplementedError(f"{element}")
     return FunctionSpace(
         mesh=mesh,
         element=element,
-        cell_dofs=np.ascontiguousarray(mesh.cells, dtype=np.int32),
-        ndofs=mesh.num_vertices,
+        cell_dofs=np.ascontiguousarray(cell_dofs, dtype=np.int32),
+        ndofs=int(ndofs),
+        dof_coords=dof_coords,
     )
+
+
+def _face_interior_lookup(p: int) -> np.ndarray:
+    """Table mapping a face-interior multiplicity pair (a0, a1), with
+    a2 = p - a0 - a1 implied, to its canonical slot (the lexicographic
+    order of ``_interior_multiindices(3, p)``)."""
+    table = np.full((p + 1, p + 1), -1, dtype=np.int64)
+    for idx, m in enumerate(_interior_multiindices(3, p)):
+        table[m[0], m[1]] = idx
+    return table
+
+
+def _edge_slot_columns(mesh: Mesh, verts: np.ndarray, p: int, combos) -> list[np.ndarray]:
+    """Global edge-interior dofs of the local edges ``combos`` of the
+    vertex tuples ``verts`` [n, k]: ``p - 1`` dofs per edge, numbered by
+    multiplicity at the edge's larger global vertex, so the two cells of
+    an edge agree whatever their local orientation."""
+    edges = mesh.entities(1)
+    order = np.lexsort(edges.T[::-1])
+    sorted_edges = edges[order]
+    nvert = mesh.num_vertices
+    columns = []
+    for i, j in combos:
+        gi, gj = verts[:, i], verts[:, j]
+        eid = order[_row_searchsorted(sorted_edges, np.stack([np.minimum(gi, gj), np.maximum(gi, gj)], axis=1))]
+        flip = gi > gj
+        for k in range(1, p):  # lattice dof: multiplicity k at local vertex j
+            columns.append(nvert + eid * (p - 1) + np.where(flip, p - k - 1, k - 1))
+    return columns
+
+
+def _face_slot_columns(mesh: Mesh, fverts: np.ndarray, p: int, face_offset: int) -> list[np.ndarray]:
+    """Global face-interior dofs of the faces ``fverts`` [n, 3] (global
+    vertices in local order), in ``_interior_multiindices(3, p)`` order of
+    the local vertices, placed by the face's sorted global vertices."""
+    faces = mesh.entities(2)
+    forder = np.lexsort(faces.T[::-1])
+    sorted_faces = faces[forder]
+    n_face_int = (p - 1) * (p - 2) // 2
+    lookup = _face_interior_lookup(p)
+    n = fverts.shape[0]
+    fid = forder[_row_searchsorted(sorted_faces, np.sort(fverts, axis=1))]
+    rank = np.argsort(np.argsort(fverts, axis=1), axis=1)  # local -> sorted position
+    columns = []
+    for m in _interior_multiindices(3, p):
+        cm = np.zeros((n, 3), dtype=np.int64)
+        for t in range(3):
+            cm[np.arange(n), rank[:, t]] = m[t]
+        columns.append(face_offset + fid * n_face_int + lookup[cm[:, 0], cm[:, 1]])
+    return columns
+
+
+def _generic_lagrange_dofmap(mesh: Mesh, p: int):
+    """Entity-based dofmap for continuous degree-``p`` simplex Lagrange.
+
+    Global numbering: mesh vertices, then ``p-1`` dofs per edge (ordered
+    by multiplicity at the edge's larger global vertex), then face-interior
+    dofs per face (canonical order over the face's sorted global vertices),
+    then cell-interior dofs.  The column order of ``cell_dofs`` matches
+    ``_lattice_multiindices``, so the tabulated basis pairs with it."""
+    tdim = mesh.tdim
+    nc = mesh.num_cells
+    cells64 = mesh.cells.astype(np.int64)
+    nvert = mesh.num_vertices
+    columns: list[np.ndarray] = [cells64[:, i] for i in range(tdim + 1)]
+    coords_blocks: list[np.ndarray] = [mesh.coords]
+
+    # edge dofs: dof s (0-based) lies at multiplicity s+1 of the larger vertex
+    edges = mesh.entities(1)
+    n_edges = edges.shape[0]
+    columns += _edge_slot_columns(mesh, cells64, p, _edge_combos(tdim))
+    elo = mesh.coords[np.minimum(edges[:, 0], edges[:, 1])]
+    ehi = mesh.coords[np.maximum(edges[:, 0], edges[:, 1])]
+    s = (np.arange(1, p) / p)[None, :, None]
+    coords_blocks.append(((1 - s) * elo[:, None, :] + s * ehi[:, None, :]).reshape(-1, mesh.gdim))
+    offset = nvert + n_edges * (p - 1)
+
+    # face-interior dofs
+    n_face_int = (p - 1) * (p - 2) // 2
+    if tdim == 3 and n_face_int:
+        faces = mesh.entities(2)
+        for combo in _face_combos(3):
+            columns += _face_slot_columns(mesh, cells64[:, combo], p, offset)
+        fverts = mesh.coords[np.sort(faces, axis=1)]  # [nf, 3, gdim]
+        mlist = np.asarray(_interior_multiindices(3, p), dtype=np.float64) / p
+        coords_blocks.append(np.einsum("mk,fkg->fmg", mlist, fverts).reshape(-1, mesh.gdim))
+        offset += faces.shape[0] * n_face_int
+    elif tdim == 2 and n_face_int:
+        # triangle interior: cell-local, sequential slots in lattice order
+        for t in range(n_face_int):
+            columns.append(offset + np.arange(nc, dtype=np.int64) * n_face_int + t)
+        mlist = np.asarray(_interior_multiindices(3, p), dtype=np.float64) / p
+        coords_blocks.append(np.einsum("mk,ckg->cmg", mlist, mesh.coords[cells64]).reshape(-1, mesh.gdim))
+        offset += nc * n_face_int
+
+    # cell-interior dofs (tets, p >= 4)
+    if tdim == 3 and p >= 4:
+        cell_ms = _interior_multiindices(4, p)
+        n_int = len(cell_ms)
+        for t in range(n_int):
+            columns.append(offset + np.arange(nc, dtype=np.int64) * n_int + t)
+        mlist = np.asarray(cell_ms, dtype=np.float64) / p
+        coords_blocks.append(np.einsum("mk,ckg->cmg", mlist, mesh.coords[cells64]).reshape(-1, mesh.gdim))
+        offset += nc * n_int
+
+    dof_coords = np.concatenate(coords_blocks, axis=0)
+    assert dof_coords.shape[0] == offset
+    return np.stack(columns, axis=1).astype(np.int32), int(offset), dof_coords
+
+
+def functionspace(mesh: Mesh, element, shape: tuple | None = None) -> FunctionSpace:
+    """A function space.  ``element`` is an :class:`Element`, a ``(family,
+    degree)`` tuple or a ``(family, degree, (dim,))`` tuple (a blocked
+    vector space, as ``dolfinx.fem.functionspace(mesh, ("P", 1, (3,)))``);
+    ``shape`` may also be given on its own."""
+    if isinstance(element, tuple):
+        if len(element) == 3:
+            family, degree, shape = element
+        else:
+            family, degree = element
+        element = Element(_FAMILY_ALIASES[family], int(degree))
+    V = _space_from_element(mesh, element)
+    bs = int(np.prod(shape)) if shape else 1
+    return _blocked_space(V, bs) if bs > 1 else V
+
+
+def _blocked_space(V: FunctionSpace, bs: int) -> FunctionSpace:
+    """Vector-valued space over ``V`` with ``bs`` interleaved components
+    (dof = scalar_dof * bs + component)."""
+    nc = V.cell_dofs.shape[0]
+    cell_dofs = (V.cell_dofs[:, :, None].astype(np.int64) * bs + np.arange(bs)[None, None, :]).reshape(nc, -1)
+    return FunctionSpace(
+        mesh=V.mesh,
+        element=V.element,
+        cell_dofs=cell_dofs.astype(np.int32),
+        ndofs=V.ndofs * bs,
+        dof_coords=np.repeat(V.dof_coords, bs, axis=0),
+        block_size=bs,
+        scalar_base=V,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Functions & constants
 
 
 class _XView:
@@ -176,16 +567,51 @@ class Function:
         f.x.array[:] = self.x.array
         return f
 
-    def interpolate(self, source) -> None:
-        """Set the dofs from a callable of the [3, ndofs] dof coordinates
-        (zero rows beyond gdim); interpolation between spaces is not
-        ported yet."""
-        if not callable(source):
-            raise TypeError(f"Cannot interpolate from {type(source)}")
+    def interpolate(self, source, device=None, use_kernels: bool = True) -> None:
+        """Set the dofs from another :class:`Function` or from a callable.
+
+        From a function: one product with the transfer matrix
+        (:func:`build_transfer_matrix`, kept on the device by
+        :func:`transfer_operator`) on ``device`` (the card when None) in its
+        working dtype, component by component on blocked spaces: the source
+        values go up in that dtype, the result comes down.  The product is
+        B8 (its twin on the CPU, or with ``use_kernels=False``).  From a
+        callable: the callable
+        of the ``[3, n_scalar_dofs]`` dof coordinates (zero rows beyond
+        gdim), on the host; a blocked space's callable returns ``[bs,
+        n_scalar_dofs]``."""
+        from .config import default_dtype, resolve_device
+        from .ops.cuda_ell import csr_spmv, csr_spmv_twin
+
         V = self._V
-        x = np.zeros((3, V.ndofs))
-        x[: V.mesh.gdim, :] = V.dof_coords.T
-        self.x.array[:] = np.broadcast_to(np.asarray(source(x)), (V.ndofs,))
+        bs = V.block_size
+        if isinstance(source, Function):
+            Vs = source.function_space
+            if Vs.block_size != bs:
+                raise ValueError(
+                    f"cannot interpolate a {Vs.block_size}-component function into a {bs}-component space"
+                )
+            dev = resolve_device(device)
+            T = transfer_operator(Vs.scalar_space, V.scalar_space, dev, default_dtype(dev))
+            src = torch.from_numpy(np.ascontiguousarray(source.x.array.reshape(-1, bs))).to(T.vals.dtype).to(dev)
+            spmv = csr_spmv if use_kernels else csr_spmv_twin
+            out = torch.stack([spmv(T, src[:, c].contiguous()) for c in range(bs)], dim=1)
+            self.x.array[:] = out.cpu().numpy().reshape(-1)
+            return
+        if callable(source):
+            ns = V.ndofs // bs
+            x = np.zeros((3, ns))
+            x[: V.mesh.gdim, :] = V.scalar_space.dof_coords.T
+            vals = np.asarray(source(x))
+            if bs == 1:
+                self.x.array[:] = np.broadcast_to(vals, (ns,))
+            else:
+                self.x.array[:] = np.broadcast_to(vals, (bs, ns)).T.reshape(-1)
+            return
+        raise TypeError(f"Cannot interpolate from {type(source)}")
+
+    def eval(self, points: np.ndarray) -> np.ndarray:
+        return evaluate_function(self, points)
 
 
 class Constant:
@@ -287,10 +713,12 @@ def _batched_det_inv(E: np.ndarray):
 
 
 def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
-    """Per-cell affine geometry (edges, volume, basis gradients) of a
-    ``tdim == gdim`` simplex mesh.  The full-mesh result is cached on the
-    mesh; with ``cells`` only that subset is computed (a small stimulus or
-    probe region must not force the whole mesh's geometry)."""
+    """Per-cell affine geometry (edges, volume, basis gradients).  The
+    full-mesh result is cached on the mesh; with ``cells`` only that subset
+    is computed (a small stimulus or probe region must not force the whole
+    mesh's geometry).  An embedded mesh (``tdim < gdim``) takes the
+    Gram-matrix form: volume ``sqrt(det(E E^T)) / tdim!`` and the gradients
+    in the cell's tangent space."""
     cached = getattr(mesh, "_cell_geometry", None)
     if cached is not None:
         if cells is None:
@@ -303,15 +731,19 @@ def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
             inv_edges=cached.inv_edges[cells],
         )
     tdim, gdim = mesh.tdim, mesh.gdim
-    if tdim != gdim:
-        raise NotImplementedError("embedded (tdim < gdim) meshes are not ported yet")
     cell_verts = mesh.cells if cells is None else mesh.cells[np.asarray(cells)]
     X = mesh.coords[cell_verts]  # [nc, tdim+1, gdim]
     E = X[:, 1:, :] - X[:, :1, :]  # [nc, tdim, gdim]
-    detJ, invE = _batched_det_inv(E)
-    vol = np.abs(detJ) / math.factorial(tdim)
-    # xi = (x - x0) @ invE, so grad xi_i = invE[:, i]
-    Gi = np.transpose(invE, (0, 2, 1))  # [nc, tdim(i), gdim]
+    if tdim == gdim:
+        detJ, invE = _batched_det_inv(E)
+        vol = np.abs(detJ) / math.factorial(tdim)
+        # xi = (x - x0) @ invE, so grad xi_i = invE[:, i]
+        Gi = np.transpose(invE, (0, 2, 1))  # [nc, tdim(i), gdim]
+    else:
+        G = np.einsum("cik,cjk->cij", E, E)
+        detG, invG = _batched_det_inv(G)
+        vol = np.sqrt(np.abs(detG)) / math.factorial(tdim)
+        Gi = np.einsum("cij,cjk->cik", invG, E)
     g0 = -Gi.sum(axis=1, keepdims=True)
     grads = np.concatenate([g0, Gi], axis=1)  # [nc, tdim+1, gdim]
     geom = CellGeometry(edges=E, volume=vol, grads=grads, inv_edges=Gi)
@@ -321,7 +753,7 @@ def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
 
 
 # ---------------------------------------------------------------------------
-# Matrix assembly (P1, stencil form)
+# Matrix assembly
 
 
 def _broadcast_cell_tensor(M_cells, nc: int, g: int) -> np.ndarray:
@@ -341,6 +773,21 @@ def _p1_mass_base(d: int) -> np.ndarray:
     return (np.ones((d + 1, d + 1)) + np.eye(d + 1)) / ((d + 1) * (d + 2))
 
 
+def _is_p1(V: FunctionSpace) -> bool:
+    return V.element.family == "P" and V.element.degree == 1 and V.block_size == 1
+
+
+def _check_pde_space(V: FunctionSpace) -> None:
+    """The JAX package's guards on PDE assembly."""
+    if V.element.family == "Quadrature":
+        raise NotImplementedError("PDE assembly on Quadrature spaces")
+    if V.block_size != 1:
+        raise NotImplementedError(
+            "PDE assembly on blocked (vector) spaces — the monodomain "
+            "voltage is scalar; vector spaces carry data fields (fibers)"
+        )
+
+
 def assemble_mass_stiffness_stencil(
     V: FunctionSpace,
     M_cells: np.ndarray | float,
@@ -350,12 +797,15 @@ def assemble_mass_stiffness_stencil(
     stiffness for a P1 space whose operator has a small global column-offset
     set (lexicographically ordered structured meshes).  Returns ``(mass,
     stiff)`` as float64 CPU :class:`~.ops.sparse.StencilMatrix`, or
-    ``None`` when the offset set exceeds ``max_offsets``.
+    ``None`` for any other space or when the offset set exceeds
+    ``max_offsets``.
 
     Each of the 16 element-matrix (i, j) slots scatters straight into the
     ``[n, K]`` stencil table with ``np.bincount``: no COO sort and no
     ``[nc, 4, 4]`` element tensor (the numpy branch of the JAX package's
     ``fem.py:1042-1066``)."""
+    if not _is_p1(V):
+        return None
     mesh = V.mesh
     nd = V.ndofs_per_cell
     n = V.ndofs
@@ -400,42 +850,140 @@ def assemble_mass_stiffness_stencil(
     return mass, stiff
 
 
-def assemble_mass_stiffness_coo(V: FunctionSpace, M_cells: np.ndarray | float):
-    """Raw COO triplets ``(rows, cols, mass_vals, stiff_vals, shape)`` of the
-    consistent mass and anisotropic stiffness (duplicates unsummed, shared
-    pattern): the P1 closed-form branch of the JAX package's
-    ``assemble_mass_stiffness_coo``."""
+def _reference_tensors(element: Element, d: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(M_hat [nd, nd], S_hat [d, d, nd, nd])``: the element's mass and
+    reference-gradient products integrated over the reference simplex
+    (times d!, so a cell's matrices are ``|K| M_hat`` and ``|K| sum_ts
+    A_ts S_hat_ts``), by the rule the JAX package's exact quadrature uses."""
+    pts, wts = simplex_rule(d, max(2 * element.degree, 2))
+    N = element.tabulate(d, pts)  # [nq, nd]
+    dN = element.tabulate_grad(d, pts)  # [nq, nd, d]
+    w = wts * math.factorial(d)
+    return np.einsum("q,qi,qj->ij", w, N, N), np.einsum("q,qit,qjs->tsij", w, dN, dN)
+
+
+def _element_matrices(V: FunctionSpace, M_cells) -> tuple[np.ndarray, np.ndarray]:
+    """Per-cell mass and stiffness ``[nc, ndpc, ndpc]``: P1's closed form,
+    the reference tensors for any other space."""
     mesh = V.mesh
     geom = cell_geometry(mesh)
     nc, d, g = mesh.num_cells, mesh.tdim, mesh.gdim
     Mc = _broadcast_cell_tensor(M_cells, nc, g)
-    Me = geom.volume[:, None, None] * _p1_mass_base(d)[None]
-    # stiffness: vol * G_i . M . G_j
-    MG = np.einsum("cgh,cjh->cjg", Mc, geom.grads)
-    Ke = geom.volume[:, None, None] * np.einsum("cig,cjg->cij", geom.grads, MG)
+    if _is_p1(V):
+        Me = geom.volume[:, None, None] * _p1_mass_base(d)[None]
+        # stiffness: vol * G_i . M . G_j
+        MG = np.einsum("cgh,cjh->cjg", Mc, geom.grads)
+        Ke = geom.volume[:, None, None] * np.einsum("cig,cjg->cij", geom.grads, MG)
+        return Me, Ke
+    M_hat, S_hat = _reference_tensors(V.element, d)
+    G = geom.inv_edges  # [nc, d, g]: grad_x xi_t
+    GM = np.einsum("ctg,cgh->cth", G, Mc)
+    A = geom.volume[:, None, None] * np.einsum("cth,csh->cts", GM, G)
+    nd = M_hat.shape[0]
+    Me = geom.volume[:, None, None] * M_hat[None]
+    Ke = (A.reshape(nc, d * d) @ S_hat.reshape(d * d, nd * nd)).reshape(nc, nd, nd)
+    return Me, Ke
+
+
+def assemble_mass_stiffness_coo(V: FunctionSpace, M_cells: np.ndarray | float):
+    """Raw COO triplets ``(rows, cols, mass_vals, stiff_vals, shape)`` of the
+    consistent mass and anisotropic stiffness (duplicates unsummed, shared
+    pattern, cell-major order), on any Lagrange space; Quadrature and
+    blocked spaces raise, as in the JAX package."""
+    _check_pde_space(V)
+    Me, Ke = _element_matrices(V, M_cells)
     nd = V.ndofs_per_cell
     rows = np.repeat(V.cell_dofs, nd, axis=1).ravel()
     cols = np.tile(V.cell_dofs, (1, nd)).ravel()
     return rows, cols, Me.reshape(-1), Ke.reshape(-1), (V.ndofs, V.ndofs)
 
 
+def _cell_blocks_to_csr(row_dofs: np.ndarray, col_dofs: np.ndarray, blocks, shape: tuple[int, int]):
+    """CSR of ``sum_c`` of local blocks: entry ``(row_dofs[c, a],
+    col_dofs[c, b])`` gets ``block[c, a, b]`` for each value set in
+    ``blocks`` (all of one pattern).  Returns ``(indptr [n_rows + 1] int64,
+    cols [nnz] int32, [vals [nnz] float64, ...])``, columns ascending within
+    each row, duplicates summed in cell-major ``(c, a, b)`` order (the
+    order of the JAX package's stable-sorted COO pipeline), zeros kept.
+
+    No global sort of the triplets: the ``(c, a)`` pairs are grouped by
+    row through the inverse of ``row_dofs`` (a sort of ``nc * na``
+    entries), each row's columns are sorted on their own (scipy's
+    per-row sort), and each triplet's CSR slot is found from the
+    sorted order once for every value set."""
+    import scipy.sparse as sp
+
+    n_rows, n_cols = shape
+    nc, na = row_dofs.shape
+    nb = col_dofs.shape[1]
+    flat = row_dofs.ravel()
+    order = np.argsort(flat, kind="stable")  # (c, a) pairs grouped by row, cells ascending
+    row_counts = np.bincount(flat, minlength=n_rows).astype(np.int64) * nb
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(row_counts, out=indptr[1:])
+    c = order // na
+    trip = (order[:, None] * nb + np.arange(nb)[None, :]).ravel()  # index into [c, a, b]
+    cols = col_dofs[c].ravel()
+    A = sp.csr_matrix((trip.astype(np.float64), cols, indptr), shape=shape)
+    A.has_sorted_indices = False
+    A.sort_indices()
+    sorted_cols = A.indices
+    first = np.empty(sorted_cols.size, dtype=bool)  # a new (row, col) pair starts here
+    first[1:] = sorted_cols[1:] != sorted_cols[:-1]
+    first[indptr[:-1][row_counts > 0]] = True
+    n_first = np.zeros(first.size + 1, dtype=np.int64)
+    np.cumsum(first, out=n_first[1:])
+    slot_of = np.empty(trip.size, dtype=np.int64)
+    slot_of[A.data.astype(np.int64)] = n_first[1:] - 1
+    vals = [np.bincount(slot_of, weights=np.asarray(b, dtype=np.float64).ravel(), minlength=int(n_first[-1]))
+            for b in blocks]
+    return n_first[indptr], sorted_cols[first].astype(np.int32), vals
+
+
+def _csr_to_ell_group(indptr, cols, vals_list, shape) -> tuple[ELLMatrix, ...]:
+    """ELL matrices of one layout from a shared CSR pattern (the layout
+    ``coo_to_ell_group`` gives: a row's entries in column order, then
+    padding at the row's own column with value 0; rare long rows spill
+    into the COO tail)."""
+    n_rows = shape[0]
+    counts = np.diff(indptr)
+    width = int(counts.max()) if counts.size else 1
+    urows = np.repeat(np.arange(n_rows), counts)
+    pos = np.arange(cols.size) - indptr[urows]
+    ell_cols = np.tile(np.arange(n_rows, dtype=np.int32)[:, None], (1, width))
+    ell_cols[urows, pos] = cols
+    out = []
+    for vals in vals_list:
+        ell_vals = np.zeros((n_rows, width))
+        ell_vals[urows, pos] = vals
+        out.append(_build_ell(ell_cols, ell_vals, counts, shape, None))
+    return tuple(out)
+
+
 def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float):
     """Consistent mass and anisotropic stiffness as two host
     :class:`~.ops.sparse.ELLMatrix` of one shared layout, so
     ``a*Mass + b*Stiff`` is a value-level combination.  ``M_cells``: scalar,
-    [gdim, gdim] or per-cell [nc, gdim, gdim].  Goes through the COO
-    pipeline (one sort of the shared pattern for both value sets)."""
-    rows, cols, mvals, kvals, shape = assemble_mass_stiffness_coo(V, M_cells)
-    mass, stiff = coo_to_ell_group(rows, cols, [mvals, kvals], shape)
-    return mass, stiff
+    [gdim, gdim] or per-cell [nc, gdim, gdim].  P1 goes through the COO
+    pipeline (one sort of the shared pattern for both value sets); any
+    other Lagrange space through its reference tensors and
+    :func:`_cell_blocks_to_csr`.  Quadrature and blocked spaces raise."""
+    _check_pde_space(V)
+    if _is_p1(V):
+        rows, cols, mvals, kvals, shape = assemble_mass_stiffness_coo(V, M_cells)
+        return coo_to_ell_group(rows, cols, [mvals, kvals], shape)
+    Me, Ke = _element_matrices(V, M_cells)
+    shape = (V.ndofs, V.ndofs)
+    indptr, cols, vals = _cell_blocks_to_csr(V.cell_dofs, V.cell_dofs, [Me, Ke], shape)
+    return _csr_to_ell_group(indptr, cols, vals, shape)
 
 
 def assemble_mass_stiffness_auto(V: FunctionSpace, M_cells: np.ndarray | float):
     """Stencil-first operator assembly: the direct stencil where the mesh
-    structure allows, generic ELL otherwise, upgraded to stencil form when
-    the ELL pattern turns out to be a global stencil.  Returns two
-    :class:`~.ops.sparse.StencilMatrix` (float64 CPU) or two host float64
-    :class:`~.ops.sparse.ELLMatrix`."""
+    structure allows (P1), ELL otherwise, upgraded to stencil form when
+    the ELL pattern turns out to be a global stencil (the JAX
+    ``BaseModel``'s route).  Returns two :class:`~.ops.sparse.StencilMatrix`
+    (float64 CPU) or two host float64 :class:`~.ops.sparse.ELLMatrix`."""
     pair = assemble_mass_stiffness_stencil(V, M_cells)
     if pair is not None:
         return pair
@@ -578,13 +1126,33 @@ def cell_quadrature(
     )
 
 
+def _facet_dofs(V: FunctionSpace, fverts: np.ndarray) -> np.ndarray:
+    """Global dofs [nf, ndofs_per_facet] of a continuous Lagrange space on
+    the given facets, ordered to pair with the facet element's basis
+    (vertices, per-facet-edge interior, facet interior)."""
+    p = V.element.degree
+    mesh = V.mesh
+    fdim = fverts.shape[1] - 1
+    fverts64 = fverts.astype(np.int64)
+    columns = [fverts64[:, i] for i in range(fdim + 1)]
+    if p >= 2 and fdim >= 1:
+        columns += _edge_slot_columns(mesh, fverts64, p, _edge_combos(fdim))
+    if p >= 3 and fdim == 2:
+        face_offset = mesh.num_vertices + mesh.entities(1).shape[0] * (p - 1)
+        columns += _face_slot_columns(mesh, fverts64, p, face_offset)
+    return np.stack(columns, axis=1)
+
+
 def facet_quadrature(
     V: FunctionSpace, facets: np.ndarray, degree: int = 4, dtype=None
 ) -> CellQuadData:
-    """Quadrature tables over boundary facets (for ``ds`` stimuli) of the P1
-    space; the JAX package's ``facet_quadrature`` for degree 1."""
+    """Quadrature tables over boundary facets (for ``ds`` stimuli) of a
+    continuous Lagrange space of any degree."""
+    if V.element.family != "P":
+        raise NotImplementedError("facet integrals implemented for Lagrange spaces")
     dtype = dtype or np.float64
     mesh = V.mesh
+    p = V.element.degree
     fdim = mesh.tdim - 1
     fverts = mesh.entities(fdim)[np.asarray(facets, dtype=np.int64)]  # [nf, fdim+1]
     F = mesh.coords[fverts]  # [nf, fdim+1, gdim]
@@ -594,29 +1162,23 @@ def facet_quadrature(
         wts = np.ones(1)
         N = np.ones((1, 1))
         X = F[:, :1, :]
+        dofs = fverts
     else:
         G = np.einsum("cik,cjk->cij", E, E)
         area = np.sqrt(np.abs(np.linalg.det(G))) / math.factorial(fdim)
         pts, wts = simplex_rule(fdim, degree)
-        N = Element("P", 1).tabulate(fdim, pts)
+        N = Element("P", p).tabulate(fdim, pts)
         X = F[:, :1, :] + np.einsum("qd,cdg->cqg", pts, E)
+        dofs = _facet_dofs(V, fverts) if p >= 2 else fverts
     scale = math.factorial(fdim) if fdim > 0 else 1.0
     W = (area * scale)[:, None] * wts[None, :]
     return CellQuadData(
         X=np.asarray(X, dtype=dtype),
         W=np.asarray(W, dtype=dtype),
         N=np.asarray(N, dtype=dtype),
-        dofs=np.asarray(_facet_dofs(V, fverts), dtype=np.int32),
+        dofs=np.asarray(dofs, dtype=np.int32),
         ndofs=V.ndofs,
     )
-
-
-def _facet_dofs(V: FunctionSpace, fverts: np.ndarray) -> np.ndarray:
-    """Global dofs [nf, ndofs_per_facet] of the space on the given facets:
-    for P1, the facet's vertices (higher degrees are not ported)."""
-    if V.element.degree != 1:
-        raise NotImplementedError("facet dofs of degree > 1 are not ported yet")
-    return fverts
 
 
 # ---------------------------------------------------------------------------
@@ -668,11 +1230,36 @@ def function_integral(u: Function, integrand, degree: int = 4, time: Constant | 
 
 
 def locate_dofs_topological(V: FunctionSpace, dim: int, entities: np.ndarray) -> np.ndarray:
-    """Dofs attached to the given mesh entities (P1: their vertices)."""
-    if V.element.degree != 1:
-        raise NotImplementedError("dof location on degree > 1 spaces is not ported yet")
-    ents = V.mesh.entities(dim)[np.asarray(entities, dtype=np.int64)]
-    return np.unique(ents.ravel()).astype(np.int32)
+    """Dofs of a continuous Lagrange space attached to the given mesh
+    entities (vertices, edges or facets); other spaces raise, as in the
+    JAX package."""
+    mesh = V.mesh
+    ents = mesh.entities(dim)[np.asarray(entities, dtype=np.int64)]
+    if V.element.family == "P" and V.element.degree == 1:
+        return np.unique(ents.ravel()).astype(np.int32)
+    if V.element.family == "P" and V.element.degree == 2:
+        vert_dofs = np.unique(ents.ravel())
+        if dim == 0:
+            return vert_dofs.astype(np.int32)
+        # the edge dofs on those entities
+        edges = mesh.entities(1)
+        order = np.lexsort(edges.T[::-1])
+        sorted_edges = edges[order]
+        edge_sets = []
+        for i, j in itertools.combinations(range(ents.shape[1]), 2):
+            local = np.sort(ents[:, [i, j]], axis=1)
+            idx = _row_searchsorted(sorted_edges, local)
+            found = (sorted_edges[idx] == local).all(axis=1)  # only actual mesh edges
+            edge_sets.append(order[idx[found]])
+        edge_dofs = mesh.num_vertices + np.unique(np.concatenate(edge_sets))
+        return np.concatenate([vert_dofs, edge_dofs]).astype(np.int32)
+    if V.element.family == "P":
+        if dim == 0:
+            return np.unique(ents.ravel()).astype(np.int32)
+        if dim in (1, mesh.tdim - 1):
+            # facets carry vertex + edge + facet-interior dofs
+            return np.unique(_facet_dofs(V, ents).ravel()).astype(np.int32)
+    raise NotImplementedError
 
 
 @dataclass
@@ -686,7 +1273,7 @@ def dirichletbc(value: float, dofs: np.ndarray, V: FunctionSpace | None = None) 
 
 
 # ---------------------------------------------------------------------------
-# Point evaluation
+# Point evaluation & transfer
 
 
 def _locate_cells(mesh: Mesh, points: np.ndarray, tol: float = 1e-10) -> np.ndarray:
@@ -710,18 +1297,125 @@ def _locate_cells(mesh: Mesh, points: np.ndarray, tol: float = 1e-10) -> np.ndar
     return out
 
 
+def _reference_coords(mesh: Mesh, points: np.ndarray, tol: float) -> tuple[np.ndarray, np.ndarray]:
+    """``(cells, xi)``: the cell holding each physical point and the
+    point's reference coordinates in it; raises for points outside."""
+    cells = _locate_cells(mesh, points, tol=tol)
+    if (cells < 0).any():
+        raise ValueError(f"Points outside mesh: {points[cells < 0]}")
+    sub = cell_geometry(mesh, cells)
+    x0 = mesh.coords[mesh.cells[cells, 0]]
+    return cells, np.einsum("pg,pig->pi", points[:, : mesh.gdim] - x0, sub.inv_edges)
+
+
+def evaluate_function(u: Function, points: np.ndarray, tol: float = 1e-8) -> np.ndarray:
+    """``u`` at physical points, on the host: ``[np]``, or ``[np, bs]`` on
+    a blocked space (one point given as ``[gdim]`` gives a scalar or
+    ``[bs]``).  Quadrature spaces raise, as in the JAX package."""
+    V = u.function_space
+    pts = np.asarray(points, dtype=np.float64)
+    squeeze = pts.ndim == 1
+    if squeeze:
+        pts = pts[None, :]
+    cells, xi = _reference_coords(V.mesh, pts, tol)
+    if V.element.family == "Quadrature":
+        raise NotImplementedError("evaluate_function on quadrature spaces")
+    N = V.element.tabulate(V.mesh.tdim, xi)  # row i: point i's own reference coordinates
+    bs = V.block_size
+    if bs == 1:
+        vals = (u.x.array[V.cell_dofs[cells]] * N).sum(axis=1)
+    else:
+        comp = u.x.array.reshape(-1, bs)
+        vals = np.einsum("pic,pi->pc", comp[V.scalar_space.cell_dofs[cells]], N)
+    return vals[0] if squeeze else vals
+
+
 def point_evaluation_tables(
     V: FunctionSpace, points: np.ndarray, tol: float = 1e-8
 ) -> tuple[np.ndarray, np.ndarray]:
     """(dofs [np, ndpc], weights [np, ndpc]) such that
     ``u(points) = (u_dofs[dofs] * weights).sum(axis=1)``."""
-    mesh = V.mesh
-    pts = np.asarray(points, dtype=np.float64)
-    cells = _locate_cells(mesh, pts, tol=tol)
-    if (cells < 0).any():
-        raise ValueError(f"Points outside mesh: {pts[cells < 0]}")
-    sub = cell_geometry(mesh, cells)
-    x0 = mesh.coords[mesh.cells[cells, 0]]
-    xi = np.einsum("pg,pig->pi", pts[:, : mesh.gdim] - x0, sub.inv_edges)
-    N = V.element.tabulate(mesh.tdim, xi)
-    return V.cell_dofs[cells], N
+    cells, xi = _reference_coords(V.mesh, np.asarray(points, dtype=np.float64), tol)
+    return V.cell_dofs[cells], V.element.tabulate(V.mesh.tdim, xi)
+
+
+def _transfer_entry(Vs: FunctionSpace, Vt: FunctionSpace):
+    """The cache slot of the ``Vs -> Vt`` transfer, on the source space:
+    ``[Vt, host matrix or None, {(device, dtype): device matrix}]`` (the
+    entry holds the target, so its id cannot be reused while it lives)."""
+    cache = vars(Vs).setdefault("_transfer_cache", {})
+    return cache.setdefault(id(Vt), [Vt, None, {}])
+
+
+def build_transfer_matrix(Vs: FunctionSpace, Vt: FunctionSpace):
+    """Interpolation matrix T, ``target_dofs = T @ source_dofs``, as a host
+    float64 :class:`~.ops.cuda_ell.CSRMatrix` of shape ``(Vt.ndofs,
+    Vs.ndofs)`` (rectangular in general; cached on ``Vs`` per target).
+
+    For pointwise elements a target dof's value is the source evaluated at
+    the target's dof point in the dof's owner cell (the last cell holding
+    it), or at each quadrature point of a Quadrature target; for a
+    Quadrature source, the mass-lumped L2 projection ``u_i = sum_{c,q} w
+    phi_i v_q / sum w phi_i``.  Entries that are exactly zero are dropped."""
+    from .ops.cuda_ell import CSRMatrix
+
+    entry = _transfer_entry(Vs, Vt)
+    if entry[1] is not None:
+        return entry[1]
+    mesh = Vs.mesh
+    nt, ns = Vt.ndofs, Vs.ndofs
+    if Vs.element.family == "Quadrature":
+        pts, wts = simplex_rule(mesh.tdim, Vs.element.degree)
+        geom = cell_geometry(mesh)
+        W = (geom.volume * math.factorial(mesh.tdim))[:, None] * wts[None, :]  # [nc, nq]
+        Nt = Vt.element.tabulate(mesh.tdim, pts)  # [nq, ndt]
+        wphi = np.einsum("cq,qd->cdq", W, Nt)  # entry (dof d of cell c, point q)
+        indptr, cols, (vals,) = _cell_blocks_to_csr(Vt.cell_dofs, Vs.cell_dofs, [wphi], (nt, ns))
+        den = np.zeros(nt)
+        np.add.at(den, Vt.cell_dofs.ravel(), wphi.sum(axis=2).ravel())
+        den[den == 0] = 1.0
+        vals = vals / np.repeat(den, np.diff(indptr))
+    else:
+        # one row per target point: the source basis there, in the point's cell
+        if Vt.element.family == "Quadrature":
+            pts, _ = simplex_rule(mesh.tdim, Vt.element.degree)
+            owner = np.repeat(np.arange(mesh.num_cells), pts.shape[0])
+            ref = np.tile(pts, (mesh.num_cells, 1))
+            tgt = Vt.cell_dofs.ravel()
+        else:
+            owner = Vt.dof_owner_cell
+            geom = cell_geometry(mesh)
+            x0 = mesh.coords[mesh.cells[owner, 0]]
+            ref = np.einsum("pg,pig->pi", Vt.dof_coords - x0, geom.inv_edges[owner])
+            tgt = np.arange(nt)
+        Ns = Vs.element.tabulate(mesh.tdim, ref)  # [npts, nds]
+        src = Vs.cell_dofs[owner]
+        by_col = np.argsort(src, axis=1, kind="stable")
+        rows_cols = np.empty((nt, src.shape[1]), dtype=np.int64)
+        rows_vals = np.zeros((nt, src.shape[1]))
+        rows_cols[tgt] = np.take_along_axis(src, by_col, axis=1)
+        rows_vals[tgt] = np.take_along_axis(Ns, by_col, axis=1)
+        indptr = np.arange(nt + 1, dtype=np.int64) * src.shape[1]
+        cols, vals = rows_cols.ravel(), rows_vals.ravel()
+    live = vals != 0.0
+    counts = np.bincount(np.repeat(np.arange(nt), np.diff(indptr))[live], minlength=nt)
+    indptr = np.zeros(nt + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    T = CSRMatrix(
+        indptr=torch.from_numpy(indptr.astype(np.int32)),
+        cols=torch.from_numpy(cols[live].astype(np.int32)),
+        vals=torch.from_numpy(np.ascontiguousarray(vals[live], dtype=np.float64)),
+        shape=(int(nt), int(ns)),
+    )
+    entry[1] = T
+    return T
+
+
+def transfer_operator(Vs: FunctionSpace, Vt: FunctionSpace, device: torch.device, dtype: torch.dtype):
+    """:func:`build_transfer_matrix` on ``device`` in ``dtype``, made once
+    per (source, target, device, dtype) and kept on the source space."""
+    entry = _transfer_entry(Vs, Vt)
+    key = (str(device), dtype)
+    if key not in entry[2]:
+        entry[2][key] = build_transfer_matrix(Vs, Vt).to(device, dtype)
+    return entry[2][key]

@@ -1,7 +1,7 @@
 """Slab and left-ventricle geometries with fiber microstructure (numpy only).
 
-Subset of ``fenicsx_beat_tpu/geometry.py``: structured 3D slab meshes with
-resolution ``dx`` and constant fiber/sheet/normal fields, and the
+Subset of ``fenicsx_beat_tpu/geometry.py``: structured 2D and 3D slab
+meshes with resolution ``dx`` and constant fiber/sheet(/normal) fields, and the
 idealized LV ellipsoid with ENDO/EPI/BASE facet tags and a rule-based
 helical fiber field.  The ``comm`` argument is accepted for signature
 parity and unused.  The BiV generator and the disk cache are not ported
@@ -16,12 +16,15 @@ import itertools
 
 import numpy as np
 
-from .mesh import CellType, Mesh, MeshTags, create_box, meshtags
+from .mesh import CellType, Mesh, MeshTags, create_box, create_rectangle, meshtags
 
 __all__ = [
     "Geometry",
+    "get_2D_slab_microstructure",
     "get_3D_slab_microstructure",
+    "get_2D_slab_mesh",
     "get_3D_slab_mesh",
+    "get_2D_slab_geometry",
     "get_3D_slab_geometry",
     "get_lv_ellipsoid_geometry",
 ]
@@ -34,6 +37,46 @@ class Geometry(NamedTuple):
     f0: np.ndarray | None = None
     s0: np.ndarray | None = None
     n0: np.ndarray | None = None
+
+
+def get_2D_slab_microstructure(mesh: Mesh, transverse: bool = False):
+    """Constant fiber/sheet directions (reference ``geometry.py:18-44``)."""
+    if transverse:
+        f0 = np.array((0.0, 1.0))
+        s0 = np.array((1.0, 0.0))
+    else:
+        f0 = np.array((1.0, 0.0))
+        s0 = np.array((0.0, 1.0))
+    return f0, s0
+
+
+def get_2D_slab_mesh(
+    comm=None,
+    dx: float = 0.1,
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    cell_type: CellType = CellType.triangle,
+    dtype=np.float64,
+) -> Mesh:
+    """The rectangle [0, Lx] x [0, Ly] at resolution ``dx``, two triangles a square."""
+    nx = int(np.rint(Lx / dx))
+    ny = int(np.rint(Ly / dx))
+    return create_rectangle(comm, points=((0.0, 0.0), (Lx, Ly)), n=(nx, ny), cell_type=cell_type, dtype=dtype)
+
+
+def get_2D_slab_geometry(
+    comm=None,
+    dx: float = 0.1,
+    Lx: float = 1.0,
+    Ly: float = 1.0,
+    cell_type: CellType = CellType.triangle,
+    dtype=np.float64,
+    transverse: bool = False,
+) -> Geometry:
+    """Reference ``geometry.py:183-218``."""
+    mesh = get_2D_slab_mesh(comm, dx, Lx, Ly, cell_type, dtype)
+    f0, s0 = get_2D_slab_microstructure(mesh, transverse)
+    return Geometry(mesh=mesh, f0=f0, s0=s0)
 
 
 def get_3D_slab_microstructure(mesh: Mesh, transverse: bool = False):

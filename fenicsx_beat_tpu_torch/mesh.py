@@ -129,8 +129,13 @@ class Mesh:
         nv = self.cells.shape[1]
         combos = list(itertools.combinations(range(nv), dim + 1))
         sub = np.concatenate([self.cells[:, list(c)] for c in combos], axis=0)
-        sub = np.sort(sub, axis=1)
-        ents = np.unique(sub.astype(np.int32), axis=0)
+        sub = np.sort(sub, axis=1).astype(np.int32)
+        keys = _row_keys(sub, self.num_vertices)
+        if keys is None:
+            ents = np.unique(sub, axis=0)
+        else:
+            _, first = np.unique(keys, return_index=True)
+            ents = sub[first]
         self._topology.entities[dim] = ents
         return ents
 
@@ -230,8 +235,24 @@ class Mesh:
         return self.cell_type
 
 
+def _row_keys(rows: np.ndarray, base: int) -> np.ndarray | None:
+    """One int64 per row of nonnegative ints below ``base``, in the rows'
+    lexicographic order (None when ``base ** ncols`` overflows int64)."""
+    if base ** rows.shape[1] >= 2**63:
+        return None
+    keys = np.zeros(rows.shape[0], dtype=np.int64)
+    for k in range(rows.shape[1]):
+        keys = keys * base + rows[:, k]
+    return keys
+
+
 def _row_searchsorted(sorted_rows: np.ndarray, query: np.ndarray) -> np.ndarray:
-    """Index of each query row in sorted_rows (rows must exist)."""
+    """Index of each query row in sorted_rows (rows of vertex ids; they
+    must exist), through one int64 key a row where it fits."""
+    base = int(max(sorted_rows.max(initial=0), query.max(initial=0))) + 1
+    ka = _row_keys(sorted_rows, base)
+    if ka is not None:
+        return np.searchsorted(ka, _row_keys(query, base))
     # encode rows as tuples via void view for fast searchsorted
     a = np.ascontiguousarray(sorted_rows)
     b = np.ascontiguousarray(query.astype(sorted_rows.dtype))

@@ -6,7 +6,10 @@ Port of ``fenicsx_beat_tpu/odesolver.py`` (the reference's
 stepper ``fun(states, t, parameters, dt) -> new_states`` over an ``(S, n)``
 state array, and adapters that move the voltage row between the state
 array and the ODE-space function, and between the ODE and PDE spaces
-(``to_dolfin`` / ``from_dolfin`` / ``ode_to_pde`` / ``pde_to_ode``).
+(``to_dolfin`` / ``from_dolfin`` / ``ode_to_pde`` / ``pde_to_ode``; the
+ODE may live on any space, its points a Lagrange space's dofs or a
+Quadrature space's points, and a transfer between spaces of different
+sizes is one B8 product on the solver's device).
 
 The states are a torch tensor on the solver's device (the card unless the
 CPU is named), updated in place; the functions keep their values in host
@@ -188,10 +191,18 @@ class BaseDolfinODESolver(abc.ABC):
     four-transfer contract -- ``to_dolfin``/``from_dolfin`` between states
     and v_ode, ``ode_to_pde``/``pde_to_ode`` between spaces -- is the
     spec).  ``host_transfers`` counts the voltage's crossings between the
-    device and the host."""
+    device and the host; a transfer between spaces of different sizes runs
+    on the adapter's ``device``."""
 
     v_ode: fem.Function
     v_pde: fem.Function
+
+    @property
+    def _metadata(self) -> dict[str, Any] | None:
+        """Assembly metadata for the ODE space (quadrature degree when the
+        ODE lives at quadrature points, else None)."""
+        el = self.v_ode.function_space.element
+        return {"quadrature_degree": el.degree} if el.family == "Quadrature" else None
 
     @abc.abstractmethod
     def to_dolfin(self) -> None:
@@ -201,17 +212,24 @@ class BaseDolfinODESolver(abc.ABC):
     def from_dolfin(self) -> None:
         """v_ode -> states[v_index]"""
 
-    def ode_to_pde(self) -> None:
-        """v_ode -> v_pde (a copy between equal spaces, on the host)."""
+    def _project(self, src: fem.Function, dst: fem.Function) -> None:
+        """``utils.local_project`` from ``src`` into ``dst``: a host copy
+        between spaces of one size; else the transfer on the adapter's
+        device (B8, or its twin with ``use_kernels=False``), whose upload
+        of ``src`` and download into ``dst`` are two crossings."""
         from .utils import local_project
 
-        local_project(self.v_ode, self.v_pde.function_space, self.v_pde)
+        local_project(src, dst.function_space, dst, device=self.device, use_kernels=self.use_kernels)
+        if src.x.array.size != dst.x.array.size:
+            self.host_transfers += 2
+
+    def ode_to_pde(self) -> None:
+        """v_ode -> v_pde (projection when the spaces differ)."""
+        self._project(self.v_ode, self.v_pde)
 
     def pde_to_ode(self) -> None:
-        """v_pde -> v_ode (a copy between equal spaces, on the host)."""
-        from .utils import local_project
-
-        local_project(self.v_pde, self.v_ode.function_space, self.v_ode)
+        """v_pde -> v_ode (projection when the spaces differ)."""
+        self._project(self.v_pde, self.v_ode)
 
     @abc.abstractmethod
     def step(self, t0: float, dt: float) -> None: ...

@@ -76,6 +76,27 @@ def long_rows_of(indptr: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(indptr[1:] - indptr[:-1] > LONG_ROW).flatten().to(torch.int32)
 
 
+def _pack_ell_group(ops):
+    """``(shape, indptr, cols, vals [k, nnz])`` of ELL operators sharing
+    one layout and no COO tail, read in place: each row's entries are in
+    column order with its padding (zeros at the row's own column) after,
+    so dropping the entries that are zero in every operator leaves the
+    duplicate-free, column-ordered rows :func:`pack_csr` would give.  None
+    for any other group."""
+    from .sparse import ELLMatrix
+
+    first = ops[0]
+    if not all(isinstance(A, ELLMatrix) and not A.has_tail and A.shape == first.shape for A in ops):
+        return None
+    if not all(A.cols is first.cols or np.array_equal(A.cols, first.cols) for A in ops[1:]):
+        return None
+    vals = np.stack([np.asarray(A.vals, dtype=np.float64) for A in ops])  # [k, n, w]
+    live = (vals != 0.0).any(axis=0)
+    indptr = np.zeros(first.shape[0] + 1, dtype=np.int64)
+    np.cumsum(live.sum(axis=1), out=indptr[1:])
+    return first.shape, indptr, np.asarray(first.cols)[live].astype(np.int64), vals[:, live]
+
+
 def _as_csr(A):
     import scipy.sparse as sp
 
@@ -115,24 +136,31 @@ class CSRMatrix:
     def from_operator_group(cls, ops) -> tuple["CSRMatrix", ...]:
         """Pack same-pattern operators (mass/stiffness) into ONE shared
         layout, so :meth:`combine` between them is valid; each keeps the
-        entries that are zero in it but not in the others."""
-        Ms = [_as_csr(A).tocoo() for A in ops]
-        shape = Ms[0].shape
-        if any(M.shape != shape for M in Ms):
-            raise ValueError(f"operators of one group need one shape, got {[M.shape for M in Ms]}")
-        rows = np.concatenate([M.row for M in Ms])
-        cols = np.concatenate([M.col for M in Ms])
-        stacked = np.zeros((len(Ms), rows.size))
-        off = 0
-        for k, M in enumerate(Ms):
-            stacked[k, off : off + M.data.size] = M.data
-            off += M.data.size
-        indptr, ucols, pvals = pack_csr(rows, cols, stacked, shape)
+        entries that are zero in it but not in the others.  ELL operators
+        of one layout without a COO tail (rows in column order, padding of
+        zeros after) are read row by row with no sort: the same CSR as the
+        sorting path gives, which the others take."""
+        packed = _pack_ell_group(ops)
+        if packed is not None:
+            shape, indptr, ucols, pvals = packed
+        else:
+            Ms = [_as_csr(A).tocoo() for A in ops]
+            shape = Ms[0].shape
+            if any(M.shape != shape for M in Ms):
+                raise ValueError(f"operators of one group need one shape, got {[M.shape for M in Ms]}")
+            rows = np.concatenate([M.row for M in Ms])
+            cols = np.concatenate([M.col for M in Ms])
+            stacked = np.zeros((len(Ms), rows.size))
+            off = 0
+            for k, M in enumerate(Ms):
+                stacked[k, off : off + M.data.size] = M.data
+                off += M.data.size
+            indptr, ucols, pvals = pack_csr(rows, cols, stacked, shape)
         square = shape[0] == shape[1]
         if square:
             prow = np.repeat(np.arange(shape[0]), np.diff(indptr))
             on = prow == ucols
-            diags = np.zeros((len(Ms), shape[0]))
+            diags = np.zeros((len(ops), shape[0]))
             diags[:, prow[on]] = pvals[:, on]
         indptr_t = torch.from_numpy(indptr.astype(np.int32))
         cols_t = torch.from_numpy(ucols.astype(np.int32))
@@ -140,11 +168,11 @@ class CSRMatrix:
             cls(
                 indptr=indptr_t,
                 cols=cols_t,
-                vals=torch.from_numpy(pvals[k]),
+                vals=torch.from_numpy(np.ascontiguousarray(pvals[k])),
                 shape=(int(shape[0]), int(shape[1])),
                 diag=torch.from_numpy(diags[k]) if square else None,
             )
-            for k in range(len(Ms))
+            for k in range(len(ops))
         )
 
     @classmethod

@@ -289,7 +289,9 @@ class RandomActivation:
 
     Evaluation is one broadcast over the point and delay arrays (the
     reference builds an N-term UFL conditional tree,
-    ``stimulation.py:335-362``), on the device of ``x``."""
+    ``stimulation.py:335-362``), on the device of ``x``; a numpy ``x`` (a
+    function's dof coordinates, as ``fem.Function.interpolate`` passes
+    them) is read on the CPU."""
 
     points: np.ndarray  # [N, d]
     delays: np.ndarray  # [N]
@@ -298,7 +300,8 @@ class RandomActivation:
     amplitude: float = 1.0
     tol: float = 1e-12
 
-    def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
+    def __call__(self, x, t) -> torch.Tensor:
+        x = torch.as_tensor(x)
         P = torch.as_tensor(self.points, device=x.device).to(x.dtype)  # [N, d]
         D = torch.as_tensor(self.delays, device=x.device).to(x.dtype)  # [N]
         xd = torch.stack([x[i] for i in range(P.shape[1])], dim=-1)  # [..., d]

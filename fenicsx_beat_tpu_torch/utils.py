@@ -1,11 +1,12 @@
 """FEM helper utilities: projection between spaces, space parsing,
 transmural layer labelling by a Laplace solve.
 
-Port of ``fenicsx_beat_tpu/utils.py``: ``local_project`` between equal
-spaces (a copy; projection between different spaces waits for the spaces
-themselves, ROADMAP A7), ``parse_element`` / ``space_from_string`` for the
-P1 space, ``interpolation_points``, and ``laplace_solve`` (its Jacobi
-branch) and ``expand_layer``: endo/epi surface markers become
+Port of ``fenicsx_beat_tpu/utils.py``: ``local_project`` (a copy between
+spaces of one size, else the transfer of ``fem.Function.interpolate``,
+one B8 product on the device), ``parse_element`` / ``space_from_string``
+for every family and degree, blocked with ``dim > 1``,
+``interpolation_points``, and ``laplace_solve`` (its Jacobi branch) and
+``expand_layer``: endo/epi surface markers become
 endo/mid/epi volume layers by thresholding the solution of -Laplace(u) = 0
 with u = 0 on the endocardium and u = 1 on the epicardium.  The solve is
 the port's Jacobi-PCG (:mod:`.ops.cg`) on the device, with the CSR SpMV
@@ -50,25 +51,28 @@ def local_project(
     v: fem.Function,
     V: fem.FunctionSpace,
     u: fem.Function | None = None,
+    device=None,
+    use_kernels: bool = True,
 ) -> fem.Function:
     """Element-wise projection/interpolation between spaces (reference
     ``utils.py:26-58``): a copy into ``u`` (a new function of ``V`` when
     None) when the two spaces have the same number of dofs, as the JAX
-    package does.  Any other pair raises ``NotImplementedError``."""
+    package does; else ``u.interpolate(v)`` on ``device`` (the card when
+    None): the transfer matrix's product, B8 on the card (its twin with
+    ``use_kernels=False``)."""
     U = u if u is not None else fem.Function(V)
-    if v.x.array.size != U.x.array.size:
-        raise NotImplementedError(
-            f"local_project between spaces of {v.x.array.size} and {U.x.array.size} dofs: projection "
-            "between different spaces is not ported yet (ROADMAP A7: higher-degree, DG and Quadrature spaces)"
-        )
-    U.x.array[:] = v.x.array[:]
+    if v.x.array.size == U.x.array.size:
+        U.x.array[:] = v.x.array[:]
+        return U
+    U.interpolate(v, device=device, use_kernels=use_kernels)
     return U
 
 
 def parse_element(space_string: str, mesh, dim: int = 1) -> fem.Element:
-    """Parse '{family}_{degree}' strings, e.g. 'P_1' (reference
-    ``utils.py:61-84``); the port's element is P1, so 'DG_1',
-    'Quadrature_4' and degrees above 1 raise ``NotImplementedError``."""
+    """Parse '{family}_{degree}' strings, e.g. 'P_1', 'DG_1', 'Quadrature_4'
+    (reference ``utils.py:61-84``).  ``dim > 1`` selects a blocked variant,
+    applied by :func:`space_from_string` (the element is scalar; blocking
+    lives on the space)."""
     family_str, degree_str = space_string.split("_")
     aliases = {
         "Lagrange": "P",
@@ -88,12 +92,10 @@ def parse_element(space_string: str, mesh, dim: int = 1) -> fem.Element:
 
 
 def space_from_string(space_string: str, mesh, dim: int = 1) -> fem.FunctionSpace:
-    """Function space from a '{family}_{degree}' string (reference
-    ``utils.py:87-112``); blocked spaces (``dim > 1``) are not ported."""
+    """Function space from a '{family}_{degree}' string; ``dim > 1`` builds
+    a blocked vector space (reference ``utils.py:87-112``)."""
     el = parse_element(space_string, mesh, dim)
-    if dim > 1:
-        raise NotImplementedError("blocked (vector) spaces are not ported yet")
-    return fem.functionspace(mesh, el)
+    return fem.functionspace(mesh, el, shape=(dim,) if dim > 1 else None)
 
 
 def laplace_solve(

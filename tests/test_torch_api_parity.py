@@ -14,8 +14,6 @@ from test_api_parity import REFERENCE_ALL, REFERENCE_SURFACE
 # module -> symbols the port does not have yet, and the ROADMAP item that ports them
 UNPORTED = {
     "cli": ("A14", REFERENCE_SURFACE["cli"]),
-    "geometry": ("A7 rest: the 2-D slab geometry",
-                 ["get_2D_slab_microstructure", "get_2D_slab_mesh", "get_2D_slab_geometry"]),
     "utils": ("A9 rest: the BiV", ["expand_layer_biv"]),
 }
 UNPORTED_MODULES = {"cli"}

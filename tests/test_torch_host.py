@@ -135,8 +135,14 @@ def test_published_table_carried_over():
 
 
 def test_unported_elements_raise(slabs):
-    _, tg = slabs
-    with pytest.raises(NotImplementedError):
-        tfem.functionspace(tg.mesh, ("P", 2))
-    with pytest.raises(NotImplementedError):
-        tfem.functionspace(tg.mesh, ("DG", 0))
+    """P2 and DG0 spaces on the slab are the JAX package's; what raises is
+    what JAX raises: PDE assembly on Quadrature and blocked spaces."""
+    jg, tg = slabs
+    for el in (("P", 2), ("DG", 0)):
+        tV, jV = tfem.functionspace(tg.mesh, el), jfem.functionspace(jg.mesh, el)
+        assert tV.ndofs == jV.ndofs
+        np.testing.assert_array_equal(tV.cell_dofs, jV.cell_dofs)
+    with pytest.raises(NotImplementedError, match="Quadrature"):
+        tfem.assemble_mass_stiffness(tfem.functionspace(tg.mesh, ("Quadrature", 2)), 1.0)
+    with pytest.raises(NotImplementedError, match="blocked"):
+        tfem.assemble_mass_stiffness(tfem.functionspace(tg.mesh, ("P", 1, (3,))), 1.0)

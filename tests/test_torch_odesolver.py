@@ -5,7 +5,8 @@ simple two-state ODE (a numpy stepper, run as given on the port's CPU
 tensors) and on TP06's generalized Rush-Larsen step (the port through B1's
 twin, JAX through its jnp model); the transfer hooks, ``states_to_dolfin``,
 the errors JAX raises, models with different state counts per marker, and
-``local_project`` between spaces of different sizes raising.  float64 on
+``local_project`` between spaces of different sizes raising where JAX's
+does.  float64 on
 the CPU."""
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from fenicsx_beat_tpu import fem as jfem
 from fenicsx_beat_tpu import mesh as jmesh
 from fenicsx_beat_tpu import odesolver as jode
+from fenicsx_beat_tpu import utils as jutils
 from fenicsx_beat_tpu.models import fitzhughnagumo as jfhn
 from fenicsx_beat_tpu.models import tentusscher_panfilov_2006 as jtp
 from fenicsx_beat_tpu_torch import fem as tfem
@@ -283,21 +285,27 @@ def test_markers_outside_the_ode_space_raise_as_in_jax():
 
 
 def test_cross_space_transfer_raises():
-    """Projection between spaces of different sizes (a P1 ODE space on
-    another mesh; P2, DG and Quadrature spaces themselves are not ported)
-    raises ``NotImplementedError`` naming the ROADMAP item."""
+    """Projection between spaces of different sizes raises only where the
+    JAX package's does: between functions on two different meshes (the
+    target's owner cells index the source's mesh, an IndexError in both).
+    On one mesh, P2, DG and Quadrature spaces transfer (the adapter's two
+    crossings a transfer), and ``space_from_string`` builds them."""
+    jcoarse = jfem.functionspace(jmesh.create_unit_square(None, 3, 3), ("P", 1))
+    jfine = jfem.functionspace(jmesh.create_unit_square(None, 4, 4), ("P", 1))
     coarse = tfem.functionspace(tmesh.create_unit_square(None, 3, 3), ("P", 1))
     fine = tfem.functionspace(tmesh.create_unit_square(None, 4, 4), ("P", 1))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tutils.local_project(tfem.Function(coarse), fine)
-    ode = tode.DolfinODESolver(v_ode=tfem.Function(coarse), v_pde=tfem.Function(fine), init_states=np.array([1.0, 2.0]),
+    with pytest.raises(IndexError):
+        jutils.local_project(jfem.Function(jcoarse), jfine)
+    with pytest.raises(IndexError):
+        tutils.local_project(tfem.Function(coarse), fine, device="cpu")
+    mesh = tmesh.create_unit_square(None, 3, 3)
+    V1, V2 = tfem.functionspace(mesh, ("P", 1)), tfem.functionspace(mesh, ("P", 2))
+    ode = tode.DolfinODESolver(v_ode=tfem.Function(V2), v_pde=tfem.Function(V1), init_states=np.array([1.0, 2.0]),
                                parameters=np.array([1, 1]), fun=simple_ode_forward_euler, num_states=2, device="cpu")
     ode.to_dolfin()
-    with pytest.raises(NotImplementedError, match="A7"):
-        ode.ode_to_pde()
-    with pytest.raises(NotImplementedError):
-        tfem.functionspace(tmesh.create_unit_square(None, 3, 3), ("P", 2))
-    with pytest.raises(NotImplementedError):
-        tutils.space_from_string("DG_1", tmesh.create_unit_square(None, 3, 3))
+    ode.ode_to_pde()
+    np.testing.assert_allclose(ode.v_pde.x.array, 1.0, rtol=1e-14)
+    assert ode.host_transfers == 3
+    assert tutils.space_from_string("DG_1", mesh).ndofs == 3 * mesh.num_cells
     same = tutils.local_project(tfem.Function(fine), fine)
     assert same.x.array.size == fine.ndofs
