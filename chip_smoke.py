@@ -50,8 +50,9 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      below float32's normal range); then ToR-ORd's B1, its per-node form
      and B7 at the psize 0.1 LV's shapes (n = 243,518; B7 with the LV's
      own layers), held per state row and celltype by the one-step limits
-     (each slow row scaled) and over one paced beat of 4,096 cells; B1's
-     per-node form on a uniform field gives B1's bits;
+     (each slow row scaled) and over one paced beat of 4,096 cells (the
+     three forms' beats side by side, a CUDA stream each); B1's per-node
+     form on a uniform field gives B1's bits;
    - FitzHugh-Nagumo's B1, per-node form and B7 at the main path's width
      (n = 442,401; ``benchmarks/kernel_check.py:fhn_checks``): per state
      row, one step with the stimulus on and off, and one paced beat of
@@ -173,10 +174,10 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    Niederer slab at dx=0.1, Strang, 40 ms, through
    ``benchmarks/mixed.py:run_mixed_slab`` on the kernels (ms/s, CG and
    host syncs per step, P1-P9, launches per model, the share of blocks
-   two models cover); its 40 ms again on the kernels, on the twins and on
-   both from states one ulp away (v at every node within 3x that noise at
-   20 ms, the TP06 half's wave, and at 40 ms, the Land half's; the gap
-   over each half printed); the same at dx=0.5 against the
+   two models cover); its 40 ms again on the kernels, from states one ulp
+   away and on the twins (v at every node within 3x the kernels' one-ulp
+   noise at 20 ms, the TP06 half's wave, and at 40 ms, the Land half's; the
+   gap over each half printed); the same at dx=0.5 against the
    JAX package's float64 P1-P9 (``tests/torch_mixed_reference.py``), each
    within one dt.
 18. (run after the per-node paths, before Land) the object-oriented path,
@@ -217,6 +218,30 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    P1-P9 within one dt of the JAX package's float64 values
    (``tests/torch_spaces_reference.py``).  Every line names the card and
    its power limit.
+19. The differentiable solver (``adjoint.py``) on ``benchmarks/fit_scale.py``'s
+   ``lv`` fit (psize 0.15, 78,968 nodes, TP06 GRL float32, 10 ms segments,
+   20 ms windows, carry_clip 1e3, cotangent scale 2**-64, window_outlier
+   20): (a) B8's combination (``LaneCombo``: mass, fiber, transverse) on
+   the card, forward, dx and dw against the twin's within 1e-4 of
+   max|twin|, the same bits over two calls, device time of forward and
+   backward beside ``torch.mv``'s; (b) one 20 ms window of
+   ``host_segmented_value_and_grad`` through B8's combination and through
+   the plain path (B8's twin), value and gradients within 3x the largest gap
+   of each path to its runs from states one ulp away and with its rows
+   summed in reverse (``ADJ_WITNESS_NOISE``, from ``fit_scale.py
+   witness``), all finite, with
+   seconds per segment forward and backward, CG iterations per step of the
+   forward and adjoint solves, host syncs, B8 launches per step (forward
+   and backward) and peak memory; (c) one step of the fit's Adam from the
+   lane window's gradient: the loss, from a forward sweep, falls; (d) the
+   lane window of the same fit at psize 0.5 (2,607 nodes) over 10 ms (two
+   5 ms segments) against the CPU's float64 window of the same problem
+   (``fit_scale.py reference``, its own process, run beside (a)-(c)),
+   value and gradients within 3x the largest gap to it of the CPU's float32
+   window and its runs from states one ulp away.  The adjoint's steps are
+   launch-bound on the host: the 3-iteration fit and the finite-difference
+   check (``fit_scale.py fdcheck``) run on their own, and on the CPU in
+   ``tests/test_torch_adjoint_fit.py``.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -228,6 +253,7 @@ CUDA card and the repository beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -407,7 +433,9 @@ MIXED_DX, MIXED_T = 0.1, 40.0
 # The kernel-vs-twin comparison reads v at 20 ms (the wave reaches the Land
 # half: P9, at x = 10 mm, fires at 18.15 ms) and at 40 ms (Land's P3 and P7
 # fire at 33-34 ms): a twin run of the slab takes 61-78 s for 40 ms on an
-# H100 (0.51-0.65 ms/s)
+# H100 (0.51-0.65 ms/s).  The noise is the kernels' one-ulp run's (the
+# twins' own one-ulp run, 6.25e-3 mV under the kernels' 1.206e-2 at 20 ms,
+# is not repeated: the script's time limit is shared with phase 19)
 MIXED_TWIN_TIMES = (20.0, 40.0)
 # ... and at dx=0.5 (4,305 nodes) to the JAX package's P1-P9 in float64 on
 # the CPU, each within one dt (-1: not fired by 40 ms at this size), from
@@ -541,6 +569,27 @@ JAX_SPACES_DX05 = {
     "q": [-1.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0],
 }
 
+# Phase 19, the differentiable solver (``fenicsx_beat_tpu_torch/adjoint.py``)
+# on the fit of ``benchmarks/fit_scale.py``'s ``lv`` case: the LV at psize
+# 0.15 (78,968 nodes), TP06 GRL in float32, dt 0.05, 10 ms segments, one
+# 20 ms window, carry_clip 1e3, cotangent scale 2**-64, window_outlier 20,
+# the fiber and transverse components through B8's combination (lane path)
+# and through B8's twin (the plain path); then one Adam step from the lane
+# window's gradient
+ADJ_PSIZE, ADJ_T = 0.15, 20.0
+# The two paths' window is held to 3x the float32 noise of each quantity:
+# the largest gap of each path to its run from states moved by one ulp
+# (seed 1) and to its run with each row's entries summed in reverse order,
+# from
+#   python -m fenicsx_beat_tpu_torch.benchmarks.fit_scale witness
+# on an H100 80GB HBM3 at 700 W (every kernel and sum on these paths is
+# deterministic: the card repeats the windows bit for bit, and the lane
+# and plain windows here).  The two paths differ in the order of their
+# sums, and so do the reversed runs: the one-ulp runs moved the loss by
+# 1.2e-9 and 2.5e-9, the reversed ones by 1.5e-8 and 1.4e-8.
+ADJ_WITNESS_NOISE = {"loss": 1.513e-08, "dL/dg_l": 5.779e-03, "dL/dg_t": 9.178e-03}
+TP06_STATES = 19
+
 # the ionic sources whose four kernels the register gate holds (phase 3)
 IONIC_GATED = ("tp06_grl", "torord_grl", "torord_land_grl")
 
@@ -568,6 +617,13 @@ SOURCES = {
                               "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
     "csr_spmv": ("fenicsx_beat_tpu_torch/csrc/csr_spmv.cu",
                  "fenicsx_beat_tpu/ops/pallas_ell.py:170"),
+    # B8 under the differentiable solver's combination (adjoint.LaneCombo):
+    # its forward and its backward, the JAX package's custom VJP around B8
+    # (fenicsx_beat_tpu/adjoint.py:180-194)
+    "csr_spmv[combination]": ("fenicsx_beat_tpu_torch/csrc/csr_spmv.cu",
+                              "fenicsx_beat_tpu/ops/pallas_ell.py:170 (fenicsx_beat_tpu/adjoint.py:181)"),
+    "csr_spmv[combination backward]": ("fenicsx_beat_tpu_torch/csrc/csr_spmv.cu",
+                                       "fenicsx_beat_tpu/ops/pallas_ell.py:170 (fenicsx_beat_tpu/adjoint.py:187)"),
     "stencil_spmv": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv.cu",
                      "fenicsx_beat_tpu/ops/pallas_spmv.py:38"),
     "stencil_spmv_window": ("fenicsx_beat_tpu_torch/csrc/stencil_spmv_window.cu",
@@ -1336,13 +1392,15 @@ def phase_torord_kernels(solver, seed: int = 3, model: str = "torord_dyncl", n_b
             lambda S, v, t, dt, p: spec.multi_step_twin(S, v, index_b, t, dt, paced_layers),
             None, {name: torch.nonzero(index_b == i).flatten() for i, name in layer_of.items()}),
     }
-    for name, (step, twin, p, bgroups) in beats.items():
-        tic = time.perf_counter()
-        out = kc.ionic_beat_errors_by_group(step, twin, beat0, p, bgroups)
-        took = time.perf_counter() - tic
+    tic = time.perf_counter()  # the three beats side by side, a CUDA stream each
+    outs = kc.ionic_beats_errors_by_group([(step, twin, beat0, p, bgroups)
+                                           for step, twin, p, bgroups in beats.values()])
+    took = time.perf_counter() - tic
+    for name, out in zip(beats, outs):
         for g, (a, e) in out.items():
             print(f"[kernels] {name} one beat, {g} ({m} cells in all, {kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, "
-                  f"{took:.1f} s), max|k-w| {a:.3e}; per row max|k-w| / max excursion: {per_row(e)}")
+                  f"the three forms' beats {took:.1f} s), max|k-w| {a:.3e}; per row max|k-w| / max excursion: "
+                  f"{per_row(e)}")
             require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{name} agrees with its twin over one beat, {g}")
 
     scratch, scratch_lv = S0.clone(), S0_lv.clone()
@@ -1663,11 +1721,12 @@ def phase_mixed_path(solver, setup_s: float) -> dict:
     40 ms, through ``benchmarks/mixed.py:run_mixed_slab`` on the kernels
     (launch counts zeroed before, read after: both models' B7 and B2-B4 > 0):
     ms/s, CG iterations and host syncs per step, P1-P9, launches per model,
-    the share of blocks that hold two models.  Then the 40 ms again on the
-    kernels and on the twins, each also from states one ulp away: at each
-    of MIXED_TWIN_TIMES, v at every node of the kernel run within 3x
-    float32's noise (the larger distance of a one-ulp run to its own) of
-    the twin run, the gap over each model's nodes printed."""
+    the share of blocks that hold two models.  Then the first
+    MIXED_TWIN_TIMES again on the kernels, from the same states and from
+    states one ulp away, and on the twins: at each of MIXED_TWIN_TIMES, v at
+    every node of the kernel run within 3x float32's noise (the distance of
+    the kernels' one-ulp run to their own, as phase 13 holds the bidomain)
+    of the twin run, the gap over each model's nodes printed."""
     import numpy as np
     import torch
 
@@ -1713,20 +1772,19 @@ def phase_mixed_path(solver, setup_s: float) -> dict:
     twin = build_mixed_solver(dx=MIXED_DX, device=DEVICE, use_kernels=False,
                               probe_points=np.array(list(benchmark_points().values())))
     (vk, _), (vk2, _) = windows(solver, None), windows(solver, 1)
-    (vw, wall_w), (vw2, _) = windows(twin, None), windows(twin, 1)
+    vw, wall_w = windows(twin, None)
     require(bool(torch.isfinite(twin.states).all()), "Path M's twin run is finite")
     tp06_half = torch.as_tensor(mixed_markers(solver.V.dof_coords) == TP06_MARKER, device=vk[0].device)
     print(f"[mixed] {MIXED_TWIN_TIMES[-1]:g} ms on the twins: {MIXED_TWIN_TIMES[-1] / wall_w:.3f} ms/s")
     for i, t in enumerate(MIXED_TWIN_TIMES):
-        d, dk, dw = (vk[i] - vw[i]).abs(), (vk[i] - vk2[i]).abs(), (vw[i] - vw2[i]).abs()
-        gap, noise = float(d.max()), max(float(dk.max()), float(dw.max()))
-        halves = {name: (float(d[m].max()), float(dk[m].max()), float(dw[m].max()))
-                  for name, m in (("TP06", tp06_half), ("Land", ~tp06_half))}
+        d, dk = (vk[i] - vw[i]).abs(), (vk[i] - vk2[i]).abs()
+        gap, noise = float(d.max()), float(dk.max())
+        halves = {name: (float(d[m].max()), float(dk[m].max())) for name, m in (("TP06", tp06_half), ("Land", ~tp06_half))}
         print(f"[mixed] at {t:g} ms: twins v_max {float(vw[i].max()):.3f} mV, share above 0 mV "
               f"{float((vw[i] > 0).double().mean()):.4f}; kernels vs twins max|dv| {gap:.3e} mV at every node, "
-              f"float32 noise (runs from states one ulp away, the larger of kernels and twins) {noise:.3e} mV "
-              f"(limit {ODE_NOISE_FACTOR:g}x, {gap / noise:.2f}x); per half, gap / kernels' noise / twins' noise: "
-              + ", ".join(f"{k} {a:.3e} / {b:.3e} / {c:.3e}" for k, (a, b, c) in halves.items()))
+              f"float32 noise (the kernel run from states one ulp away) {noise:.3e} mV "
+              f"(limit {ODE_NOISE_FACTOR:g}x, {gap / noise:.2f}x); per half, gap / kernels' noise: "
+              + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in halves.items()))
         require(gap <= ODE_NOISE_FACTOR * noise, f"Path M's kernel run within 3x float32's noise of its twin "
                                                  f"run at {t:g} ms")
     return {"tp06_grl_multi_step_v[mixed]": launches["tp06_grl_multi_step_v"],
@@ -3335,6 +3393,224 @@ def phase_ecg_scale(scale) -> dict:
     return launches
 
 
+
+def phase_adjoint() -> tuple[dict, dict]:
+    """Phase 19, the differentiable solver on the card: (a) B8's
+    combination on the LV operator group (mass, fiber, transverse) at
+    psize 0.15, forward, dx and dw against the twin's within 1e-4 of
+    max|twin|, the same bits over two calls, device time of forward and
+    backward beside torch.mv's; (b) one 20 ms window of
+    host_segmented_value_and_grad on the lv fit problem through the lane
+    path and through the plain path (B8's twin), value and gradients within
+    3x the largest gap of each path to its runs from states one ulp away
+    and with its rows summed in reverse (:data:`ADJ_WITNESS_NOISE`), every
+    gradient finite; (c) one Adam step of
+    the fit from (b)'s lane gradient: the loss at the new point, from a
+    forward sweep, below (b)'s; (d) the lane window of the same fit at
+    psize 0.5 over 10 ms (two 5 ms segments) against the CPU's float64
+    window of the same problem (``fit_scale.py reference``, a process of its
+    own started first and run beside (a)-(c)), value and gradients within 3x
+    the largest gap to the float64 one of the CPU's float32 window and its
+    runs from states one ulp away (three seeds).  Prints nodes, seconds per segment forward
+    and backward, CG iterations per step in forward and adjoint solves, host
+    syncs, B8 launches per step and peak memory.  Returns the two B8 rows
+    and their launches in (b)'s lane run."""
+    tic = time.perf_counter()
+    # (d)'s CPU reference runs beside (a)-(c), torch on one of the host's cores
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-m", "fenicsx_beat_tpu_torch.benchmarks.fit_scale", "reference", "--device", "cpu"],
+        cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        return _adjoint_checks(ref_proc, tic)
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.communicate()
+
+
+def _adjoint_checks(ref_proc, tic: float) -> tuple[dict, dict]:
+    """Phase 19's checks (:func:`phase_adjoint`), ``ref_proc`` the CPU
+    reference's process."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.adjoint import LaneCombo
+    from fenicsx_beat_tpu_torch.benchmarks import fit_scale as fs
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.ops import cuda_ell
+
+    prob = fs.build_problem("lv", psize=ADJ_PSIZE, T=ADJ_T, device=DEVICE)
+    setup_s = time.perf_counter() - tic
+    sim = prob.raw_sim
+    combo = sim.lane_combo
+    n = prob.mesh.num_vertices
+    require(combo is not None, "the LV fit takes the lane path (B8's combination) on the card")
+    print(f"[adjoint] lv fit problem: psize {ADJ_PSIZE}, {n} nodes, {combo.parts[0].nnz} entries, "
+          f"host setup {setup_s:.1f} s")
+
+    # (a) B8's combination against the twin: the fit's theta-system weights
+    dev = prob.states0.device
+    rng = np.random.default_rng(19)
+    g = np.asarray(fs.G_TRUE) * np.asarray((0.5, 1.8))
+    w = torch.as_tensor(np.concatenate([[1.0], 0.05 * g]), device=dev).to(torch.float32)
+    x = torch.as_tensor(rng.uniform(-90.0, 40.0, n), device=dev).to(torch.float32)
+    yb = torch.as_tensor(rng.standard_normal(n), device=dev).to(torch.float32)
+    A_w = combo.matrix(w)
+
+    def kernel_pass():
+        wr, xr = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        y = combo.mv(wr, xr, A_w)
+        y.backward(yb)
+        return y.detach(), xr.grad, wr.grad
+
+    def twin_vjp():
+        dx = cuda_ell.csr_spmv_twin(A_w, yb)
+        dw = torch.stack([torch.dot(yb, cuda_ell.csr_spmv_twin(K, x)) for K in combo.parts])
+        return dw, dx
+
+    y_k, dx_k, dw_k = kernel_pass()
+    y_t = cuda_ell.csr_spmv_twin(A_w, x)
+    dw_t, dx_t = twin_vjp()
+    err_f = compare((y_k,), (y_t,))
+    err_b = compare((dx_k, dw_k), (dx_t, dw_t))
+    again = kernel_pass()
+    same = all(torch.equal(a, b) for a, b in zip((y_k, dx_k, dw_k), again))
+    f32, nnz, nc = 4, A_w.nnz, len(combo.parts)
+    S_w = torch.sparse_csr_tensor(A_w.indptr, A_w.cols, A_w.vals, A_w.shape)
+    rows = {
+        "csr_spmv[combination]": row(
+            err_f,
+            time_ms(lambda: combo.mv(w, x, A_w)),
+            time_ms(lambda: cuda_ell.csr_spmv_twin(A_w, x)),
+            bound(nnz * 2 * f32 + (n + 1) * f32 + 2 * n * f32, 2 * nnz),
+            library_time(lambda: sparse_mv(S_w, x)),
+        ),
+        # dx = K(w) ybar and dw_i = ybar . (K_i x): every component's values
+        # and the pattern read once, x and ybar read, dx and dw written
+        "csr_spmv[combination backward]": row(
+            err_b,
+            time_ms(lambda: combo.vjp(x, yb, A_w)),
+            time_ms(twin_vjp),
+            bound(nnz * (nc + 1) * f32 + (n + 1) * f32 + 3 * n * f32 + nc * f32, 2 * nnz * (nc + 1) + 2 * n * nc),
+            None,
+        ),
+    }
+    dev_us = {"forward": device_us_per_call(lambda: combo.mv(w, x, A_w)),
+              "backward": device_us_per_call(lambda: combo.vjp(x, yb, A_w))}
+    try:
+        dev_us["torch.mv"] = device_us_per_call(lambda: sparse_mv(S_w, x))
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[adjoint] torch.mv refused: {type(exc).__name__}: {str(exc)[:200]}")
+    print(f"[adjoint] (a) B8's combination, {nc} operators of {nnz} entries: forward rel err "
+          f"{err_f[1]:.3e}, backward (dx, dw) {err_b[1]:.3e}; bits equal over two calls: {same}; device time "
+          f"forward {dev_us['forward']:.2f} us, backward {dev_us['backward']:.2f} us ({nc + 1} B8 launches and "
+          f"{nc} dots), torch.mv " + (f"{dev_us['torch.mv']:.2f} us" if "torch.mv" in dev_us else "refused")
+          + " (torch.profiler)")
+    print_rows(rows)
+    for name in rows:
+        require(rows[name]["rel_err"] <= REL_TOL, f"{name} agrees with the twin within {REL_TOL:g} of max|twin|")
+    require(same, "B8's combination gives the same bits over two calls, forward and backward")
+
+    # (b) one 20 ms window: the lane path, then the plain path (B8's twin)
+    g0 = fs.fit_start(prob)
+    targets, target_s = prob.targets(fs.G_TRUE)
+    prob_plain = fs.build_problem("lv", psize=ADJ_PSIZE, T=ADJ_T, device=DEVICE, use_lane_ops=False)
+    require(prob_plain.raw_sim.lane_combo is None, "use_lane_ops=False takes the plain path (B8's twin)")
+    n_steps = prob.n_seg * prob.seg_steps
+
+    def window(p, states0=None):
+        sec: dict = {}
+        p.raw_sim.cg_counts.reset()
+        torch.cuda.reset_peak_memory_stats()
+        value, grads = fs.windowed_value_and_grad(p, g0, targets, states0=states0, segment_seconds=sec)
+        gr = grads["g"].double().cpu().numpy()
+        return value, gr, sec, p.raw_sim.cg_counts, torch.cuda.max_memory_allocated()
+
+    cuda_ell.csr_spmv.launches = 0
+    LaneCombo.backward_launches = 0
+    lane = window(prob)
+    b8_total, b8_back = cuda_ell.csr_spmv.launches, LaneCombo.backward_launches
+    launches = {"csr_spmv[combination]": b8_total - b8_back, "csr_spmv[combination backward]": b8_back}
+    c = lane[3]
+    carry_mb = TP06_STATES * n * f32 / 2**20
+    print(f"[adjoint] (b) lane path, one {ADJ_T:g} ms window ({prob.n_seg} segments of {prob.seg_steps} steps): "
+          f"loss {lane[0]:.6e}, dL/dg {lane[1].tolist()}; seconds per segment forward "
+          f"{np.mean(lane[2]['forward']):.3f}, backward {np.mean(lane[2]['backward']):.3f} (forward sweep without a "
+          f"graph; backward = the segment again under autograd, its checkpointed steps recomputed, and the "
+          f"adjoint solves); CG iterations per step: forward solves {c.forward_iterations / c.forward_solves:.3f} "
+          f"({c.forward_solves} solves: the sweep, the backward's forward and its recomputation), adjoint "
+          f"{c.adjoint_iterations / max(c.adjoint_solves, 1):.3f} ({c.adjoint_solves} solves); host syncs "
+          f"{c.host_syncs} ({c.host_syncs / n_steps:.2f} a step); B8 launches {b8_total} "
+          f"({b8_total / n_steps:.2f} a step, {b8_back} in the backward); peak memory {lane[4] / 2**30:.3f} GiB "
+          f"against {prob.seg_steps} saved carries of {carry_mb:.2f} MiB = {prob.seg_steps * carry_mb / 1024:.3f} "
+          f"GiB (the flat checkpoint: one carry a step of a segment); target sweep {target_s:.2f} s")
+    plain = window(prob_plain)
+    print(f"[adjoint] (b) plain path (B8's twin): loss {plain[0]:.6e}, dL/dg {plain[1].tolist()}; seconds per "
+          f"segment forward {np.mean(plain[2]['forward']):.3f}, backward {np.mean(plain[2]['backward']):.3f}; CG "
+          f"forward {plain[3].forward_iterations / plain[3].forward_solves:.3f}, adjoint "
+          f"{plain[3].adjoint_iterations / max(plain[3].adjoint_solves, 1):.3f} a solve; peak memory "
+          f"{plain[4] / 2**30:.3f} GiB")
+    names = ["loss", "dL/dg_l", "dL/dg_t"]
+    for i, name in enumerate(names):
+        get = (lambda r: r[0]) if i == 0 else (lambda r, i=i: r[1][i - 1])
+        gap = abs(get(lane) - get(plain))
+        noise = ADJ_WITNESS_NOISE[name]
+        print(f"[adjoint] (b) {name}: lane {get(lane):.9e}, plain {get(plain):.9e}, gap {gap:.3e}, float32 noise "
+              f"(each path from states one ulp away and with its rows summed in reverse, fit_scale.py witness) "
+              f"{noise:.3e} "
+              f"({gap / noise:.2f}x, limit {ODE_NOISE_FACTOR:g}x)")
+        require(gap <= ODE_NOISE_FACTOR * noise, f"the lane and plain windows' {name} agree within 3x float32's noise")
+    for r, tag in ((lane, "lane"), (plain, "plain")):
+        require(bool(np.isfinite(r[1]).all()) and np.isfinite(r[0]), f"the {tag} window's value and gradient are finite")
+    require(launches["csr_spmv[combination]"] > 0 and launches["csr_spmv[combination backward]"] > 0,
+            "the lane window launched B8 in the combination's forward and backward")
+    del prob_plain
+
+    # (c) one step of the fit's Adam (run_fit's first: log space, lr held)
+    # from the lane window's gradient; the loss there from a forward sweep
+    t_c = time.perf_counter()
+    theta = torch.log(g0).clone().requires_grad_(True)
+    opt, _ = fs.adam(theta, fs.LR, None)
+    theta.grad = g0 * torch.as_tensor(lane[1], device=g0.device).to(g0.dtype)
+    opt.step()
+    g1 = torch.exp(theta.detach()).double().cpu().numpy()
+    loss1 = fs.total_loss(prob, g1, targets)
+    print(f"[adjoint] (c) one Adam step (lr {fs.LR:g} in log g) from g {g0.double().cpu().tolist()} to "
+          f"{g1.tolist()} (truth {list(fs.G_TRUE)}): loss {lane[0]:.6e} -> {loss1:.6e} "
+          f"({time.perf_counter() - t_c:.2f} s)")
+    require(np.isfinite(loss1) and loss1 < lane[0], "the fit's loss falls after one Adam step")
+    del prob
+
+    # (d) the lane window at psize 0.5 against the CPU's float64 window
+    t_d = time.perf_counter()
+    small = fs.build_problem("lv", psize=fs.REF_PSIZE, T=fs.REF_T, segment_ms=fs.REF_SEGMENT_MS, device=DEVICE,
+                             use_lane_ops=True)
+    card = fs.first_window(small)
+    card_s = time.perf_counter() - t_d
+    t_w = time.perf_counter()
+    out, err = ref_proc.communicate(timeout=900)
+    require(ref_proc.returncode == 0, f"fit_scale.py reference ran on the CPU (exit {ref_proc.returncode}): "
+                                      f"{err[-2000:]}")
+    ref = json.loads(out.strip().splitlines()[-1])
+    f64 = np.asarray(ref["runs"]["f64"])
+    witnesses = np.asarray([r for k, r in ref["runs"].items() if k != "f64"])
+    print(f"[adjoint] (d) the lv window at psize {fs.REF_PSIZE} ({small.mesh.num_vertices} nodes), {fs.REF_T:g} ms "
+          f"in {small.n_seg} segments of {fs.REF_SEGMENT_MS:g} ms, on B8's combination: {card_s:.1f} s; the CPU's "
+          f"reference {ref['seconds']:.1f} s in its own process, waited for {time.perf_counter() - t_w:.1f} s")
+    for i, name in enumerate(names):
+        gap = abs(card[i] - f64[i])
+        noise = float(np.abs(witnesses[:, i] - f64[i]).max())
+        print(f"[adjoint] (d) {name}: card float32 {card[i]:.9e}, CPU float64 {f64[i]:.9e}, gap {gap:.3e}; CPU "
+              f"float32 from the same states and from states one ulp away {witnesses[:, i].tolist()}, float32 "
+              f"noise (the largest gap to float64) {noise:.3e} ({gap / noise:.2f}x, limit {ODE_NOISE_FACTOR:g}x)")
+        require(gap <= ODE_NOISE_FACTOR * noise, f"the card's window's {name} within 3x float32's noise of the "
+                                                 f"CPU's float64 window")
+
+    print(f"[adjoint] phase 19 took {time.perf_counter() - tic:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -3411,6 +3687,10 @@ def main() -> int:
     launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
     phase_ode_demo(ode)
     launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
+    # phase 19: the differentiable solver (B8's combination, forward and backward)
+    adj_rows, adj_launches = phase_adjoint()
+    rows.update(adj_rows)
+    launches.update(adj_launches)
 
     kernels = []
     for name, r in rows.items():

@@ -193,13 +193,34 @@ def ionic_beat_errors_by_group(
     """:func:`ionic_beat_errors` from one run, the max and the per-row error
     taken over each group of nodes (``name -> node index tensor``, None for
     all nodes); returns ``name -> (max abs, per-row error)``."""
-    k, w = states.clone(), states.clone()
-    acc = {name: (torch.zeros(states.shape[0], dtype=states.dtype, device=states.device),
-                  torch.zeros(states.shape[0], dtype=states.dtype, device=states.device))
-           for name in groups}
-    twin_step = _twin_stepper(twin, w, dt, parameters, v_index)
-    t = float(t0)
-    for _ in range(n_steps):
+    return ionic_beats_errors_by_group([(step, twin, states, parameters, groups)], dt, n_steps, t0, v_index)[0]
+
+
+def ionic_beats_errors_by_group(runs: list, dt: float = BEAT_DT, n_steps: int = BEAT_STEPS, t0: float = 0.0,
+                                v_index: int = 0) -> list[dict]:
+    """:func:`ionic_beat_errors_by_group` of each ``(step, twin, states,
+    parameters, groups)`` in ``runs``, stepped together.  On the card each
+    run has a CUDA stream of its own: a twin's step at a few thousand cells
+    is a graph of small kernels that leave most of the card idle, and the
+    runs' graphs fill it side by side.  Each run's operations keep their
+    order within its stream, so the figures are those of the runs made one
+    after another."""
+    on_card = runs[0][2].device.type == "cuda"
+    current = torch.cuda.current_stream(runs[0][2].device) if on_card else None
+    plans = []
+    for step, twin, states, parameters, groups in runs:
+        k, w = states.clone(), states.clone()
+        acc = {name: (torch.zeros(states.shape[0], dtype=states.dtype, device=states.device),
+                      torch.zeros(states.shape[0], dtype=states.dtype, device=states.device))
+               for name in groups}
+        stream = torch.cuda.Stream(states.device) if on_card else None
+        plans.append((step, states, parameters, groups, k, acc, _twin_stepper(twin, w, dt, parameters, v_index),
+                      w, stream))
+    if on_card:
+        for plan in plans:
+            plan[-1].wait_stream(current)
+
+    def advance(step, states, parameters, groups, k, acc, twin_step, w, t):
         step(k, k[v_index], t, dt, parameters)
         twin_step(t)
         d, e = (k - w).abs(), (w - states).abs()
@@ -207,11 +228,23 @@ def ionic_beat_errors_by_group(
             err, exc = acc[name]
             torch.maximum(err, (d if nodes is None else d[:, nodes]).amax(dim=1), out=err)
             torch.maximum(exc, (e if nodes is None else e[:, nodes]).amax(dim=1), out=exc)
+
+    t = float(t0)
+    for _ in range(n_steps):
+        for *plan, stream in plans:
+            if stream is None:
+                advance(*plan, t)
+            else:
+                with torch.cuda.stream(stream):
+                    advance(*plan, t)
         t += dt
-    return {
-        name: (float(err.max()), err.double() / exc.double().clamp_min(1e-300))
-        for name, (err, exc) in acc.items()
-    }
+    if on_card:
+        for plan in plans:
+            current.wait_stream(plan[-1])
+    return [
+        {name: (float(err.max()), err.double() / exc.double().clamp_min(1e-300)) for name, (err, exc) in plan[5].items()}
+        for plan in plans
+    ]
 
 
 def _twin_stepper(twin: IonicStep, w: torch.Tensor, dt: float, parameters,

@@ -21,12 +21,22 @@ __all__ = ["unpack_params", "exp", "log", "sqrt", "floor", "maximum", "where_lik
 def unpack_params(parameters, like: torch.Tensor, names: list[str]) -> dict:
     """Parameter vector -> ``{name: Python float}``; node-aligned ``[NP, n]``
     field (numpy or torch) -> ``{name: row tensor}`` in ``like``'s dtype
-    and device."""
+    and device.  A vector tensor that requires grad (the differentiable
+    solver's ``ionic`` parameters) -> ``{name: 0-d float64 tensor}`` on
+    ``like``'s device, in the graph: a 0-d tensor takes part in type
+    promotion as a Python float does, so the parameter-only terms are
+    computed in float64 and the node terms in ``like``'s dtype, as on the
+    float path."""
     if np.ndim(parameters) == 2:
         rows = torch.as_tensor(parameters).to(device=like.device, dtype=like.dtype)
         if rows.shape[0] != len(names):
             raise ValueError(f"the model takes {len(names)} parameter rows, got {rows.shape[0]}")
         return {name: rows[i] for i, name in enumerate(names)}
+    if isinstance(parameters, torch.Tensor) and parameters.requires_grad:
+        vals = parameters.reshape(-1).to(device=like.device, dtype=torch.float64)
+        if vals.shape[0] != len(names):
+            raise ValueError(f"the model takes {len(names)} parameters, got {vals.shape[0]}")
+        return {name: vals[i] for i, name in enumerate(names)}
     if isinstance(parameters, torch.Tensor):
         parameters = parameters.detach().cpu().double().numpy()
     vals = np.asarray(parameters, dtype=np.float64).reshape(-1)

@@ -228,7 +228,9 @@ def test_port_imports_neither_jax_nor_jax_package():
         "fenicsx_beat_tpu_torch.monodomain_solver, fenicsx_beat_tpu_torch.theta_system, "
         "fenicsx_beat_tpu_torch.stimulation, fenicsx_beat_tpu_torch.fem, "
         "fenicsx_beat_tpu_torch.benchmarks.lv_endocardial, fenicsx_beat_tpu_torch.benchmarks.verification, "
-        "fenicsx_beat_tpu_torch.benchmarks.lv_cg_start; "
+        "fenicsx_beat_tpu_torch.benchmarks.lv_cg_start, fenicsx_beat_tpu_torch.adjoint, "
+        "fenicsx_beat_tpu_torch.benchmarks.fit_scale, fenicsx_beat_tpu_torch.benchmarks.adjoint_scale, "
+        "fenicsx_beat_tpu_torch.benchmarks.conductivity_fit, fenicsx_beat_tpu_torch.benchmarks.anisotropy_fit; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fenicsx_beat_tpu' or m.startswith('fenicsx_beat_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
