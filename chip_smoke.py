@@ -32,7 +32,8 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      epi, mid): every state's one-step increment (at physiological values
      and with each slow concentration scaled, see
      ``benchmarks/kernel_check.py``), and every state over one paced beat
-     of 16,384 cells (the twin's step replayed as a CUDA graph).  B1's
+     of 16,384 cells (the twin's step replayed as a CUDA graph; the three
+     celltypes' beats side by side, a CUDA stream each).  B1's
      per-node form for TP06 at the same shapes: a uniform parameter field
      gives B1's bits exactly, a field of mixed celltypes is held by the
      same one-step limits;
@@ -50,8 +51,9 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      below float32's normal range); then ToR-ORd's B1, its per-node form
      and B7 at the psize 0.1 LV's shapes (n = 243,518; B7 with the LV's
      own layers), held per state row and celltype by the one-step limits
-     (each slow row scaled) and over one paced beat of 4,096 cells (the
-     three forms' beats side by side, a CUDA stream each); B1's per-node
+     (each slow row scaled) and over the first 200 ms of one paced beat of
+     4,096 cells (the three forms' beats side by side, a CUDA stream each);
+     B1's per-node
      form on a uniform field gives B1's bits;
    - FitzHugh-Nagumo's B1, per-node form and B7 at the main path's width
      (n = 442,401; ``benchmarks/kernel_check.py:fhn_checks``): per state
@@ -160,8 +162,8 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    pre-pacing and B1's path) against the JAX package's float64 states;
    Land's B1 and per-node form at n = 442,401 and B7 at the psize 0.1 LV's
    layers against their twins by the one-step limits (ToR-ORd's slow rows
-   and Land's CaTrpn, TmB and Cd scaled) and over one paced beat of 4,096
-   cells, a uniform field giving B1's bits; the psize 0.3 Land LV's probes
+   and Land's CaTrpn, TmB and Cd scaled) and over the first 200 ms of one
+   paced beat of 4,096 cells, a uniform field giving B1's bits; the psize 0.3 Land LV's probes
    within one dt of the JAX package's; Path L, the psize 0.1 LV with
    pre-paced Land layers (30 ms timed, on until half the nodes fired; B7,
    B8), the probes' active tension, then its layers as a per-node field
@@ -220,11 +222,11 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    its power limit.
 19. The differentiable solver (``adjoint.py``) on ``benchmarks/fit_scale.py``'s
    ``lv`` fit (psize 0.15, 78,968 nodes, TP06 GRL float32, 10 ms segments,
-   20 ms windows, carry_clip 1e3, cotangent scale 2**-64, window_outlier
+   one 10 ms window, carry_clip 1e3, cotangent scale 2**-64, window_outlier
    20): (a) B8's combination (``LaneCombo``: mass, fiber, transverse) on
    the card, forward, dx and dw against the twin's within 1e-4 of
    max|twin|, the same bits over two calls, device time of forward and
-   backward beside ``torch.mv``'s; (b) one 20 ms window of
+   backward beside ``torch.mv``'s; (b) one 10 ms window of
    ``host_segmented_value_and_grad`` through B8's combination and through
    the plain path (B8's twin), value and gradients within 3x the largest gap
    of each path to its runs from states one ulp away and with its rows
@@ -242,6 +244,37 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    launch-bound on the host: the 3-iteration fit and the finite-difference
    check (``fit_scale.py fdcheck``) run on their own, and on the CPU in
    ``tests/test_torch_adjoint_fit.py``.
+20. SA-AMG (``ops/amg.py``: host setup, a V-cycle of B8 products on the
+   card) and the biventricle: (a) the psize 0.15 BiV's (93,606 nodes)
+   fibers' Laplace solve on AMG and on Jacobi, CG iterations, AMG setup
+   seconds and levels, each solution against a float64 host solve (AMG's
+   within 1e-4); the layers ``expand_layer_biv`` gives on the card against
+   the float64 labels, every differing node within the card's error of a
+   threshold; one V-cycle's B8 launches, back-to-back and device time
+   against the sum of B8's bounds; (b) ``demos/biv_endocardial.py`` at that
+   psize at full width (``benchmarks/biv_endocardial.py``: three ToR-ORd
+   layers from phase 7's steady states, 20 activation sites, 20 ms, 1 ms
+   checkpoints, the 12-lead ECG): setup seconds by part, ms/s, CG, host
+   syncs and crossings per step, launches, the activated shares of the LV
+   side and the RV free wall, how far the excitation reached, each lead's
+   extremes; every state finite, every picked node fired, both shares
+   above 0, every lead finite with a range; 40 steps from 10 ms on the
+   kernels and on the twins, max |dv| < 1e-2; conduction: the demo's
+   capacitance (1 uF/mm^2) keeps its excitation within about one element
+   of each site, so the same BiV, sites and delays run 10 ms at 1 uF/cm^2
+   from boxes of half-width 1 mm: nodes beyond 2 mm of every site fired,
+   and half of all; (c) the psize 0.3 bidomain LV (TP06), monolithic and
+   Gauss-Seidel, 5 ms, on ``u_precond="auto"`` (AMG) and Jacobi: AMG's
+   worst step at most half of Jacobi's; v and u_e of each against the
+   float64 run of the same LV on the CPU (``bidomain_scale.py
+   --lv-reference``, its own process, started before phase 15) within 3x
+   the largest gap to it of the CPU's float32 runs on the same
+   preconditioner (from the same states and from one ulp away), and the
+   two runs' difference within 3x the larger of those gaps.
+
+``python3 chip_smoke.py --phase 20`` runs phase 20 alone (after the build
+and phase 7's pacing) and prints no result line: a shorter run for work on
+that phase, not the smoke run.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -252,6 +285,8 @@ CUDA card and the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -391,6 +426,12 @@ REL_TOL = 1e-4
 CSR_BOUND_SHARE_MAX = 1.5
 BEAT_CELLS = 16_384  # cells of the TP06 ionic kernels' one-beat comparison
 TORORD_BEAT_CELLS = 4_096  # cells of the ToR-ORd ionic kernels' one-beat comparisons
+# steps of ToR-ORd's and Land's one-beat comparisons: 200 ms at dt 0.05, the
+# stimulus, the upstroke, the plateau and the start of repolarization (cut
+# from 8,000 steps, the whole 400 ms, to make room for phase 20; the whole
+# beat of B1 is still held to the JAX package's float64 by the steady-state
+# pacing, 2 beats of each celltype, and the node form and B7 share B1's body)
+TORORD_BEAT_STEPS = 4_000
 LONG_ROW = 64  # B8 rows with more entries than this are timed apart
 N_SCALE = 3_449_001  # nodes of the dx=0.05 slab (the ECG scale run)
 STENCIL_REPEATS = 5  # timings of B5 and B6 at each size, for their spread
@@ -572,22 +613,24 @@ JAX_SPACES_DX05 = {
 # Phase 19, the differentiable solver (``fenicsx_beat_tpu_torch/adjoint.py``)
 # on the fit of ``benchmarks/fit_scale.py``'s ``lv`` case: the LV at psize
 # 0.15 (78,968 nodes), TP06 GRL in float32, dt 0.05, 10 ms segments, one
-# 20 ms window, carry_clip 1e3, cotangent scale 2**-64, window_outlier 20,
-# the fiber and transverse components through B8's combination (lane path)
-# and through B8's twin (the plain path); then one Adam step from the lane
-# window's gradient
-ADJ_PSIZE, ADJ_T = 0.15, 20.0
+# 10 ms window (20 ms until phase 20 needed the time), carry_clip 1e3,
+# cotangent scale 2**-64, window_outlier 20, the fiber and transverse
+# components through B8's combination (lane path) and through B8's twin
+# (the plain path); then one Adam step from the lane window's gradient
+ADJ_PSIZE, ADJ_T = 0.15, 10.0
 # The two paths' window is held to 3x the float32 noise of each quantity:
 # the largest gap of each path to its run from states moved by one ulp
 # (seed 1) and to its run with each row's entries summed in reverse order,
 # from
-#   python -m fenicsx_beat_tpu_torch.benchmarks.fit_scale witness
+#   python -m fenicsx_beat_tpu_torch.benchmarks.fit_scale witness -T 10
 # on an H100 80GB HBM3 at 700 W (every kernel and sum on these paths is
 # deterministic: the card repeats the windows bit for bit, and the lane
 # and plain windows here).  The two paths differ in the order of their
-# sums, and so do the reversed runs: the one-ulp runs moved the loss by
-# 1.2e-9 and 2.5e-9, the reversed ones by 1.5e-8 and 1.4e-8.
-ADJ_WITNESS_NOISE = {"loss": 1.513e-08, "dL/dg_l": 5.779e-03, "dL/dg_t": 9.178e-03}
+# sums, and so do the reversed runs (over the 20 ms window the one-ulp
+# runs moved the loss by 1.2e-9 and 2.5e-9, the reversed ones by 1.5e-8
+# and 1.4e-8).  Over 10 ms the lane and plain windows were 2.590e-9,
+# 9.015e-7 and 1.007e-5 apart.
+ADJ_WITNESS_NOISE = {"loss": 5.835e-09, "dL/dg_l": 1.673e-06, "dL/dg_t": 2.271e-05}
 TP06_STATES = 19
 
 # the ionic sources whose four kernels the register gate holds (phase 3)
@@ -863,13 +906,17 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
                 f"tp06_grl_step_v one-step increments agree with its twin, celltype {ct:g} "
                 f"(<= {kc.IONIC_STEP_TOL})")
         step_err = torch.maximum(step_err, ct_err)
-        tic = time.perf_counter()
-        beat_abs, beat_err = kc.ionic_beat_errors(
-            cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin, beat0,
-            tp06.init_parameter_values(celltype=ct),
-        )
+    # the three celltypes' beats side by side, a CUDA stream each
+    tic = time.perf_counter()
+    beats = kc.ionic_beats_errors_by_group([
+        (cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin, beat0, tp06.init_parameter_values(celltype=ct),
+         {"all": None}) for ct in kc.CELLTYPES
+    ])
+    took = time.perf_counter() - tic
+    for ct, out in zip(kc.CELLTYPES, beats):
+        beat_abs, beat_err = out["all"]
         print(f"[kernels] tp06_grl_step_v one beat, celltype {ct:g} ({BEAT_CELLS} cells, "
-              f"{kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, {time.perf_counter() - tic:.1f} s), "
+              f"{kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, the three celltypes' beats {took:.1f} s), "
               f"max|k-w| {beat_abs:.3e}; per row max|k-w| / max excursion: "
               + " ".join(f"{nm}={float(e):.2e}" for nm, e in zip(names, beat_err)))
         require(bool((beat_err <= kc.IONIC_BEAT_TOL).all()),
@@ -1394,11 +1441,12 @@ def phase_torord_kernels(solver, seed: int = 3, model: str = "torord_dyncl", n_b
     }
     tic = time.perf_counter()  # the three beats side by side, a CUDA stream each
     outs = kc.ionic_beats_errors_by_group([(step, twin, beat0, p, bgroups)
-                                           for step, twin, p, bgroups in beats.values()])
+                                           for step, twin, p, bgroups in beats.values()],
+                                          n_steps=TORORD_BEAT_STEPS)
     took = time.perf_counter() - tic
     for name, out in zip(beats, outs):
         for g, (a, e) in out.items():
-            print(f"[kernels] {name} one beat, {g} ({m} cells in all, {kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, "
+            print(f"[kernels] {name} one beat, {g} ({m} cells in all, {TORORD_BEAT_STEPS} steps of {kc.BEAT_DT} ms, "
                   f"the three forms' beats {took:.1f} s), max|k-w| {a:.3e}; per row max|k-w| / max excursion: "
                   f"{per_row(e)}")
             require(bool((e <= kc.IONIC_BEAT_TOL).all()), f"{name} agrees with its twin over one beat, {g}")
@@ -2020,8 +2068,8 @@ def phase_bidomain_references() -> None:
     lv_twins = []
 
     def lv(use_kernels):
-        r, solver = bs.run_lv(LV_CHECK_PSIZE, dt=DT, T_warm=0.0, T_timed=10.0, device=DEVICE,
-                              use_kernels=use_kernels)
+        (r,), (solver,) = bs.run_lv(LV_CHECK_PSIZE, dt=DT, T_warm=0.0, T_timed=10.0, preconds=("jacobi",),
+                                    device=DEVICE, use_kernels=use_kernels)
         r["cg_iters_all_steps"] = r["cg_iters_per_step"]  # no warm-up: the timed window is the run
         if not use_kernels:
             lv_twins.append((r, solver.states.clone(), solver.u_e.clone()))
@@ -2934,7 +2982,7 @@ def phase_oo_kernel_check(steady: dict) -> None:
     from fenicsx_beat_tpu_torch.stimulation import define_stimulus
     from fenicsx_beat_tpu_torch.units import ureg
 
-    geo = get_lv_ellipsoid_geometry(psize_ref=LV_CHECK_PSIZE)
+    geo = get_lv_ellipsoid_geometry(psize_ref=LV_CHECK_PSIZE, cache=False)
     layers = lv_layers(geo, fem.functionspace(geo.mesh, ("P", 1)), precond="jacobi", device=DEVICE)
     M = define_conductivity_tensor(f0=geo.f0, **default_conductivities("Niederer"))
 
@@ -3399,7 +3447,7 @@ def phase_adjoint() -> tuple[dict, dict]:
     combination on the LV operator group (mass, fiber, transverse) at
     psize 0.15, forward, dx and dw against the twin's within 1e-4 of
     max|twin|, the same bits over two calls, device time of forward and
-    backward beside torch.mv's; (b) one 20 ms window of
+    backward beside torch.mv's; (b) one 10 ms window of
     host_segmented_value_and_grad on the lv fit problem through the lane
     path and through the plain path (B8's twin), value and gradients within
     3x the largest gap of each path to its runs from states one ulp away
@@ -3512,7 +3560,7 @@ def _adjoint_checks(ref_proc, tic: float) -> tuple[dict, dict]:
         require(rows[name]["rel_err"] <= REL_TOL, f"{name} agrees with the twin within {REL_TOL:g} of max|twin|")
     require(same, "B8's combination gives the same bits over two calls, forward and backward")
 
-    # (b) one 20 ms window: the lane path, then the plain path (B8's twin)
+    # (b) one 10 ms window: the lane path, then the plain path (B8's twin)
     g0 = fs.fit_start(prob)
     targets, target_s = prob.targets(fs.G_TRUE)
     prob_plain = fs.build_problem("lv", psize=ADJ_PSIZE, T=ADJ_T, device=DEVICE, use_lane_ops=False)
@@ -3611,6 +3659,398 @@ def _adjoint_checks(ref_proc, tic: float) -> tuple[dict, dict]:
     return rows, launches
 
 
+
+# ----------------------------------------------------------------------
+# phase 20: SA-AMG and the biventricle
+# ----------------------------------------------------------------------
+BIV_PSIZE = 0.15  # the BiV demo at full width: about 10^5 nodes (9,506 at the demo's default 0.35)
+BIV_T = 20.0  # the demo's horizon (ms)
+BIV_POINTS = 20  # the demo's activation sites
+BIV_CHECK_AT = 10.0  # kernels vs twins: 40 steps from mid-run
+# the conduction check: the demo's sites at 1 uF/cm^2 (0.01 uF/mm^2; the
+# demo's default 1 uF/mm^2 leaves the excitation within about one element
+# of each site), boxes of this half-width (mm) driven at the demo's rate of
+# depolarization, over BIV_WAVE_T ms; held: nodes beyond BIV_WAVE_MM of
+# every site fired, and at least BIV_WAVE_SHARE of all nodes
+BIV_WAVE_C_M, BIV_WAVE_TOL, BIV_WAVE_T, BIV_WAVE_MM, BIV_WAVE_SHARE = 0.01, 1.0, 10.0, 2.0, 0.5
+LAPLACE_TOL = 1e-4  # the card's Laplace solution against float64 (the coordinate lies in [0, 1])
+BIDOMAIN_REF_NPZ = ROOT / "build" / "chip_smoke_bidomain_reference.npz"  # (c)'s CPU reference fields
+AMG_WORST_RATIO = 0.5  # AMG's worst step at most this share of Jacobi's (JAX's tests/test_bidomain.py gate)
+
+
+def host_laplace(K, bcs, n: int):
+    """The masked Laplace solve in float64 on the host: scipy's CG with
+    Jacobi on the free rows to rtol 1e-12 (``K_ff u_f = -K_fb g``)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import cg
+
+    g = np.zeros(n)
+    free = np.ones(n, dtype=bool)
+    for bc in bcs:
+        g[bc.dofs] = bc.value
+        free[bc.dofs] = False
+    A = K[free][:, free].tocsr()
+    b = -(K[free] @ g)
+    M = sp.diags(1.0 / A.diagonal())
+    try:
+        x, info = cg(A, b, rtol=1e-12, atol=0.0, maxiter=20_000, M=M)
+    except TypeError:  # scipy before 1.12 names it tol
+        x, info = cg(A, b, tol=1e-12, atol=0.0, maxiter=20_000, M=M)
+    require(info == 0, "the float64 host Laplace solve converged")
+    u = g.copy()
+    u[free] = x
+    return u
+
+
+def vcycle_bound_ms(h) -> float:
+    """The sum of B8's bounds over one V-cycle of the device hierarchy
+    ``h``: each product's bytes (indptr, cols and values read, x read,
+    y written, float32 and int32) over the HBM rate; A is applied 2 *
+    degree times a level, P and R once."""
+    def spmv_bytes(M):
+        n_rows, n_cols = M.shape
+        return 4 * (n_rows + 1) + 8 * M.nnz + 4 * n_cols + 4 * n_rows
+
+    total = sum(2 * h.degree * spmv_bytes(lv.A) + spmv_bytes(lv.P) + spmv_bytes(lv.R) for lv in h.levels)
+    return 1e3 * total / HBM_BYTES_PER_S
+
+
+def phase_amg_laplace(setup) -> None:
+    """Phase 20 (a): the BiV's Laplace solves on the card.  The fibers'
+    transmural solve (both endocardia 0, the epicardium 1) on "amg" and on
+    "jacobi": iterations, AMG setup seconds and levels, wall, the solution
+    against a float64 host solve (scipy) within :data:`LAPLACE_TOL`; the
+    three-layer labels the card gave (``expand_layer_biv`` on AMG) against
+    the float64 host labels, every differing node within the card's error
+    of a threshold (0.3 or 0.7); one V-cycle of the fibers' hierarchy: its
+    wall, device time and B8 launches against the sum of B8's bounds."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from fenicsx_beat_tpu_torch import fem
+    from fenicsx_beat_tpu_torch.benchmarks.lv import LAYER_SIZE
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_events_per_call
+    from fenicsx_beat_tpu_torch.ops import cuda_ell
+    from fenicsx_beat_tpu_torch.ops.amg import amg_apply, build_amg, operator_to_csr
+    from fenicsx_beat_tpu_torch.utils import _laplace_solve
+
+    tag = f"[amg] ({card()})"
+    geo, V = setup.geo, setup.V
+    n = V.ndofs
+    K = operator_to_csr(fem.assemble_mass_stiffness(V, 1.0)[1])
+
+    def dofs(key):
+        return fem.locate_dofs_topological(V, 2, geo.ffun.find(geo.markers[key][0]))
+
+    endo = np.unique(np.concatenate([dofs("LV"), dofs("RV")]))
+    epi = fem.dirichletbc(1.0, dofs("EPI"), V)
+    fiber_bcs = [fem.dirichletbc(0.0, endo, V), epi]
+    tic = time.perf_counter()
+    ref = host_laplace(K, fiber_bcs, n)
+    host_s = time.perf_counter() - tic
+    iters, errs = {}, {}
+    for precond in ("amg", "jacobi"):
+        cuda_ell.csr_spmv.launches = 0
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        u, info = _laplace_solve(V, fiber_bcs, precond=precond, device=DEVICE)
+        wall = time.perf_counter() - tic
+        iters[precond], errs[precond] = info.iterations, float(np.abs(u.astype(np.float64) - ref).max())
+        print(f"{tag} BiV psize {BIV_PSIZE} fibers' Laplace solve, n={n}, {precond}: {info.iterations} CG "
+              f"iterations, converged {info.converged}, residual {info.residual_norm:.3e}, AMG levels "
+              f"{info.amg_levels}, AMG setup {info.amg_setup_s:.2f} s, wall {wall:.2f} s, B8 launches "
+              f"{cuda_ell.csr_spmv.launches}; max|u - float64| {errs[precond]:.3e} (float64 host solve {host_s:.1f} s)")
+        require(info.converged, f"the BiV Laplace solve on {precond} converged")
+        require(info.precond == precond and cuda_ell.csr_spmv.launches > info.iterations,
+                f"the BiV Laplace solve on {precond} ran on B8")
+    require(errs["amg"] <= LAPLACE_TOL, f"the card's AMG Laplace solution within {LAPLACE_TOL} of float64")
+    require(iters["amg"] < iters["jacobi"], "AMG takes fewer CG iterations than Jacobi on the BiV")
+
+    # the layers: the card's labels (expand_layer_biv, AMG) against float64 ones
+    card_arr, host_arr = [], []
+    for key in ("LV", "RV"):
+        bcs = [fem.dirichletbc(0.0, dofs(key), V), epi]
+        u, info = _laplace_solve(V, bcs, device=DEVICE)
+        require(info.precond == "amg", "the BiV's layer solves take AMG")
+        card_arr.append(u.astype(np.float64))
+        host_arr.append(host_laplace(K, bcs, n))
+    card_min, host_min = np.min(card_arr, axis=0), np.min(host_arr, axis=0)
+    err = float(np.abs(card_min - host_min).max())
+    host_labels = np.full(n, 0, dtype=np.int32)
+    host_labels[host_min <= LAYER_SIZE] = 1
+    host_labels[host_min >= 1 - LAYER_SIZE] = 2
+    differ = setup.layers != host_labels
+    near = np.minimum(np.abs(host_min - LAYER_SIZE), np.abs(host_min - (1 - LAYER_SIZE))) <= err
+    print(f"{tag} layers (expand_layer_biv on the card, AMG): counts mid/endo/epi "
+          f"{[int((setup.layers == m).sum()) for m in (0, 1, 2)]}; {int(differ.sum())} of {n} nodes differ from "
+          f"the float64 labels, all within the card's error {err:.3e} of a threshold: {bool(near[differ].all())}")
+    require(err <= LAPLACE_TOL, f"the card's layer coordinate within {LAPLACE_TOL} of float64")
+    require(bool(near[differ].all()), "every label that differs from float64 lies within the error of a threshold")
+
+    # one V-cycle of the fibers' hierarchy (laplace_solve's masked matrix)
+    free = np.ones(n)
+    free[fiber_bcs[0].dofs] = 0.0
+    free[epi.dofs] = 0.0
+    D = sp.diags(free)
+    tic = time.perf_counter()
+    h = build_amg(D @ K @ D)
+    build_s = time.perf_counter() - tic
+    hd = h.to_device(DEVICE)
+    require(all(m.vals.device.type == torch.device(DEVICE).type and m.vals.dtype == torch.float32
+                for lv in hd.levels for m in (lv.A, lv.P, lv.R)),
+            "every AMG level's A, P and R lies on the card in float32")
+    r = torch.as_tensor(np.random.default_rng(20).standard_normal(n) * free, device=DEVICE).float()
+    cuda_ell.csr_spmv.launches = 0
+    amg_apply(hd, r)
+    per_cycle = cuda_ell.csr_spmv.launches
+    require(per_cycle == (2 * h.degree + 2) * len(h.levels), "one V-cycle launches B8 2 * degree + 2 times a level")
+    wall_ms = time_ms(lambda: amg_apply(hd, r), launches=10, reps=5)
+    dev_us, events = device_events_per_call(lambda: amg_apply(hd, r), calls=20)
+    bound = vcycle_bound_ms(hd)
+    sizes = [lv.A.shape[0] for lv in hd.levels] + [int(hd.coarse_inv.shape[0])]
+    print(f"{tag} one V-cycle (degree {h.degree}, levels {sizes}, host build {build_s:.2f} s): B8 launches "
+          f"{per_cycle}, device launches {sum(events.values())}, back-to-back {wall_ms:.4f} ms, device time "
+          f"{dev_us / 1e3:.4f} ms (torch.profiler), sum of B8's bounds {bound:.4f} ms "
+          f"({dev_us / 1e3 / bound:.1f}x)")
+
+
+def phase_biv(steady: dict) -> None:
+    """Phase 20 (a) and (b): the BiV demo (``benchmarks/biv_endocardial.py``)
+    at psize :data:`BIV_PSIZE` at full width: the demo's three ToR-ORd
+    dynCl layers (the steady states of phase 7, 2 beats: a cut of the
+    demo's own 1-beat pre-pacing, which they replace), 20 activation sites,
+    20 ms, 1 ms checkpoints, the 12-lead ECG; setup seconds by part, ms/s,
+    CG iterations, host syncs and crossings per step, launches, the
+    activated shares at T of the LV side and the RV free wall, how far the
+    excitation reached, each lead's extremes; every state finite, every
+    picked node fired, both shares above 0, every lead finite with a
+    range; then 40 steps from 10 ms on the kernels and on the twins, max
+    |dv| < 1e-2.  The demo's excitation stays within about one element of
+    each site (its membrane capacitance is 1 uF/mm^2), so conduction is
+    held on a run of its own: the same BiV, sites and delays at 1 uF/cm^2
+    (:data:`BIV_WAVE_C_M`) from boxes of half-width :data:`BIV_WAVE_TOL`,
+    10 ms: nodes beyond 2 mm of every site fired, and half of all."""
+    import numpy as np
+
+    from fenicsx_beat_tpu_torch.benchmarks import biv_endocardial as biv
+    from fenicsx_beat_tpu_torch.benchmarks.kernel_check import THRESHOLD
+    from fenicsx_beat_tpu_torch.benchmarks.lv import CELLTYPES
+
+    tag = f"[biv] ({card()})"
+    tic = time.perf_counter()
+    setup = biv.biv_setup(BIV_PSIZE, BIV_POINTS, device=DEVICE, cache=False)
+    mesh = setup.geo.mesh
+    print(f"{tag} geometry: {mesh.num_vertices} nodes, {mesh.num_cells} tets; setup {time.perf_counter() - tic:.1f} s: "
+          + json.dumps(setup.setup_s))
+    phase_amg_laplace(setup)
+    tic = time.perf_counter()
+    solver = biv.build_biv(setup, steady, device=DEVICE)
+    setup.setup_s["assembly_s"] = time.perf_counter() - tic
+    outdir = ROOT / "build" / "chip_smoke_biv"
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    res = biv.run_biv(solver, BIV_T, DT, checkpoint=outdir / "voltage", verbose=False, snapshot_at=BIV_CHECK_AT)
+    run_launches = oo_launches(wrappers)
+    times, leads, ecg = biv.biv_ecg(setup.V, setup.M, res.checkpoint, device=DEVICE)
+    launches = oo_launches(wrappers)
+    for t, lo, hi in res.v_range[::4]:
+        print(f"{tag} t={t:6.1f}  v_range=[{lo:8.2f}, {hi:8.2f}]")
+    rv = biv.rv_free_wall(mesh.coords)
+    fired = res.activation >= 0
+    lv_share, rv_share = float(fired[~rv].mean()), float(fired[rv].mean())
+    n_steps = res.n_steps
+    print(f"{tag} psize {BIV_PSIZE}, {mesh.num_vertices} nodes, Godunov dt={DT} {BIV_T:g} ms: setup by part "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in setup.setup_s.items() if k.endswith("_s"))
+          + f"; ms_per_s={res.ms_per_second:.3f} (wall {res.wall_s:.2f} s), CG per step {res.cg_iters_sum / n_steps:.3f}, "
+          f"host syncs per step {res.host_syncs / n_steps:.3f}, voltage host crossings per step "
+          f"{res.host_transfers / n_steps:.3f}; activated share at {BIV_T:g} ms: LV side {lv_share:.4f}, RV free wall "
+          f"(y > {biv.RV_FREE_Y} mm, {int(rv.sum())} nodes) {rv_share:.4f}; picked nodes fired "
+          f"{int(fired[setup.picks].sum())} of {len(setup.picks)}; the excitation reached "
+          f"{biv.spread_mm(mesh.coords, setup.picks, res.activation):.3f} mm from its site")
+    print(f"{tag} ECG: {ecg['frames']} frames, recovery setup {ecg['setup_s']:.2f} s, {ecg['s_per_frame'] * 1e3:.1f} ms "
+          f"a frame, CG per frame {ecg['cg_iters']}")
+    for name in biv.LEAD_NAMES:
+        sig = getattr(leads, name)
+        print(f"{tag} lead {name:4s} min {sig.min():.4e} max {sig.max():.4e}")
+    print(f"{tag} launches: the run {json.dumps(run_launches)}, with the ECG {json.dumps(launches)}")
+    require(res.all_finite, "every BiV state finite")
+    require(bool(fired[setup.picks].all()), "every picked endocardial node fired")
+    require(lv_share > 0 and rv_share > 0, "the LV side and the RV free wall both activated")
+    for name in biv.LEAD_NAMES:
+        sig = getattr(leads, name)
+        require(bool(np.isfinite(sig).all()) and float(np.ptp(sig)) > 0, f"lead {name} finite with a range")
+    require(run_launches.get("torord_grl_step_v", 0) == 3 * n_steps, "the BiV launches ToR-ORd's B1 3 times a step")
+    require(run_launches.get("csr_spmv", 0) > 0 and launches["csr_spmv"] > run_launches["csr_spmv"],
+            "the BiV run and its ECG run B8")
+
+    # kernels vs twins: 40 steps from the run's state at 10 ms (the kernels
+    # on the run's own solver, the twins on one built for them)
+    snap = res.snapshot
+    v = {}
+    for k in (True, False):
+        check = solver if k else biv.build_biv(setup, steady, device=DEVICE, use_kernels=False)
+        for m in CELLTYPES:
+            check.ode.values(m).copy_(snap["states"][m])
+        check.pde.state.x.array[:] = snap["v"]
+        check.pde.assign_previous()
+        zero_launches(wrappers)
+        for i in range(40):
+            check.step((snap["t"] + i * DT, snap["t"] + (i + 1) * DT))
+        v[k] = np.array(check.pde.state.x.array)
+        got = oo_launches(wrappers)
+        require(bool(got) == k, f"the BiV {'kernel' if k else 'twin'} run launches {'its kernels' if k else 'none'}")
+        del check
+    dv = float(np.abs(v[True] - v[False]).max())
+    print(f"{tag} 40 steps from {snap['t']:g} ms: max|dv| kernels vs twins {dv:.3e} (limit {THRESHOLD:g})")
+    require(dv < THRESHOLD, "BiV kernels vs twins max|dv| < 1e-2")
+    del solver
+
+    # conduction: the same BiV, sites and delays at 1 uF/cm^2
+    wave = dataclasses.replace(setup, I_s=biv.site_stimulus(mesh, mesh.coords[setup.picks], setup.delays,
+                                                            tol=BIV_WAVE_TOL, C_m=BIV_WAVE_C_M))
+    tic = time.perf_counter()
+    solver = biv.build_biv(wave, steady, device=DEVICE, C_m=BIV_WAVE_C_M)
+    build_s = time.perf_counter() - tic
+    zero_launches(wrappers)
+    res = biv.run_biv(solver, BIV_WAVE_T, DT, verbose=False)
+    wave_launches = oo_launches(wrappers)
+    fired = res.activation >= 0
+    dist = np.linalg.norm(mesh.coords[:, None, :] - mesh.coords[setup.picks][None], axis=-1).min(axis=1)
+    far = dist > BIV_WAVE_MM
+    print(f"{tag} conduction at C_m {BIV_WAVE_C_M:g} uF/mm^2, boxes of half-width {BIV_WAVE_TOL:g} mm, "
+          f"{BIV_WAVE_T:g} ms: activated share {fired.mean():.4f} (LV side {fired[~rv].mean():.4f}, RV free wall "
+          f"{fired[rv].mean():.4f}); beyond {BIV_WAVE_MM:g} mm of every site {int((fired & far).sum())} of "
+          f"{int(far.sum())} nodes fired; the excitation reached {biv.spread_mm(mesh.coords, setup.picks, res.activation):.2f} "
+          f"mm from its site; build {build_s:.2f} s, ms_per_s={res.ms_per_second:.3f}, CG per step "
+          f"{res.cg_iters_sum / res.n_steps:.3f}; launches {json.dumps(wave_launches)}")
+    require(res.all_finite, "every state of the conduction run finite")
+    require(bool((fired & far).any()) and fired.mean() >= BIV_WAVE_SHARE,
+            f"the wave spreads: nodes beyond {BIV_WAVE_MM:g} mm of every site fired, and {BIV_WAVE_SHARE:g} of all")
+    require(wave_launches.get("torord_grl_step_v", 0) == 3 * res.n_steps and wave_launches.get("csr_spmv", 0) > 0,
+            "the conduction run launches ToR-ORd's B1 and B8")
+
+
+@contextlib.contextmanager
+def bidomain_reference():
+    """Phase 20 (c)'s CPU reference (``bidomain_scale.py --lv-reference``:
+    the psize 0.3 LV over 5 ms in float64 and four
+    float32 witnesses per scheme), a process of its own on three of the
+    host's cores at a lower priority (``nice``: the phases beside it are
+    host-bound), started before the custom-ODE phases so that it is done
+    by (c); it is killed if it is still running when the block ends."""
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m", "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale", "--lv-psize",
+         str(LV_CHECK_PSIZE), "--dt", str(DT), "--lv-reference", str(BIDOMAIN_REF_NPZ)],
+        cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "3"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def phase_bidomain_amg(ref_proc) -> None:
+    """Phase 20 (c): the bidomain LV at psize 0.3 (9,780 nodes, TP06, phase
+    13's LV) over 5 ms (``bidomain_scale.REFERENCE_T``), monolithic and Gauss-Seidel,
+    on ``u_precond="auto"`` (SA-AMG on this mesh) and on Jacobi (chunks of
+    100 steps): AMG engages under
+    "auto"; setup and AMG setup seconds, CG iterations a step (mean and
+    worst) and ms/s; AMG's worst step at most half of Jacobi's.  At the
+    end, v and u_e against the float64 run of ``ref_proc``
+    (:func:`bidomain_reference`): the AMG run within 3x the largest
+    gap to it of the CPU's float32 AMG runs (from the same states and one
+    ulp away), the Jacobi run within 3x that of the CPU's float32 Jacobi
+    runs, and the AMG run against the Jacobi run within 3x the larger of
+    the two.  The gap between the CPU's float32 Jacobi runs from the same
+    states and from one ulp away is printed beside: it is float32's
+    rounding alone, while at rtol 1e-6 the monolithic Jacobi run's u_e
+    lies further from float64 than that."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.base_model import Status
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+
+    tag = f"[bidomain_amg] ({card()})"
+    wrappers = kernel_wrappers()
+    T = bs.REFERENCE_T
+    fields = {}
+    for scheme in ("monolithic", "gs"):
+        runs = {}
+        for name, precond in (("jacobi", "jacobi"), ("amg", "auto")):
+            zero_launches(wrappers)
+            tic = time.perf_counter()
+            bi = bs.lv_solver(LV_CHECK_PSIZE, device=DEVICE, u_precond=precond, scheme=scheme)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - tic
+            mon = bs._IterMonitor()
+            bi.monitor = mon
+            tic = time.perf_counter()
+            ok = bi.solve((0.0, T), dt=DT, save_freq=bs.CHUNK_STEPS) == Status.OK
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tic
+            runs[name] = r = dict(ok=ok, wall=wall, setup_s=setup_s, worst=max(mon.iters), chunks=mon.iters,
+                                  launches=oo_launches(wrappers), amg=bi._u_amg, **bs.field_stats(bi))
+            fields[scheme, name] = {"v": bi.v.double().cpu().numpy(), "u_e": bi.u_e.double().cpu().numpy()}
+            print(f"{tag} LV psize {LV_CHECK_PSIZE} {scheme}, n={bi.V.ndofs}, u_precond "
+                  f"{'amg' if bi._u_amg else 'jacobi'}: setup {setup_s:.2f} s (AMG {bi.amg_setup_s:.2f} s, "
+                  f"{bi._amg.n_levels if bi._u_amg else 0} levels), {T:g} ms: ms_per_s={T / wall:.3f}, CG per step "
+                  f"mean {bi.cg_iterations / bi.steps:.3f}, worst {r['worst']} (per chunk {r['chunks']}), host syncs "
+                  f"per step {bi.host_syncs / bi.steps:.3f}; v_max {r['v_max']:.6g}, max|u_e| "
+                  f"{r['u_e_max_abs']:.6g}, v>0 share {r['v_pos_share']:.6g}; launches {json.dumps(r['launches'])}")
+            del bi
+        jac, amg = runs["jacobi"], runs["amg"]
+        require(amg["amg"] and not jac["amg"], f"'auto' engages AMG on the LV ({scheme})")
+        require(all(r["ok"] and r["finite"] for r in runs.values()), f"the bidomain LV runs converge, finite ({scheme})")
+        require(amg["worst"] <= AMG_WORST_RATIO * jac["worst"], f"AMG's worst step at most half of Jacobi's ({scheme})")
+        require(amg["launches"].get("csr_spmv", 0) > 0 and amg["launches"].get("tp06_grl_step_v", 0) > 0,
+                "the AMG run launches B8 and B1")
+
+    tic = time.perf_counter()
+    out, err = ref_proc.communicate(timeout=900)
+    require(ref_proc.returncode == 0, f"bidomain_scale.py --lv-reference ran on the CPU (exit {ref_proc.returncode}): "
+                                      f"{err[-2000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    print(f"{tag} the CPU reference (float64 and four float32 witnesses a scheme, its own process): waited for "
+          f"{time.perf_counter() - tic:.1f} s; " + json.dumps(summary["runs"]))
+    with np.load(BIDOMAIN_REF_NPZ) as f:
+        ref = {k: f[k] for k in f.files}
+
+    def gap(a, b, f):
+        return float(np.abs(a[f] - b[f]).max())
+
+    for scheme in ("monolithic", "gs"):
+        f64 = {f: ref[f"{scheme}/f64/{f}"] for f in ("v", "u_e")}
+        cpu = {name: {f: ref[f"{scheme}/{name}/{f}"] for f in ("v", "u_e")} for name, *_ in bs.REFERENCE_RUNS}
+        card_runs = {k: fields[scheme, k] for k in ("jacobi", "amg")}
+        for f in ("v", "u_e"):
+            noise = {p: max(gap(cpu[f"f32_{p}"], f64, f), gap(cpu[f"f32_{p}_ulp"], f64, f)) for p in ("amg", "jacobi")}
+            d_amg, d_jac = gap(card_runs["amg"], f64, f), gap(card_runs["jacobi"], f64, f)
+            d_pair, d_ulp = gap(card_runs["amg"], card_runs["jacobi"], f), gap(cpu["f32_jacobi"], cpu["f32_jacobi_ulp"], f)
+            pair_lim = max(noise.values())
+            print(f"{tag} {scheme} {f} at {T:g} ms, against float64: AMG {d_amg:.3e} ({d_amg / noise['amg']:.2f}x the "
+                  f"CPU's float32 AMG runs' {noise['amg']:.3e}), Jacobi {d_jac:.3e} ({d_jac / noise['jacobi']:.2f}x "
+                  f"their {noise['jacobi']:.3e}); AMG vs Jacobi {d_pair:.3e} ({d_pair / pair_lim:.2f}x the larger); "
+                  f"the CPU's float32 Jacobi runs from the same states and one ulp away differ by {d_ulp:.3e} "
+                  f"(rounding alone; AMG vs Jacobi {d_pair / max(d_ulp, 1e-30):.2f}x that)")
+            require(d_amg <= 3 * noise["amg"], f"the AMG run's {f} within 3x float32's AMG gap to float64 ({scheme})")
+            require(d_jac <= 3 * noise["jacobi"],
+                    f"the Jacobi run's {f} within 3x float32's Jacobi gap to float64 ({scheme})")
+            require(d_pair <= 3 * pair_lim, f"AMG and Jacobi {f} within 3x float32's gap to float64 ({scheme})")
+
+
+def phase_amg_biv(steady: dict, ref_proc) -> None:
+    tic = time.perf_counter()
+    phase_biv(steady)
+    mid = time.perf_counter()
+    phase_bidomain_amg(ref_proc)
+    end = time.perf_counter()
+    print(f"[biv] phase 20 took {end - tic:.1f} s: (a) and (b) {mid - tic:.1f} s, (c) {end - mid:.1f} s")
+
 def main() -> int:
     import torch
 
@@ -3625,6 +4065,11 @@ def main() -> int:
     tic = time.perf_counter()
     device = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--phase", "20"]:  # phase 20 alone (it needs phase 7's steady states), no result line
+        with bidomain_reference() as ref_proc:
+            phase_amg_biv(phase_steady_states()[0], ref_proc)
+        print(f"[done] {time.perf_counter() - tic:.1f} s (phase 20 alone)")
+        return 0
     rows, main_solver = phase_kernels()
     phase_pcg_sequences(main_solver)
     del main_solver
@@ -3680,17 +4125,23 @@ def main() -> int:
     phase_bidomain_references()
     demo_launches, demo_rows = phase_bidomain_demo()
     launches.update(demo_launches)
-    ode = phase_ode_build()
-    rows.update(phase_ode_kernels(ode))
-    phase_ode_vs_fhn(ode)
-    launches.update(phase_ode_paths(ode))
-    launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
-    phase_ode_demo(ode)
-    launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
-    # phase 19: the differentiable solver (B8's combination, forward and backward)
-    adj_rows, adj_launches = phase_adjoint()
-    rows.update(adj_rows)
-    launches.update(adj_launches)
+    # phase 20 (c)'s CPU reference runs beside the custom-ODE phases, phase
+    # 19 and phase 20 (a)-(b)
+    with bidomain_reference() as ref_proc:
+        ode = phase_ode_build()
+        rows.update(phase_ode_kernels(ode))
+        phase_ode_vs_fhn(ode)
+        launches.update(phase_ode_paths(ode))
+        launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
+        phase_ode_demo(ode)
+        launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
+        # phase 19: the differentiable solver (B8's combination, forward and backward)
+        adj_rows, adj_launches = phase_adjoint()
+        rows.update(adj_rows)
+        launches.update(adj_launches)
+        # phase 20: SA-AMG on the card (the BiV's Laplace solves, the bidomain's u
+        # block) and the BiV demo at full width, through B8 and ToR-ORd's B1
+        phase_amg_biv(steady, ref_proc)
 
     kernels = []
     for name, r in rows.items():

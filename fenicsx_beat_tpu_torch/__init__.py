@@ -14,7 +14,11 @@ by slice, and imports neither ``jax`` nor ``fenicsx_beat_tpu``.  Its paths:
   with transmural layers (:mod:`.benchmarks.lv`) and the slab with two
   ionic models side by side (:mod:`.benchmarks.mixed`);
 - the bidomain solver :class:`~.bidomain.BidomainSolver`
-  (:mod:`.benchmarks.bidomain_scale`);
+  (:mod:`.benchmarks.bidomain_scale`), its u block preconditioned by the
+  DCT on tensor grids and by SA-AMG elsewhere (:mod:`.ops.amg`);
+- the idealized biventricle with transmural layers, random endocardial
+  activation and a 12-lead ECG (:mod:`.benchmarks.biv_endocardial`), its
+  Laplace solves on SA-AMG, and voltage checkpoints (:mod:`.io`);
 - pseudo-ECG recovery (:class:`~.ecg.ECGRecovery`, :class:`~.ecg.Leads12`,
   :mod:`.benchmarks.ecg_scale`);
 - ionic models: TP06, ToR-ORd dynCl, ToR-ORd dynCl + Land and
@@ -36,6 +40,7 @@ from . import (
     conductivities,
     ecg,
     geometry,
+    io,
     monodomain_model,
     monodomain_solver,
     odefile,
@@ -72,4 +77,5 @@ __all__ = [
     "BaseMonitor",
     "NullMonitor",
     "PerformanceMonitor",
+    "io",
 ]

@@ -13,7 +13,9 @@ port's :class:`~..bidomain.BidomainSolver`:
   tensor) timed the same way.  Structured mesh: B1 (TP06), B5 and the DCT
   u-block preconditioner;
 - :func:`run_lv`: the LV ellipsoid at ``psize`` with the same tensors along
-  its fibres and an apex stimulus, Jacobi (B1, B8);
+  its fibres and an apex stimulus, one row for each u-block preconditioner
+  (Jacobi and SA-AMG, as the JAX script's ``run_lv``): B1, and B8 for every
+  operator and every product of the AMG V-cycle;
 - :func:`run_demo`: ``demos/bidomain_ue.py``'s own configuration: the unit
   square at 48 x 48 cells, FitzHugh-Nagumo forward Euler, Strang, a
   0.25 x 0.25 corner stimulus of 120 for 2 ms, ``M_i = diag(0.004,
@@ -31,6 +33,12 @@ share of nodes with v > 0), peak device memory and the device.
 Usage, on a machine with a CUDA card::
 
     python -m fenicsx_beat_tpu_torch.benchmarks.bidomain_scale --dx 0.2 0.1 --lv-psize 0.3
+    python -m fenicsx_beat_tpu_torch.benchmarks.bidomain_scale --dx --lv-psize 0.3 --scheme gs
+
+and, on the CPU, the LV's float64 reference with its float32 witnesses
+(:func:`run_lv_reference`)::
+
+    python -m fenicsx_beat_tpu_torch.benchmarks.bidomain_scale --lv-psize 0.3 --lv-reference ref.npz
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import argparse
 import json
 import sys
 import time as _time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,10 +69,18 @@ from .niederer import LX, LY, LZ
 
 __all__ = [
     "bidomain_tensors", "slab_solver", "lv_solver", "demo_solver", "timed_solve", "perturb_states", "field_stats",
-    "run_slab", "run_lv", "run_demo",
+    "run_slab", "run_lv", "run_demo", "run_lv_reference",
 ]
 
 CHUNK_STEPS = 100  # steps per chunk of the timed runs (the JAX script's)
+REFERENCE_T = 5.0  # run_lv_reference's horizon (ms)
+# run_lv_reference's runs of each scheme: name, u-block preconditioner,
+# dtype, the one-ulp seed (None: the states as they start)
+REFERENCE_RUNS = (
+    ("f64", "auto", torch.float64, None),
+    ("f32_amg", "auto", torch.float32, None), ("f32_amg_ulp", "auto", torch.float32, 1),
+    ("f32_jacobi", "jacobi", torch.float32, None), ("f32_jacobi_ulp", "jacobi", torch.float32, 1),
+)
 
 
 class _IterMonitor(NullMonitor):
@@ -134,8 +151,8 @@ def slab_solver(dx: float, device=None, monodomain: bool = False, **kw):
 def lv_solver(psize: float, device=None, **kw) -> BidomainSolver:
     """The bidomain LV at ``psize``: the apex region (x < apex + 2 mm)
     stimulated, the separate tensors along the fibres, TP06, Jacobi
-    unless ``u_precond`` says otherwise."""
-    geo = get_lv_ellipsoid_geometry(psize_ref=psize)
+    unless ``u_precond`` says otherwise (``"auto"`` or ``"amg"``: SA-AMG)."""
+    geo = get_lv_ellipsoid_geometry(psize_ref=psize, cache=False)
     mesh = geo.mesh
     apex_x = mesh.coords[:, 0].min()
     cells = meshmod.locate_entities(mesh, 3, lambda x: x[0] < apex_x + 2.0)
@@ -235,7 +252,7 @@ def _peak_gib(dev: torch.device) -> float | None:
 
 
 def _u_precond(bi: BidomainSolver) -> str:
-    return "dct" if bi._u_dct else "jacobi"
+    return "dct" if bi._u_dct else "amg" if bi._u_amg else "jacobi"
 
 
 def _row(bi: BidomainSolver, case: str, setup_s: float, dt: float, T_timed: float, timed: dict, peak) -> dict:
@@ -248,6 +265,8 @@ def _row(bi: BidomainSolver, case: str, setup_s: float, dt: float, T_timed: floa
         "gs_u_rtol": bi.gs_u_rtol,
         "u_precond": _u_precond(bi),
         "setup_s": setup_s,
+        "amg_setup_s": bi.amg_setup_s,
+        "amg_levels": bi._amg.n_levels if bi._u_amg else 0,
         "timed_ms": T_timed,
         "wall_s": timed["wall_s"],
         "ms_per_s": timed["ms_per_s"],
@@ -290,20 +309,63 @@ def run_slab(dx: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 
 
 
 def run_lv(psize: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 10.0,
-           scheme: str = "monolithic", gs_u_rtol: float | None = None, device=None,
-           use_kernels: bool = True) -> tuple[dict, BidomainSolver]:
-    """The bidomain LV at ``psize`` with the Jacobi u-block preconditioner
-    (the JAX script's AMG rows wait for AMG's port); one row, and the
-    solver it ran."""
-    case = f"lv_ps{psize:g}_jacobi" + ("" if scheme == "monolithic" else f"_{scheme}")
-    tic = _time.perf_counter()
-    bi = lv_solver(psize, device=device, scheme=scheme, gs_u_rtol=gs_u_rtol, use_kernels=use_kernels)
-    dev = bi.device
-    _sync(dev)
-    setup_s = _time.perf_counter() - tic
-    _reset_peak(dev)
-    timed = timed_solve(bi, T_warm, T_timed, dt)
-    return _row(bi, case, setup_s, dt, T_timed, timed, _peak_gib(dev)), bi
+           preconds=("jacobi", "amg"), scheme: str = "monolithic", gs_u_rtol: float | None = None,
+           device=None, use_kernels: bool = True) -> tuple[list[dict], list[BidomainSolver]]:
+    """The bidomain LV at ``psize``, one row for each u-block preconditioner
+    of ``preconds`` (``"jacobi"``, ``"amg"``, or ``"auto"``, which takes AMG
+    on this unstructured mesh), as the JAX script's ``run_lv``: setup and
+    AMG setup seconds, ms/s, CG iterations a step (per-chunk worst steps
+    and the timed window's mean); the rows, and the solvers they ran."""
+    rows, solvers = [], []
+    for precond in preconds:
+        tic = _time.perf_counter()
+        bi = lv_solver(psize, device=device, u_precond=precond, scheme=scheme, gs_u_rtol=gs_u_rtol,
+                       use_kernels=use_kernels)
+        dev = bi.device
+        _sync(dev)
+        setup_s = _time.perf_counter() - tic
+        _reset_peak(dev)
+        timed = timed_solve(bi, T_warm, T_timed, dt)
+        case = f"lv_ps{psize:g}_{_u_precond(bi)}" + ("" if scheme == "monolithic" else f"_{scheme}")
+        rows.append(_row(bi, case, setup_s, dt, T_timed, timed, _peak_gib(dev)))
+        solvers.append(bi)
+    return rows, solvers
+
+
+def run_lv_reference(path, psize: float = 0.3, T: float = REFERENCE_T, dt: float = 0.05,
+                     schemes=("monolithic", "gs"), device="cpu") -> dict:
+    """The bidomain LV at ``psize`` over ``T`` ms on ``device`` (the CPU), for
+    each scheme in float64 (SA-AMG at the float64 default rtol 1e-8: the
+    reference) and in float32 on SA-AMG and on Jacobi, each also from
+    states one ulp away (:data:`REFERENCE_RUNS`; float32 CG at rtol 1e-6,
+    as on the card).  The float32 runs' distance to the float64 one is
+    what float32 and rtol 1e-6 leave of each preconditioner's solution.
+    Writes every run's v and u_e to the npz ``path`` (keys
+    ``"<scheme>/<run>/v"`` and ``".../u_e"``); returns each run's CG
+    iterations a step, worst chunk and seconds, and its largest gaps to
+    the float64 run."""
+    arrays, out = {}, {"psize": psize, "T": T, "runs": {}}
+    for scheme in schemes:
+        for name, precond, dtype, seed in REFERENCE_RUNS:
+            tic = _time.perf_counter()
+            bi = lv_solver(psize, device=device, dtype=dtype, u_precond=precond, scheme=scheme)
+            if seed is not None:
+                perturb_states(bi, seed)
+            mon = _IterMonitor()
+            bi.monitor = mon
+            ok = bi.solve((0.0, T), dt=dt, save_freq=CHUNK_STEPS) == Status.OK
+            key = f"{scheme}/{name}"
+            arrays[f"{key}/v"] = bi.v.double().cpu().numpy()
+            arrays[f"{key}/u_e"] = bi.u_e.double().cpu().numpy()
+            out["runs"][key] = {"converged": ok, "cg_iters_per_step": bi.cg_iterations / bi.steps,
+                                "cg_iters_max": int(max(mon.iters)), "seconds": _time.perf_counter() - tic}
+            if name != "f64":
+                out["runs"][key].update({f"max_abs_d{f}": float(np.abs(arrays[f"{key}/{f}"]
+                                                                       - arrays[f"{scheme}/f64/{f}"]).max())
+                                         for f in ("v", "u_e")})
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+    return out
 
 
 def run_demo(nx: int = 48, T: float = 40.0, dt: float = 0.1, device=None, use_kernels: bool = True,
@@ -354,14 +416,22 @@ def main(argv=None) -> int:
     ap.add_argument("--dt", type=float, default=0.05)
     ap.add_argument("--scheme", default="monolithic", help="time-coupling scheme (monolithic | gs)")
     ap.add_argument("--gs-u-rtol", type=float, default=0.0, help="gs elliptic-solve rtol (0 = cg_rtol)")
+    ap.add_argument("--lv-preconds", nargs="+", default=["jacobi", "amg"], help="the LV's u-block preconditioners")
     ap.add_argument("--skip-lv", action="store_true")
     ap.add_argument("--demo", action="store_true", help="also run demos/bidomain_ue.py's configuration")
+    ap.add_argument("--lv-reference", metavar="NPZ", default=None,
+                    help="only the LV's 5 ms CPU reference (float64 and float32 witnesses), its fields to NPZ")
     args = ap.parse_args(argv)
+    if args.lv_reference is not None:
+        print(json.dumps(run_lv_reference(args.lv_reference, psize=args.lv_psize, dt=args.dt)))
+        return 0
     for dx in args.dx:
         print(json.dumps(run_slab(dx, dt=args.dt, scheme=args.scheme, gs_u_rtol=args.gs_u_rtol or None)))
     if not args.skip_lv:
-        row, _ = run_lv(args.lv_psize, dt=args.dt, scheme=args.scheme, gs_u_rtol=args.gs_u_rtol or None)
-        print(json.dumps(row))
+        rows, _ = run_lv(args.lv_psize, dt=args.dt, preconds=args.lv_preconds, scheme=args.scheme,
+                         gs_u_rtol=args.gs_u_rtol or None)
+        for row in rows:
+            print(json.dumps(row))
     if args.demo:
         print(json.dumps(run_demo()))
     return 0

@@ -101,7 +101,7 @@ def _lv_problem(psize: float):
     from ..stimulation import Stimulus, TimeWindow
     from ..stimulation import dx as dx_measure
 
-    geo = get_lv_ellipsoid_geometry(psize_ref=psize)
+    geo = get_lv_ellipsoid_geometry(psize_ref=psize, cache=False)
     mesh = geo.mesh
     coords = mesh.coords
     apex_x = coords[:, 0].min()

@@ -412,7 +412,7 @@ def lv_kernel_check(psize: float = 0.3, dt: float = 0.05, n_steps: int = 40, dev
     from ..geometry import get_lv_ellipsoid_geometry
     from .lv import build_lv_solver, lv_layers
 
-    geo = get_lv_ellipsoid_geometry(psize_ref=psize)
+    geo = get_lv_ellipsoid_geometry(psize_ref=psize, cache=False)
     layers = lv_layers(geo, fem.functionspace(geo.mesh, ("P", 1)), precond="jacobi", device=device)
 
     def build(use_kernels):

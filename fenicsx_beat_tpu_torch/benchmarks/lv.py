@@ -170,7 +170,7 @@ def build_lv_solver(
     given skips it (two solvers compared on one labelling).  ``model`` and
     ``init_states`` as :func:`lv_ionic` takes them (the pre-paced ToR-ORd
     layers: ``init_states=lv_steady_states(dt, model=model)``)."""
-    geo = get_lv_ellipsoid_geometry(psize_ref=psize)
+    geo = get_lv_ellipsoid_geometry(psize_ref=psize, cache=False)
     mesh = geo.mesh
     V = fem.functionspace(mesh, ("P", 1))
     if layers is None:

@@ -89,7 +89,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
 
-    geo = get_lv_ellipsoid_geometry(psize_ref=args.psize)
+    geo = get_lv_ellipsoid_geometry(psize_ref=args.psize, cache=False)
     layers = lv_layers(geo, fem.functionspace(geo.mesh, ("P", 1)), precond="jacobi", device="cuda")
     steady = lv_steady_states(dt=args.dt, device="cuda")
     probes = list(lv_probe_points(args.psize).values())

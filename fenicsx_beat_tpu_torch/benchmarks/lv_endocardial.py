@@ -3,8 +3,9 @@ the object-oriented API.
 
 The port's copy of ``demos/lv_endocardial.py`` (lines 29-136): an LV
 ellipsoid, transmural endo/mid/epi layers from a Laplace solve
-(``expand_layer``, its Jacobi branch: the AMG preconditioner the JAX
-package takes at this size is ROADMAP A11), per-layer ToR-ORd dynCl
+(``expand_layer`` on Jacobi, as every LV path of the port labels its
+layers; the JAX package takes SA-AMG at this size, which the port has
+too, ``benchmarks/lv_layers.py`` compares the two), per-layer ToR-ORd dynCl
 celltypes pre-paced to steady state on the card (``get_steady_state``, 2
 beats at BCL 1000 ms), an ENDO surface stimulus of 1 ms, Niederer
 conductivities along the fibres, then ``MonodomainModel`` +
@@ -56,15 +57,18 @@ GODUNOV = 1.0  # the demo's splitting theta
 
 
 def build_oo_lv(mesh, layers: np.ndarray, M, I_s, init_states: dict, device=None,
-                use_kernels: bool = True) -> MonodomainSplittingSolver:
+                use_kernels: bool = True, C_m: float = 1.0) -> MonodomainSplittingSolver:
     """The demo's solver on ``mesh``: ToR-ORd dynCl per layer (``layers``,
     per-node MID / ENDO / EPI markers; ``init_states`` marker -> states),
     each layer's celltype parameters with the model's pacing off, the
-    stimulus ``I_s`` and conductivity ``M``; Godunov splitting, as the
-    demo runs it.  ``use_kernels=False`` runs the kernels' twins."""
+    stimulus ``I_s``, conductivity ``M`` and membrane capacitance ``C_m``
+    (``MonodomainModel``'s default 1, as the demo takes it); Godunov
+    splitting, as the demo runs it.  ``use_kernels=False`` runs the
+    kernels' twins."""
     model = torord_dyncl
     V = fem.functionspace(mesh, ("P", 1))
-    pde = MonodomainModel(time=fem.Constant(0.0), mesh=mesh, M=M, I_s=I_s, device=device, use_kernels=use_kernels)
+    pde = MonodomainModel(time=fem.Constant(0.0), mesh=mesh, M=M, I_s=I_s, C_m=C_m, device=device,
+                          use_kernels=use_kernels)
     markers = fem.Function(V, name="layers")
     markers.x.array[:] = layers
     ode = DolfinMultiODESolver(
@@ -167,7 +171,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     tic = _time.perf_counter()
-    geo = get_lv_ellipsoid_geometry(psize_ref=args.psize)
+    geo = get_lv_ellipsoid_geometry(psize_ref=args.psize, cache=False)
     mesh = geo.mesh
     print(f"LV ellipsoid: {mesh.num_vertices} nodes, {mesh.num_cells} tets")
     V = fem.functionspace(mesh, ("P", 1))

@@ -18,11 +18,13 @@ whose nullspace is the constant u_e.  Two schemes, as in JAX:
 
 - ``"monolithic"``: one deflated PCG on the stacked ``[2, n]`` system, four
   operator streams per iteration (``A``, ``K_i`` twice, ``K_ie``); Jacobi
-  on the v block and, on constant-coefficient tensor grids, the DCT
-  spectral inverse of ``K_ie`` (:mod:`.ops.spectral`) on the u block;
+  on the v block and, on the u block, the DCT spectral inverse of ``K_ie``
+  (:mod:`.ops.spectral`) on constant-coefficient tensor grids, else one
+  SA-AMG V-cycle on ``K_ie`` (:mod:`.ops.amg`);
 - ``"gs"`` (Gauss-Seidel): the parabolic v-solve with the lagged,
   linearly extrapolated u_e, then the elliptic u-solve, one stream per
-  iteration each, both DCT-preconditioned on tensor grids.
+  iteration each, both DCT-preconditioned on tensor grids; elsewhere the
+  v-solve takes Jacobi and the u-solve the AMG V-cycle.
 
 The constant-u_e nullspace is deflated inside the matvec, the
 preconditioner, the right-hand side and the start, u_e is grounded to zero
@@ -44,15 +46,19 @@ runs as its plain PyTorch twin.  As in the fused solver the time loop is a
 Python loop of eager launches, and each PCG exit test reads one value back
 to the host (counted in :attr:`BidomainSolver.host_syncs`).
 
-Not ported: the AMG u-block preconditioner (``u_precond="amg"``, and
-``"auto"`` where the DCT declines: an unstructured or heterogeneous mesh)
-and the gs scheme's elliptic cadence ``u_solve_every > 1``; both raise
-``NotImplementedError``.
+The AMG hierarchy (``u_precond="amg"``, and ``"auto"`` where the DCT
+declines: an unstructured or heterogeneous mesh, as the JAX package takes
+it off the TPU) is built on the host on ``K_ie`` with ``semidefinite=True``
+and the JAX solver's defaults ``strength_theta=(0.15, 0.05), omega=0.0,
+coarse_n=2500``, updated by ``u_amg_opts``; every product of its V-cycle is
+B8 on the card.  Not ported: the gs scheme's elliptic cadence
+``u_solve_every > 1``, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
@@ -66,6 +72,7 @@ from .config import default_dtype, resolve_device
 from .convert import states_from_numpy
 from .mesh import Mesh
 from .ops import cuda_ell, cuda_stencil
+from .ops.amg import amg_apply, build_amg
 from .ops.cg import CGInfo, cg_solve
 from .ops.sparse import StencilMatrix, pack_values
 from .ops.spectral import dct_solve, stencil_dct_eigenvalues
@@ -77,9 +84,8 @@ __all__ = ["BidomainSolver", "BidomainChunk"]
 logger = logging.getLogger(__name__)
 
 U_PRECONDS = ("auto", "dct", "amg", "jacobi")
-_AMG = (
-    "the AMG u-block preconditioner is not ported yet (ROADMAP A11, AMG); pass u_precond='jacobi'"
-)
+# the JAX solver's u-block hierarchy options (bidomain.py:306-318 there)
+U_AMG_DEFAULTS = dict(strength_theta=(0.15, 0.05), omega=0.0, coarse_n=2500)
 
 
 class BidomainChunk(NamedTuple):
@@ -112,9 +118,9 @@ class BidomainSolver:
     """Operator-splitting bidomain solver on device-resident state.
 
     The JAX solver's constructor vocabulary (``fenicsx_beat_tpu/bidomain.py``)
-    and the port's ``device`` and ``use_kernels``; the TPU-only knobs
-    (``use_pallas_ode``, ``pallas_spmv_min_nodes``, ``amg_min_nodes``,
-    ``cache_key``, ``u_amg_opts``) are not taken.
+    and the port's ``device`` and ``use_kernels``; the knobs of JAX's TPU
+    lane path (``use_pallas_ode``, ``pallas_spmv_min_nodes``,
+    ``amg_min_nodes``) are not taken.
 
     Parameters
     ----------
@@ -129,7 +135,12 @@ class BidomainSolver:
     cg_rtol, cg_atol, cg_maxiter : the block CG's tolerances (raised to at
         least 1e-6 and 1e-7 in float32)
     monitor : any object with ``record_ksp(CGInfo)``, called once per chunk
-    u_precond : "auto" | "dct" | "jacobi" ("amg" is not ported)
+    u_precond : "auto" | "dct" | "amg" | "jacobi" ("auto": the DCT where
+        it applies, else AMG)
+    u_amg_opts : keyword arguments of :func:`~.ops.amg.build_amg` over
+        :data:`U_AMG_DEFAULTS`
+    cache_key : opts the AMG hierarchy into the disk cache (:mod:`.cache`;
+        the slot is keyed by the operator's bytes and the options)
     scheme : "monolithic" | "gs"
     gs_v_rtol, gs_u_rtol : the gs solves' relative tolerances (None: cg_rtol)
     u_solve_every : 1 (the gs cadence above 1 is not ported)
@@ -160,6 +171,8 @@ class BidomainSolver:
     gs_u_rtol: float | None = None
     u_solve_every: int = 1
     ode_markers: Any = None
+    u_amg_opts: dict | None = None
+    cache_key: str | None = None
     device: Any = None
     use_kernels: bool = True
 
@@ -230,8 +243,6 @@ class BidomainSolver:
             raise ValueError(f"pde_theta must lie in (0, 1], got {self.pde_theta}")
         if self.u_precond not in U_PRECONDS:
             raise ValueError(f"u_precond must be auto/dct/amg/jacobi, got {self.u_precond!r}")
-        if self.u_precond == "amg":
-            raise NotImplementedError(_AMG)
         self._ionic = check_ionic_scope(self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                                         self.v_index)
 
@@ -248,9 +259,6 @@ class BidomainSolver:
                 "u_precond='dct' requires a constant-coefficient structured grid (stencil operator with "
                 "constant interior rows)"
             )
-        if spec is None and self.u_precond == "auto":
-            # JAX's CPU path takes SA-AMG wherever the DCT declines
-            raise NotImplementedError(f"u_precond='auto' on a mesh where the DCT declines needs AMG: {_AMG}")
         self._u_dct = spec is not None
         self._dims = spec[1] if spec is not None else None
         self._u_lam = torch.as_tensor(spec[0], device=dev) if spec is not None else None
@@ -275,6 +283,18 @@ class BidomainSolver:
                 A.to(dev, dt_) for A in cuda_ell.CSRMatrix.from_operator_group((mass, k_i, k_ie))
             )
             self._csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
+        # SA-AMG on the u block wherever the DCT declines (JAX's choice off
+        # the TPU), or when asked for
+        self._amg = None
+        self.amg_setup_s = 0.0  # host build and push of the hierarchy
+        if spec is None and self.u_precond in ("auto", "amg"):
+            tic = time.perf_counter()
+            opts = {**U_AMG_DEFAULTS, **(self.u_amg_opts or {})}
+            hier = build_amg(k_ie, dtype=self._np_dtype, semidefinite=True, cache_key=self.cache_key, **opts)
+            self._amg = hier.to_device(dev, dt_, level0_A=None if self._structured else self._kieC)
+            self._amg_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
+            self.amg_setup_s = time.perf_counter() - tic
+        self._u_amg = self._amg is not None
 
     def _operators(self, dt: float) -> _StepOps:
         """The chunk's operators at ``dt``, combined once per dt
@@ -316,6 +336,13 @@ class BidomainSolver:
     def _dct(self, r, lam):
         return dct_solve(r, lam, self._dims)
 
+    def _u_inverse(self, r, lam):
+        """The u block's preconditioner: the DCT inverse of ``K_ie`` (``lam``
+        its eigenvalues) or one AMG V-cycle."""
+        if lam is not None:
+            return self._dct(r, lam)
+        return amg_apply(self._amg, r, self._amg_spmv)
+
     def _stimulus(self, ts, amps):
         """The stimulus load at the PDE theta point ``ts``: each TimeWindow
         term whose window holds ``ts`` (inclusive at both ends, compared in
@@ -347,12 +374,13 @@ class BidomainSolver:
             yu = dt * ops.mvKi(xv) + (dt / th) * ops.mvKie(xu)
             return deflate(torch.stack([yv, yu]))
 
-        if ops.u_lam is not None:
+        if ops.u_lam is not None or self._u_amg:
             # Jacobi on the mass-dominated v block, the DCT inverse of K_ie
-            # on the u block (whose system block is (dt/theta) K_ie)
+            # or its AMG V-cycle on the u block (whose system block is
+            # (dt/theta) K_ie)
             def precond(r):
                 zv = r[0] / ops.diag_v
-                zu = (th / dt) * self._dct(r[1], ops.u_lam)
+                zu = (th / dt) * self._u_inverse(r[1], ops.u_lam)
                 return torch.stack([zv, zu - zu.mean()])
 
             prec = dict(precond=precond)
@@ -384,8 +412,8 @@ class BidomainSolver:
         def deflate(x):
             return x - x.mean()
 
-        if ops.u_lam is not None:
-            u_prec = dict(precond=lambda r: deflate(self._dct(r, ops.u_lam)))
+        if ops.u_lam is not None or self._u_amg:
+            u_prec = dict(precond=lambda r: deflate(self._u_inverse(r, ops.u_lam)))
         else:
             u_prec = dict(precond_diag=ops.diag_kie)
         u_star = deflate(u_e + dvu[1])

@@ -1027,19 +1027,20 @@ class CellQuadData:
             self._device_tables[key] = _QuadTables.build(self, dev, dtype)
         return self._device_tables[key]
 
-    def assemble_load(self, fn, t, device=None, dtype: torch.dtype | None = None) -> torch.Tensor:
+    def assemble_load(self, fn, t, device=None, dtype: torch.dtype | None = None, spmv=None) -> torch.Tensor:
         """b_i = sum_q W_q phi_i(x_q) fn(x_q, t) on ``device`` (the card
         when None): ``fn`` takes the quadrature points as a ``[gdim, ne,
         nq]`` tensor and ``t`` as a 0-d tensor.  The cell-to-dof sum is one
-        CSR product (B8 on the card, its twin on the CPU), in element
-        order within each dof."""
+        CSR product, in element order within each dof: ``spmv``, by
+        default B8's wrapper (the kernel on the card, its twin on the
+        CPU; a solver on the twins passes ``csr_spmv_twin``)."""
         tab = self.device_tables(device, dtype)
         if not isinstance(t, torch.Tensor):
             t = torch.tensor(float(t), dtype=tab.W.dtype, device=tab.W.device)
         vals = torch.as_tensor(fn(tab.X, t), device=tab.W.device).to(tab.W.dtype)
         vals = torch.broadcast_to(vals, tab.W.shape) * tab.W
         cellvals = vals @ tab.N  # [ne, nd]
-        return tab.csr_spmv(tab.scatter, cellvals.reshape(-1))
+        return (spmv or tab.csr_spmv)(tab.scatter, cellvals.reshape(-1))
 
     def assemble_load_host(self, fn=None, t=0.0) -> np.ndarray:
         """b_i = sum_q W_q phi_i(x_q) fn(x_q, t); ``fn=None`` means the unit

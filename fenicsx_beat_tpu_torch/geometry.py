@@ -1,11 +1,15 @@
-"""Slab and left-ventricle geometries with fiber microstructure (numpy only).
+"""Slab, left-ventricle and biventricle geometries with fiber microstructure
+(numpy only).
 
-Subset of ``fenicsx_beat_tpu/geometry.py``: structured 2D and 3D slab
-meshes with resolution ``dx`` and constant fiber/sheet(/normal) fields, and the
+Port of ``fenicsx_beat_tpu/geometry.py``: structured 2D and 3D slab meshes
+with resolution ``dx`` and constant fiber/sheet(/normal) fields; the
 idealized LV ellipsoid with ENDO/EPI/BASE facet tags and a rule-based
-helical fiber field.  The ``comm`` argument is accepted for signature
-parity and unused.  The BiV generator and the disk cache are not ported
-yet.
+helical fiber field; and the two-cavity biventricle carved from a Kuhn-tet
+box, with BASE/LV/RV/EPI facet tags and LDRB-lite fibers from a Laplace
+solve (:func:`~.utils.laplace_solve`, on the device).  With ``cache=True``
+the LV and the BiV are memoized on disk (:mod:`.cache`), keyed by every
+parameter.  The ``comm`` argument is accepted for signature parity and
+unused.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ __all__ = [
     "get_2D_slab_geometry",
     "get_3D_slab_geometry",
     "get_lv_ellipsoid_geometry",
+    "get_biv_ellipsoid_geometry",
 ]
 
 
@@ -37,6 +42,56 @@ class Geometry(NamedTuple):
     f0: np.ndarray | None = None
     s0: np.ndarray | None = None
     n0: np.ndarray | None = None
+
+
+def _geometry_to_arrays(geo: Geometry) -> dict:
+    out = {
+        "coords": geo.mesh.coords,
+        "cells": geo.mesh.cells,
+        "cell_type": np.asarray(geo.mesh.cell_type.value),
+    }
+    if geo.ffun is not None:
+        out["ffun_dim"] = np.asarray(geo.ffun.dim)
+        out["ffun_indices"] = geo.ffun.indices
+        out["ffun_values"] = geo.ffun.values
+    if geo.markers:
+        out["marker_names"] = np.asarray(sorted(geo.markers), dtype="U32")
+        out["marker_vals"] = np.asarray([geo.markers[k] for k in sorted(geo.markers)], dtype=np.int64)
+    for name in ("f0", "s0", "n0"):
+        v = getattr(geo, name)
+        if v is not None:
+            out[name] = np.asarray(v)
+    return out
+
+
+def _geometry_from_arrays(d: dict) -> Geometry | None:
+    try:
+        mesh = Mesh(coords=d["coords"], cells=d["cells"], cell_type=CellType(int(d["cell_type"])))
+        ffun = None
+        if "ffun_indices" in d:
+            ffun = meshtags(mesh, int(d["ffun_dim"]), d["ffun_indices"], d["ffun_values"])
+        markers = None
+        if "marker_names" in d:
+            markers = {str(k): (int(v[0]), int(v[1])) for k, v in zip(d["marker_names"], d["marker_vals"])}
+        return Geometry(mesh=mesh, ffun=ffun, markers=markers, f0=d.get("f0"), s0=d.get("s0"), n0=d.get("n0"))
+    except Exception:
+        return None
+
+
+def _cached_geometry(kind: str, params: dict, build):
+    """Disk-backed memoization of a deterministic mesh generator, keyed by
+    every parameter; a load gives the bits of a rebuild."""
+    from .cache import fingerprint, load_arrays, store_arrays
+
+    slot = fingerprint("geometry", (kind,) + tuple(f"{k}={v!r}" for k, v in sorted(params.items())))
+    d = load_arrays(slot)
+    if d is not None:
+        geo = _geometry_from_arrays(d)
+        if geo is not None:
+            return geo
+    geo = build()
+    store_arrays(slot, _geometry_to_arrays(geo))
+    return geo
 
 
 def get_2D_slab_microstructure(mesh: Mesh, transverse: bool = False):
@@ -152,10 +207,22 @@ def get_lv_ellipsoid_geometry(
     -> ``fiber_angle_epi`` across the wall, degrees).  The long axis is x,
     apex at x = -r_long; the base plane sits at x = ``base``.
 
-    Mesh, tags and fields are those of the JAX package's generator with
-    ``cache=False``.  The disk cache is not ported: ``cache`` is accepted
-    for signature parity and the geometry is built anew on every call.
+    Mesh, tags and fields are those of the JAX package's generator.
+    ``cache=True`` (default) memoizes them on disk keyed by every
+    parameter (:mod:`.cache`).
     """
+    if cache:
+        params = dict(
+            r_short_endo=r_short_endo, r_short_epi=r_short_epi, r_long_endo=r_long_endo,
+            r_long_epi=r_long_epi, base=base, psize_ref=psize_ref, fiber_angle_endo=fiber_angle_endo,
+            fiber_angle_epi=fiber_angle_epi, dtype=np.dtype(dtype).name,
+        )
+        return _cached_geometry(
+            "lv_ellipsoid", params,
+            lambda: get_lv_ellipsoid_geometry(
+                comm, cache=False, dtype=dtype, **{k: v for k, v in params.items() if k != "dtype"}
+            ),
+        )
     mu_base_endo = -np.arccos(np.clip(base / r_long_endo, -1.0, 1.0))
     mu_base_epi = -np.arccos(np.clip(base / r_long_epi, -1.0, 1.0))
 
@@ -284,4 +351,200 @@ def get_lv_ellipsoid_geometry(
     n0[apex] = (0.0, 0.0, 1.0)
     s0 = _norm(np.cross(n0, f0))
 
+    return Geometry(mesh=mesh, ffun=ffun, markers=markers, f0=f0, s0=s0, n0=n0)
+
+
+def get_biv_ellipsoid_geometry(
+    comm=None,
+    # LV wall (the numbers of get_lv_ellipsoid_geometry)
+    r_short_endo_lv: float = 2.5,
+    r_short_epi_lv: float = 3.5,
+    r_long_endo_lv: float = 9.0,
+    r_long_epi_lv: float = 9.7,
+    # RV: larger short radius, thinner free wall, shifted toward +y, shorter
+    # long axis (the right ventricle wraps the septum)
+    r_short_endo_rv: float = 4.2,
+    r_short_epi_rv: float = 5.0,
+    r_long_endo_rv: float = 8.0,
+    r_long_epi_rv: float = 8.75,
+    center_rv_y: float = 2.2,
+    base: float = 0.0,
+    psize_ref: float = 0.3,
+    fiber_angle_endo: float = 60.0,
+    fiber_angle_epi: float = -60.0,
+    dtype=np.float64,
+    cache: bool = True,
+    device=None,
+) -> Geometry:
+    """Idealized two-cavity biventricle with a shared septum (the JAX
+    package's ``get_biv_ellipsoid_geometry``, ``geometry.py:397-624``).
+
+    The tissue is the union of two truncated ellipsoid shells minus both
+    cavities::
+
+        tissue = {x <= base} & (in(LV_epi) | in(RV_epi))
+                 - in(LV_endo) - (in(RV_endo) & out(LV_epi))
+
+    The RV cavity is carved only outside the LV epicardial ellipsoid, so
+    the LV wall it wraps stays tissue: the septum, shared by both
+    cavities.  The mesh is carved from a uniform Kuhn-tet box at resolution
+    ``psize_ref`` (a staircase boundary at O(h), uniform-quality tets).
+    Each exterior facet is tagged by where the missing neighbour cell would
+    sit: BASE 5, LV 6, RV 7, EPI 8 (``markers``, the cardiac-geometries
+    convention).
+
+    Fibers are rule-based (LDRB-lite): the transmural coordinate ``t``
+    solves a Laplace problem (both endocardia 0, the epicardium 1) by
+    :func:`~.utils.laplace_solve` on ``device`` (the card when None; its
+    ``"auto"`` preconditioner, SA-AMG from 5,000 nodes); its P1 gradient
+    gives the sheet normal (the analytic gradient of the nearer epicardial
+    ellipsoid where staircase corners cancel it), the long axis projected
+    to the tangent plane the longitudinal direction (the y axis in the
+    apex cap), and the fiber rotates ``fiber_angle_endo`` ->
+    ``fiber_angle_epi`` degrees across the wall.
+
+    ``cache=True`` (default) memoizes mesh, tags and fields on disk keyed
+    by every parameter and the device type of the solve (:mod:`.cache`).
+    """
+    if cache:
+        params = dict(
+            r_short_endo_lv=r_short_endo_lv, r_short_epi_lv=r_short_epi_lv,
+            r_long_endo_lv=r_long_endo_lv, r_long_epi_lv=r_long_epi_lv,
+            r_short_endo_rv=r_short_endo_rv, r_short_epi_rv=r_short_epi_rv,
+            r_long_endo_rv=r_long_endo_rv, r_long_epi_rv=r_long_epi_rv,
+            center_rv_y=center_rv_y, base=base, psize_ref=psize_ref,
+            fiber_angle_endo=fiber_angle_endo, fiber_angle_epi=fiber_angle_epi, dtype=np.dtype(dtype).name,
+        )
+        build = dict(params)
+        del build["dtype"]
+        # the fibers' Laplace solve runs in the device's working dtype
+        # (float32 on the card): the device type is part of the key
+        from .config import resolve_device
+
+        params["solve_on"] = resolve_device(device).type
+        return _cached_geometry(
+            "biv_ellipsoid", params,
+            lambda: get_biv_ellipsoid_geometry(comm, cache=False, dtype=dtype, device=device, **build),
+        )
+
+    def phi(x, a_long, a_short, cy=0.0):
+        return (x[..., 0] / a_long) ** 2 + ((x[..., 1] - cy) / a_short) ** 2 + (x[..., 2] / a_short) ** 2 - 1.0
+
+    def p_lv_endo(x):
+        return phi(x, r_long_endo_lv, r_short_endo_lv)
+
+    def p_lv_epi(x):
+        return phi(x, r_long_epi_lv, r_short_epi_lv)
+
+    def p_rv_endo(x):
+        return phi(x, r_long_endo_rv, r_short_endo_rv, center_rv_y)
+
+    def p_rv_epi(x):
+        return phi(x, r_long_epi_rv, r_short_epi_rv, center_rv_y)
+
+    def in_tissue(x):
+        return (
+            (x[..., 0] <= base)
+            & ((p_lv_epi(x) < 0) | (p_rv_epi(x) < 0))
+            & (p_lv_endo(x) >= 0)
+            & ~((p_rv_endo(x) < 0) & (p_lv_epi(x) >= 0))
+        )
+
+    # background box: the bounding box of the two epicardial ellipsoids, truncated
+    lo = np.array([
+        -max(r_long_epi_lv, r_long_epi_rv),
+        min(-r_short_epi_lv, center_rv_y - r_short_epi_rv),
+        -max(r_short_epi_lv, r_short_epi_rv),
+    ])
+    hi = np.array([
+        base,
+        max(r_short_epi_lv, center_rv_y + r_short_epi_rv),
+        max(r_short_epi_lv, r_short_epi_rv),
+    ])
+    n_axes = tuple(max(2, int(np.ceil((hi[a] - lo[a]) / psize_ref))) for a in range(3))
+    box = create_box(comm, points=(tuple(lo), tuple(hi)), n=n_axes, cell_type=CellType.tetrahedron, dtype=dtype)
+    cent = box.coords[box.cells].mean(axis=1)
+    cells_old = box.cells[in_tissue(cent)]
+    used = np.unique(cells_old)
+    remap = np.full(box.num_vertices, -1, dtype=np.int64)
+    remap[used] = np.arange(used.size)
+    mesh = Mesh(
+        coords=np.ascontiguousarray(box.coords[used]),
+        cells=remap[cells_old.astype(np.int64)].astype(np.int32),
+        cell_type=CellType.tetrahedron,
+    )
+
+    # exterior facets by where the missing neighbour sits: the owning
+    # cell's centroid reflected through the facet's
+    fdim = 2
+    facets = mesh.entities(fdim)
+    ext = mesh.exterior_facets()
+    own = mesh.facet_to_cell(ext)
+    fc = mesh.coords[facets[ext]].mean(axis=1)
+    cc = mesh.coords[mesh.cells[own]].mean(axis=1)
+    p_out = 2.0 * fc - cc
+    h = float((hi - lo).max() / max(n_axes))
+    is_base = p_out[:, 0] > base - 1e-9 * max(1.0, abs(base))
+    is_base |= fc[:, 0] > base - 1e-6 * h
+    is_lv = ~is_base & (p_lv_endo(p_out) < 0)
+    is_rv = ~is_base & ~is_lv & (p_rv_endo(p_out) < 0) & (p_lv_epi(p_out) >= 0)
+    is_epi = ~is_base & ~is_lv & ~is_rv
+    markers = {"BASE": (5, 2), "LV": (6, 2), "RV": (7, 2), "EPI": (8, 2)}
+    idx, val = [], []
+    for sel, key in [(is_base, "BASE"), (is_lv, "LV"), (is_rv, "RV"), (is_epi, "EPI")]:
+        idx.append(ext[sel])
+        val.append(np.full(int(sel.sum()), markers[key][0], dtype=np.int32))
+    ffun = meshtags(mesh, fdim, np.concatenate(idx), np.concatenate(val))
+
+    # ---- LDRB-lite fibers
+    from . import fem
+    from .utils import laplace_solve
+
+    V = fem.functionspace(mesh, ("P", 1))
+    endo_dofs = np.unique(np.concatenate([
+        fem.locate_dofs_topological(V, fdim, ffun.find(markers["LV"][0])),
+        fem.locate_dofs_topological(V, fdim, ffun.find(markers["RV"][0])),
+    ]))
+    epi_dofs = fem.locate_dofs_topological(V, fdim, ffun.find(markers["EPI"][0]))
+    t_node = laplace_solve(
+        V, [fem.dirichletbc(0.0, endo_dofs, V), fem.dirichletbc(1.0, epi_dofs, V)], device=device
+    ).astype(np.float64)
+
+    # P1 gradient per cell, accumulated at the nodes
+    X = mesh.coords[mesh.cells]  # [nc, 4, 3]
+    E = X[:, 1:] - X[:, :1]
+    gl = np.transpose(np.linalg.inv(E), (0, 2, 1))  # grad(lambda_1..3) per cell
+    tv = t_node[mesh.cells]
+    grad_c = np.einsum("ck,ckd->cd", tv[:, 1:] - tv[:, :1], gl)
+    n_hat = np.zeros((mesh.num_vertices, 3))
+    np.add.at(n_hat, mesh.cells.ravel(), np.repeat(grad_c, 4, axis=0))
+
+    def _norm(v):
+        nn = np.linalg.norm(v, axis=1, keepdims=True)
+        return v / np.where(nn > 1e-12, nn, 1.0)
+
+    # staircase corners can cancel the accumulated gradient exactly: the
+    # analytic outward gradient of the nearer epicardial ellipsoid there
+    weak = np.linalg.norm(n_hat, axis=1) < 1e-8
+    if weak.any():
+        xw = mesh.coords[weak]
+        use_rv = p_rv_epi(xw) < p_lv_epi(xw)
+        g_lv = np.stack([xw[:, 0] / r_long_epi_lv**2, xw[:, 1] / r_short_epi_lv**2,
+                         xw[:, 2] / r_short_epi_lv**2], axis=1)
+        g_rv = np.stack([xw[:, 0] / r_long_epi_rv**2, (xw[:, 1] - center_rv_y) / r_short_epi_rv**2,
+                         xw[:, 2] / r_short_epi_rv**2], axis=1)
+        n_hat[weak] = np.where(use_rv[:, None], g_rv, g_lv)
+    n_hat = _norm(n_hat)
+    # the long axis projected into the wall's tangent plane
+    e_x = np.array([1.0, 0.0, 0.0])
+    l_raw = e_x[None] - (n_hat @ e_x)[:, None] * n_hat
+    degen = np.linalg.norm(l_raw, axis=1) < 0.3  # apex cap: n close to x
+    e_y = np.array([0.0, 1.0, 0.0])
+    l_raw[degen] = e_y[None] - (n_hat[degen] @ e_y)[:, None] * n_hat[degen]
+    l_hat = _norm(l_raw)
+    c_hat = _norm(np.cross(n_hat, l_hat))
+    alpha = np.deg2rad(fiber_angle_endo + (fiber_angle_epi - fiber_angle_endo) * np.clip(t_node, 0, 1))
+    f0 = _norm(np.cos(alpha)[:, None] * c_hat + np.sin(alpha)[:, None] * l_hat)
+    s0 = n_hat
+    n0 = _norm(np.cross(f0, s0))
     return Geometry(mesh=mesh, ffun=ffun, markers=markers, f0=f0, s0=s0, n0=n0)

@@ -2,7 +2,7 @@
 
 Port of ``StencilMatrix``, ``ELLMatrix`` and their host helpers from
 ``fenicsx_beat_tpu/ops/sparse.py``, plus a copy of ``operator_to_csr``
-from ``fenicsx_beat_tpu/ops/amg.py`` (AMG itself is not ported).
+from ``fenicsx_beat_tpu/ops/amg.py`` (re-exported by :mod:`.amg`).
 
 On lexicographically ordered structured meshes the P1 operator couples
 row ``r`` to columns ``r + offsets[k]`` with one global offset set (15

@@ -95,6 +95,8 @@ class ThetaSystem:
             )
             self.n = int(self.mass.shape[0])
             self.csr_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
+        # the product of a general stimulus's load (B8 or its twin, either path)
+        self.load_spmv = cuda_ell.csr_spmv if k else cuda_ell.csr_spmv_twin
         self._cache: tuple | None = None
         self.host_syncs = 0  # PCG exit tests read back to the host
 
@@ -132,7 +134,7 @@ class ThetaSystem:
     def rhs(self, B, v_prev: torch.Tensor, terms, b_units, t, dt: float, amps) -> torch.Tensor:
         """``b = B v_prev`` plus the stimulus loads of ``terms`` at time
         ``t`` (:func:`add_stimulus_loads`)."""
-        return add_stimulus_loads(self.apply(B, v_prev), terms, b_units, t, dt, amps)
+        return add_stimulus_loads(self.apply(B, v_prev), terms, b_units, t, dt, amps, self.load_spmv)
 
     def solve(self, ops, b: torch.Tensor, x0: torch.Tensor):
         """PCG for ``A x = b`` from ``x0``; returns ``(x, iterations, rr,
@@ -191,14 +193,14 @@ def stimulus_loads(V, I_s, mesh: Mesh, degree: int, device: torch.device, dtype:
     return stim_quads, terms, b
 
 
-def add_stimulus_loads(b: torch.Tensor, terms, b_units, t, dt: float, amps) -> torch.Tensor:
+def add_stimulus_loads(b: torch.Tensor, terms, b_units, t, dt: float, amps, spmv=None) -> torch.Tensor:
     """``b`` plus ``dt * amplitude`` times each stimulus load of ``terms``
     (:func:`~.stimulation.separable_stimulus_terms`) at time ``t``, a
     scalar of the working dtype (``np.float32`` or ``np.float64``): a
     TimeWindow's load from ``b_units`` where its window holds ``t``
     (inclusive at both ends, compared in that dtype), a general
     expression's load assembled at ``t`` on ``b``'s device
-    (``fem.CellQuadData.assemble_load``)."""
+    (``fem.CellQuadData.assemble_load``, its product by ``spmv``)."""
     w = type(t)
     for i, quad, expr, b_idx, window in terms:
         scale = float(w(dt) * amps[i])
@@ -207,5 +209,5 @@ def add_stimulus_loads(b: torch.Tensor, terms, b_units, t, dt: float, amps) -> t
             if w(start) <= t <= w(start + dur):
                 b = b + scale * b_units[b_idx]
         else:
-            b = b + scale * quad.assemble_load(expr, float(t), device=b.device, dtype=b.dtype)
+            b = b + scale * quad.assemble_load(expr, float(t), device=b.device, dtype=b.dtype, spmv=spmv)
     return b

@@ -14,7 +14,6 @@ from test_api_parity import REFERENCE_ALL, REFERENCE_SURFACE
 # module -> symbols the port does not have yet, and the ROADMAP item that ports them
 UNPORTED = {
     "cli": ("A14", REFERENCE_SURFACE["cli"]),
-    "utils": ("A9 rest: the BiV", ["expand_layer_biv"]),
 }
 UNPORTED_MODULES = {"cli"}
 

@@ -19,7 +19,8 @@ every chunk's worst step equal:
 Also: the proportional-conductivity reduction to the port's own fused
 monodomain solver, a starved CG reporting ``NOT_CONVERGING``, the float32
 tolerance floor, and the refusals (``u_precond``, ``scheme``,
-``u_solve_every``, AMG).
+``u_solve_every``, ``u_amg_opts``); where the JAX package takes SA-AMG the
+port takes it too (``tests/test_torch_bidomain_amg.py`` holds its runs).
 """
 
 import numpy as np
@@ -209,7 +210,7 @@ def test_starved_cg_reports_not_converging_and_float32_floor():
     ({"u_solve_every": 0, "scheme": "gs"}, ValueError, "u_solve_every"),
     ({"u_solve_every": 2}, ValueError, "u_solve_every"),
     ({"u_solve_every": 2, "scheme": "gs"}, NotImplementedError, "Queue C"),
-    ({"u_precond": "amg"}, NotImplementedError, "AMG"),
+    ({"u_precond": "amg", "u_amg_opts": {"coarsest": 10}}, TypeError, "coarsest"),
     ({"theta": 0.0}, ValueError, "theta"),
 ])
 def test_refusals(kw, error, match):
@@ -240,21 +241,25 @@ def test_run_slab_times_both_solvers_alike():
 
 
 def test_where_jax_takes_amg_the_port_refuses():
-    """'auto' on an unstructured or heterogeneous mesh (JAX: SA-AMG) raises
-    NotImplementedError; 'dct' where the model declines raises ValueError,
-    as in JAX."""
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TBidomain(device="cpu", **{**_lv("port"), "u_precond": "auto"})
+    """Where the JAX package takes SA-AMG off the TPU ('auto' on an
+    unstructured or heterogeneous mesh, and 'amg' anywhere) the port takes
+    it too, and refuses nothing; 'dct' where the model declines raises
+    ValueError, as in JAX."""
+    assert TBidomain(device="cpu", **{**_lv("port"), "u_precond": "auto"})._u_amg
     with pytest.raises(ValueError, match="structured"):
         TBidomain(device="cpu", **{**_lv("port"), "u_precond": "dct"})
     kw = square("port", 12)
+    assert not TBidomain(device="cpu", **kw)._u_amg  # the DCT applies
+    assert TBidomain(device="cpu", u_precond="amg", **kw)._u_amg
     mesh = kw["mesh"]
     mids = mesh.coords[mesh.cells].mean(axis=1)
     scale = np.where((mids[:, 0] > 0.4) & (mids[:, 0] < 0.6), 1e-3, 1.0)
     kw["M_i"] = scale[:, None, None] * (0.004 * np.eye(2))[None]
-    with pytest.raises(NotImplementedError, match="AMG"):
-        TBidomain(device="cpu", **kw)
-    assert not TBidomain(device="cpu", u_precond="jacobi", **kw)._u_dct
+    hetero = TBidomain(device="cpu", **kw)
+    assert hetero._u_amg and not hetero._u_dct
+    assert hetero.solve((0.0, 0.3), dt=0.1) == Status.OK
+    jacobi = TBidomain(device="cpu", u_precond="jacobi", **kw)
+    assert not jacobi._u_dct and not jacobi._u_amg
 
 
 @pytest.mark.cuda
