@@ -14,8 +14,9 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    the least time the card could take (``bound_ms``):
    - the register gate: the registers and spill bytes of the ionic
      kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land (each model's
-     B1, its per-node form, B7 over every block and over a block list:
-     twelve kernels, all reported, none spilling) from the library's ptxas
+     B1, its per-node form, B7 over every block and over a block list, in
+     GRL and in forward Euler: twenty-four kernels, all reported, none
+     spilling) from the library's ptxas
      report (kept beside the library, so the same whether it was built in
      this run or loaded);
    - B1-B4 and B2·B4 (B4's update folded into B2's pass: p', Ap', pAp and
@@ -31,8 +32,8 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      The ionic kernel is held row by row for each TP06 celltype (endo,
      epi, mid): every state's one-step increment (at physiological values
      and with each slow concentration scaled, see
-     ``benchmarks/kernel_check.py``), and every state over one paced beat
-     of 16,384 cells (the twin's step replayed as a CUDA graph; the three
+     ``benchmarks/kernel_check.py``), and every state over the first 100
+     ms of one paced beat of 16,384 cells (the twin's step replayed as a CUDA graph; the three
      celltypes' beats side by side, a CUDA stream each).  B1's
      per-node form for TP06 at the same shapes: a uniform parameter field
      gives B1's bits exactly, a field of mixed celltypes is held by the
@@ -51,7 +52,7 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
      below float32's normal range); then ToR-ORd's B1, its per-node form
      and B7 at the psize 0.1 LV's shapes (n = 243,518; B7 with the LV's
      own layers), held per state row and celltype by the one-step limits
-     (each slow row scaled) and over the first 200 ms of one paced beat of
+     (each slow row scaled) and over the first 50 ms of one paced beat of
      4,096 cells (the three forms' beats side by side, a CUDA stream each);
      B1's per-node
      form on a uniform field gives B1's bits;
@@ -102,10 +103,10 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    time);
 10. ECG Configuration 1: the dx=0.1 Strang slab for 40 ms with a pseudo-ECG
    frame every 1 ms (B5), through ``benchmarks/ecg_scale.py:run_niederer_ecg``,
-   on the kernels and on the twins; CG iterations, host syncs and seconds
-   per frame, the 12-lead extremes, and every lead of the kernel run held
-   to the twin run within 3x the float32 noise (measured with the PDE SpMV
-   summed in another order, PERF.md);
+   on the kernels and its first 20 ms on the twins; CG iterations, host
+   syncs and seconds per frame, the 12-lead extremes, and every lead of the
+   kernel run's first 20 frames held to the twin run within 3x the float32
+   noise (measured with the PDE SpMV summed in another order, PERF.md);
 11. ECG Configuration 2: the JAX package's production run, dx=0.05, 10
    frames of a moving wavefront (B6), through ``run_ecg_scale``; every
    frame converged, every potential finite, ``lead_I_sample`` within 1e-2
@@ -162,7 +163,7 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    pre-pacing and B1's path) against the JAX package's float64 states;
    Land's B1 and per-node form at n = 442,401 and B7 at the psize 0.1 LV's
    layers against their twins by the one-step limits (ToR-ORd's slow rows
-   and Land's CaTrpn, TmB and Cd scaled) and over the first 200 ms of one
+   and Land's CaTrpn, TmB and Cd scaled) and over the first 50 ms of one
    paced beat of 4,096 cells, a uniform field giving B1's bits; the psize 0.3 Land LV's probes
    within one dt of the JAX package's; Path L, the psize 0.1 LV with
    pre-paced Land layers (30 ms timed, on until half the nodes fired; B7,
@@ -176,10 +177,10 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    Niederer slab at dx=0.1, Strang, 40 ms, through
    ``benchmarks/mixed.py:run_mixed_slab`` on the kernels (ms/s, CG and
    host syncs per step, P1-P9, launches per model, the share of blocks
-   two models cover); its 40 ms again on the kernels, from states one ulp
-   away and on the twins (v at every node within 3x the kernels' one-ulp
-   noise at 20 ms, the TP06 half's wave, and at 40 ms, the Land half's; the
-   gap over each half printed); the same at dx=0.5 against the
+   two models cover); its first 20 ms again (the TP06 half's wave reaching
+   the Land half) on the kernels, from states one ulp away and on the
+   twins (v at every node at 20 ms within 3x the kernels' one-ulp noise;
+   the gap over each half printed); the same at dx=0.5 against the
    JAX package's float64 P1-P9 (``tests/torch_mixed_reference.py``), each
    within one dt.
 18. (run after the per-node paths, before Land) the object-oriented path,
@@ -238,7 +239,7 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    lane window's gradient: the loss, from a forward sweep, falls; (d) the
    lane window of the same fit at psize 0.5 (2,607 nodes) over 10 ms (two
    5 ms segments) against the CPU's float64 window of the same problem
-   (``fit_scale.py reference``, its own process, run beside (a)-(c)),
+   (``fit_scale.py reference``, its own process, started with the run),
    value and gradients within 3x the largest gap to it of the CPU's float32
    window and its runs from states one ulp away.  The adjoint's steps are
    launch-bound on the host: the 3-iteration fit and the finite-difference
@@ -267,14 +268,50 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    Gauss-Seidel, 5 ms, on ``u_precond="auto"`` (AMG) and Jacobi: AMG's
    worst step at most half of Jacobi's; v and u_e of each against the
    float64 run of the same LV on the CPU (``bidomain_scale.py
-   --lv-reference``, its own process, started before phase 15) within 3x
+   --lv-reference``, its own process, started with the run) within 3x
    the largest gap to it of the CPU's float32 runs on the same
    preconditioner (from the same states and from one ulp away), and the
    two runs' difference within 3x the larger of those gaps.
 
+21. (run after 17) the fused solver's remaining scope at full width:
+   (a) merged Strang (``merge_strang_halves=True``, theta 0.5) on the
+   main path (dx=0.1, TP06 GRL, 40 ms; B1, B2·B4, B3): P1-P9 each within
+   one dt of the JAX package's merged row (``BENCH_r05.json``), within 5%
+   of the converged row (JAX's 3.72% beside), ``n_steps + 1`` ionic
+   launches a chunk, ms/s, CG and host syncs per step beside phase 6's
+   unmerged run; (b) the main path with its S1 stimulus as a general
+   expression equal to the TimeWindow, assembled each step (one B8
+   launch a step): P1-P9 within one dt of phase 6's, its ms/s and the
+   load's cost per step; (c) Path M with TP06's marker on a broadcast
+   node-aligned field (B1's per-node form on that marker's nodes): every
+   state and activation time after 2 ms equal to the table run bit for
+   bit, the field step's gather and scatter beside the kernel; then a
+   field of mixed celltypes, one step, kernels against twins by the
+   one-step limits; (d) forward Euler of TP06, ToR-ORd dynCl and ToR-ORd
+   dynCl + Land: each model's B1, per-node form and B7 one step against
+   its twin (TP06 at n = 442,401, the others at 243,518) by the one-step
+   limits, nodes of no layer equal, a uniform field giving B1's bits,
+   each timed; on paths (the dx=0.1 slab, dt 0.002, 40 steps): TP06's B1
+   on the kernels and the twins (max|dv| < 1e-2), ToR-ORd's and Land's
+   B1, and six x bands, each model on a field and on a vector; (e) the
+   operator disk cache: the dx=0.1 slab pair's cold assembly, its store
+   and a warm load, equal bit for bit.  Every solver and ECG of the script
+   passes ``operator_cache_key`` (``CACHE_KEY``; the bidomain its
+   ``cache_key``) into a cache directory of the run's own, emptied at its
+   start; at the end the seconds the cache saved are printed against phase
+   21's and nvcc's for the forward-Euler sources.
+
 ``python3 chip_smoke.py --phase 20`` runs phase 20 alone (after the build
 and phase 7's pacing) and prints no result line: a shorter run for work on
-that phase, not the smoke run.
+that phase, not the smoke run; ``--phase 21`` runs phase 21 alone (after
+the build, phase 6's main path and Path M's setup), the same way.
+
+After the build, three host processes of the run's own run beside it,
+each on one or two of the host's cores at a lower priority with the card
+hidden: ``chip_smoke.py --prefetch`` (phase 8's and phase 12's cold
+assemblies into the run's operator cache), phase 19 (d)'s and phase 20
+(c)'s CPU references.  ``[time]`` lines give each stretch's seconds as it
+ends and all of them, the longest first, before the result.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The line before the last is a JSON object with one entry per
@@ -285,10 +322,11 @@ CUDA card and the repository beside it.
 
 from __future__ import annotations
 
-import contextlib
+import atexit
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -426,12 +464,15 @@ REL_TOL = 1e-4
 CSR_BOUND_SHARE_MAX = 1.5
 BEAT_CELLS = 16_384  # cells of the TP06 ionic kernels' one-beat comparison
 TORORD_BEAT_CELLS = 4_096  # cells of the ToR-ORd ionic kernels' one-beat comparisons
-# steps of ToR-ORd's and Land's one-beat comparisons: 200 ms at dt 0.05, the
-# stimulus, the upstroke, the plateau and the start of repolarization (cut
-# from 8,000 steps, the whole 400 ms, to make room for phase 20; the whole
-# beat of B1 is still held to the JAX package's float64 by the steady-state
-# pacing, 2 beats of each celltype, and the node form and B7 share B1's body)
-TORORD_BEAT_STEPS = 4_000
+# steps of the beat comparisons at dt 0.05, short of the whole 400 ms beat
+# to keep the script inside its time limit: TP06's first 100 ms, ToR-ORd's
+# and Land's first 50 ms (the stimulus, the upstroke and the start of the
+# plateau, where the kernels and the twins part most); the whole beat of
+# the ToR-ORd models' B1 is still held to the JAX package's float64 by the
+# steady-state pacing, 2 beats of each celltype, and the node form and B7
+# share B1's body
+TP06_BEAT_STEPS = 2_000
+TORORD_BEAT_STEPS = 1_000
 LONG_ROW = 64  # B8 rows with more entries than this are timed apart
 N_SCALE = 3_449_001  # nodes of the dx=0.05 slab (the ECG scale run)
 STENCIL_REPEATS = 5  # timings of B5 and B6 at each size, for their spread
@@ -446,6 +487,10 @@ LEAD_I_REL_TOL = 1e-2
 # an H100 (PERF.md, measured in every run of PRs 3-11); the kernel run sat at
 # 1.1e-2.  The limit is 3x that noise.
 ECG_LEAD_TOL = 5e-2
+# the twin run's horizon (ms): the first 20 of the kernel run's 40 frames,
+# the wave's spread from the corner over the slab's first half (the twins
+# take ~0.5 s a simulated ms, against the script's time limit)
+ECG_TWIN_T = 20.0
 # H100 SXM data sheet (NVIDIA, dense rates without sparsity): HBM rate and
 # float32 peak outside the tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -471,13 +516,16 @@ IONIC_OPS_PER_NODE = {"tp06": TP06_OPS_PER_NODE, "torord_dyncl": TORORD_OPS_PER_
 # mixed form; at dx=0.1 the kernel run is held to its twin run at every node
 # (3x float32's noise, measured as for the custom-ODE path)
 MIXED_DX, MIXED_T = 0.1, 40.0
-# The kernel-vs-twin comparison reads v at 20 ms (the wave reaches the Land
-# half: P9, at x = 10 mm, fires at 18.15 ms) and at 40 ms (Land's P3 and P7
-# fire at 33-34 ms): a twin run of the slab takes 61-78 s for 40 ms on an
-# H100 (0.51-0.65 ms/s).  The noise is the kernels' one-ulp run's (the
-# twins' own one-ulp run, 6.25e-3 mV under the kernels' 1.206e-2 at 20 ms,
-# is not repeated: the script's time limit is shared with phase 19)
-MIXED_TWIN_TIMES = (20.0, 40.0)
+# The kernel-vs-twin comparison reads v at 20 ms (the wave has crossed the
+# TP06 half into the Land half: P9, at x = 10 mm, fires at 18.15 ms), not at
+# 40 ms (Land's P3 and P7 fire at 33-34 ms): a twin run of the slab takes
+# 1.4-2.4 s for each ms on an H100 (0.42-0.72 ms/s), and a window from the
+# kernel run's states at 14 or 30 ms is no cheaper witness: its one-ulp
+# noise over 6 ms (2.4e-3 mV) sits under the kernels' distance to the twins
+# that 14 ms from the start built (1.28e-2 mV on an H100 at 700 W).  The
+# noise is the kernels' one-ulp run's (the twins' own one-ulp run, 6.25e-3
+# mV under the kernels' 1.206e-2 at 20 ms, is not repeated)
+MIXED_TWIN_TIMES = (20.0,)
 # ... and at dx=0.5 (4,305 nodes) to the JAX package's P1-P9 in float64 on
 # the CPU, each within one dt (-1: not fired by 40 ms at this size), from
 #   JAX_PLATFORMS=cpu python tests/torch_mixed_reference.py --dx 0.5 -T 40
@@ -633,8 +681,27 @@ ADJ_PSIZE, ADJ_T = 0.15, 10.0
 ADJ_WITNESS_NOISE = {"loss": 5.835e-09, "dL/dg_l": 1.673e-06, "dL/dg_t": 2.271e-05}
 TP06_STATES = 19
 
-# the ionic sources whose four kernels the register gate holds (phase 3)
+# the ionic sources whose kernels the register gate holds (phase 3): each
+# model's B1, per-node form and B7 over every block and over a block list,
+# in GRL and in forward Euler (its *_fe*.cu sources build the same kernels
+# with the node body's scheme switch on): eight a model
 IONIC_GATED = ("tp06_grl", "torord_grl", "torord_land_grl")
+IONIC_GATED_KERNELS = 8
+
+# Phase 21, the fused solver's remaining scope.  Every solver and ECG the
+# script builds passes this key (the operator disk cache, its own empty
+# directory each run): the content of mesh, conductivity and dtype decides
+# a hit, so one key serves every mesh
+CACHE_KEY = "chip_smoke"
+# P1..P9 and the error against the converged row of the JAX package's
+# merged Strang, dx=0.1 dt=0.05, from BENCH_r05.json (its activation times
+# only: its TPU times are not the port's)
+JAX_MERGED_DX01 = [1.25, 26.15, 32.40, 39.15, 8.20, 26.80, 32.90, 39.30, 18.45]
+JAX_MERGED_MAX_REL_ERR = 0.0372
+# forward Euler's path runs: TP06's gates make it unstable at 0.005 ms and
+# above on the slab; JAX's float64 run is finite at FE_DT
+# (tests/test_torch_ionic_fe.py:FE_DT)
+FE_DT, FE_STEPS = 0.002, 40
 
 SOURCES = {
     "tp06_grl_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_grl.cu",
@@ -680,6 +747,26 @@ SOURCES = {
                                     "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
     "torord_land_grl_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_grl_multi.cu",
                                      "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    # forward Euler of the hand-written models (phase 21): each GRL source built
+    # with its node body's scheme switch
+    "tp06_fe_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_fe.cu",
+                      "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "tp06_fe_node_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_fe_node.cu",
+                           "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "tp06_fe_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/tp06_fe_multi.cu",
+                            "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    "torord_fe_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_fe.cu",
+                        "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_fe_node_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_fe_node.cu",
+                             "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_fe_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_fe_multi.cu",
+                              "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
+    "torord_land_fe_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_fe.cu",
+                             "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_land_fe_node_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_fe_node.cu",
+                                  "fenicsx_beat_tpu/ops/pallas_ode.py:89"),
+    "torord_land_fe_multi_step_v": ("fenicsx_beat_tpu_torch/csrc/torord_land_fe_multi.cu",
+                                   "fenicsx_beat_tpu/ops/pallas_ode.py:325"),
     # B7's mixed-model form: each model's B7 kernel over its own blocks
     # (the JAX kernel's active[model, block] table, pallas_ode.py:375-383)
     "tp06_grl_multi_step_v[mixed]": ("fenicsx_beat_tpu_torch/csrc/tp06_grl_multi.cu",
@@ -847,19 +934,20 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     from fenicsx_beat_tpu_torch.ops import cuda_cg, cuda_ode, cuda_spmv
 
     # The ionic kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land (B1,
-    # its per-node form, B7 over every block and over a block list):
-    # registers a thread and spill bytes, from the library's ptxas report;
-    # all twelve reported, none spilling
+    # its per-node form, B7 over every block and over a block list, in GRL
+    # and in forward Euler): registers a thread and spill bytes, from the
+    # library's ptxas report; all twenty-four reported, none spilling
     resources = ptxas_resources(load_library().compiler_output)
     for prefix in IONIC_GATED:
         res = {name: r for name, r in resources.items() if f"{prefix}_" in name}
         print(f"[kernels] {prefix} kernels, registers / spill stores / spill loads (bytes): "
               + ", ".join(f"{name} {r[0]} / {r[1]} / {r[2]}" for name, r in sorted(res.items())))
-        require(len(res) == 4, f"the build reports {prefix}'s four kernels (got {sorted(res)})")
+        require(len(res) == IONIC_GATED_KERNELS,
+                f"the build reports {prefix}'s {IONIC_GATED_KERNELS} kernels (got {sorted(res)})")
         require(all(r[1] == 0 and r[2] == 0 for r in res.values()), f"{prefix}'s kernels do not spill")
 
     tic = time.perf_counter()
-    solver = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
+    solver = _build_solver(dx=0.1, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
     n = solver.V.ndofs
     require(n == N_MAIN, f"dx=0.1 slab has {N_MAIN} nodes (got {n})")
     A, _, minv, (fused, update) = solver._operators(DT)
@@ -880,7 +968,8 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     # states with V over the whole action-potential range, every state row
     # held by its increment, at both dt and also with each slow
     # concentration scaled so float32 resolves their increments; then one
-    # paced beat of BEAT_CELLS cells, every row held by its excursion.
+    # paced beat (TP06_BEAT_STEPS) of BEAT_CELLS cells, every row held by
+    # its excursion.
     init = tp06.init_state_values()
     states = np.tile(init[:, None], (1, n)) * (1 + 0.05 * rng.standard_normal((19, n)))
     states[0] = rng.uniform(-90.0, 40.0, n)
@@ -911,12 +1000,12 @@ def phase_kernels(seed: int = 0) -> tuple[dict, object]:
     beats = kc.ionic_beats_errors_by_group([
         (cuda_ode.tp06_grl_step_v, cuda_ode.tp06_grl_step_v_twin, beat0, tp06.init_parameter_values(celltype=ct),
          {"all": None}) for ct in kc.CELLTYPES
-    ])
+    ], n_steps=TP06_BEAT_STEPS)
     took = time.perf_counter() - tic
     for ct, out in zip(kc.CELLTYPES, beats):
         beat_abs, beat_err = out["all"]
         print(f"[kernels] tp06_grl_step_v one beat, celltype {ct:g} ({BEAT_CELLS} cells, "
-              f"{kc.BEAT_STEPS} steps of {kc.BEAT_DT} ms, the three celltypes' beats {took:.1f} s), "
+              f"{TP06_BEAT_STEPS} steps of {kc.BEAT_DT} ms, the three celltypes' beats {took:.1f} s), "
               f"max|k-w| {beat_abs:.3e}; per row max|k-w| / max excursion: "
               + " ".join(f"{nm}={float(e):.2e}" for nm, e in zip(names, beat_err)))
         require(bool((beat_err <= kc.IONIC_BEAT_TOL).all()),
@@ -1067,7 +1156,7 @@ def phase_lv_setup():
     tic = time.perf_counter()
     solver = build_lv_solver(
         psize=LV_PSIZE, device=DEVICE, precond="jacobi",
-        probe_points=list(lv_probe_points(LV_PSIZE).values()),
+        probe_points=list(lv_probe_points(LV_PSIZE).values()), operator_cache_key=CACHE_KEY,
     )
     torch.cuda.synchronize()
     setup = time.perf_counter() - tic
@@ -1138,7 +1227,7 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
         require(bool((step_err[g] <= kc.IONIC_STEP_TOL).all()),
                 f"tp06_grl_multi_step_v one-step increments agree with its twin, {g}")
 
-    # one paced beat of BEAT_CELLS cells spread evenly over the LV, each
+    # one paced beat (TP06_BEAT_STEPS) of BEAT_CELLS cells spread evenly over the LV, each
     # with its own layer's parameter set (the model's own pacing on)
     sample = torch.as_tensor(np.linspace(0, n - 1, BEAT_CELLS).astype(np.int64), device=dev)
     model_b = lv_layers(solver)[0][sample].contiguous()
@@ -1151,12 +1240,13 @@ def phase_lv_kernels(solver, seed: int = 1) -> dict:
     beat = kc.ionic_beat_errors_by_group(  # the twin's table on the host: its graph needs no copy
         lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v(S, v, model_b, t, dt, table_b),
         lambda S, v, t, dt, p: cuda_ode.tp06_grl_multi_step_v_twin(S, v, model_b, t, dt, table_np),
-        beat0, None, beat_groups,
+        beat0, None, beat_groups, n_steps=TP06_BEAT_STEPS,
     )
     beat_s = time.perf_counter() - tic
     for g, (a, e) in beat.items():
         print(f"[kernels] tp06_grl_multi_step_v one beat, {g} ({beat_groups[g].numel()} of "
-              f"{BEAT_CELLS} cells, {beat_s:.1f} s for all), max|k-w| {a:.3e}; per row max|k-w| / "
+              f"{BEAT_CELLS} cells, {TP06_BEAT_STEPS} steps of {kc.BEAT_DT} ms, {beat_s:.1f} s for all), max|k-w| "
+              f"{a:.3e}; per row max|k-w| / "
               "max excursion: " + " ".join(f"{nm}={float(x):.2e}" for nm, x in zip(names, e)))
         require(bool((e <= kc.IONIC_BEAT_TOL).all()),
                 f"tp06_grl_multi_step_v agrees with its twin over one beat, {g}")
@@ -1292,22 +1382,24 @@ def phase_steady_states(model: str = "torord_dyncl") -> tuple[dict, float, int]:
     return steady, seconds, launches
 
 
-def phase_torord_lv_setup(steady: dict, model: str = "torord_dyncl"):
+def phase_torord_lv_setup(steady: dict, layers, model: str = "torord_dyncl"):
     """The demo's own LV at full width: ToR-ORd (or ToR-ORd + Land) layers
-    from the pre-paced steady states, its host setup timed."""
+    from the pre-paced steady states, its host setup timed; ``layers`` is
+    the TP06 LV's labelling of the same mesh (phase 3 times the labelling's
+    Laplace solve)."""
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks.lv import build_lv_solver, lv_probe_points
 
     tic = time.perf_counter()
     solver = build_lv_solver(
-        psize=LV_PSIZE, device=DEVICE, precond="jacobi", model=model, init_states=steady,
-        probe_points=list(lv_probe_points(LV_PSIZE).values()),
+        psize=LV_PSIZE, device=DEVICE, precond="jacobi", model=model, init_states=steady, layers=layers,
+        probe_points=list(lv_probe_points(LV_PSIZE).values()), operator_cache_key=CACHE_KEY,
     )
     torch.cuda.synchronize()
     setup = time.perf_counter() - tic
     print(f"[{LV_TAGS[model]}] psize {LV_PSIZE}: n={solver.V.ndofs} nodes, {solver.states.shape[0]} states, "
-          f"host setup {setup:.1f} s")
+          f"host setup {setup:.1f} s (the TP06 LV's layers)")
     require(solver.V.ndofs == N_LV and solver._ionic.name == model, f"the {model} LV at full width")
     return solver, setup
 
@@ -1552,7 +1644,7 @@ def phase_node_paths(lv_solver, t0: float) -> dict:
     wrappers = kernel_wrappers()
     launches = {}
     # TP06: the main path's configuration
-    ref = _build_solver(dx=0.1, theta=0.5, device=DEVICE)
+    ref = _build_solver(dx=0.1, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
     n = ref.V.ndofs
     fld = field_solver(ref, tp06.generalized_rush_larsen, np.tile(np.asarray(ref.parameters)[:, None], (1, n)),
                        ref.states.double().cpu().numpy())
@@ -1615,7 +1707,8 @@ def phase_mixed_setup():
     from fenicsx_beat_tpu_torch.benchmarks.niederer import benchmark_points
 
     tic = time.perf_counter()
-    solver = build_mixed_solver(dx=MIXED_DX, device=DEVICE, probe_points=np.array(list(benchmark_points().values())))
+    solver = build_mixed_solver(dx=MIXED_DX, device=DEVICE, probe_points=np.array(list(benchmark_points().values())),
+                                operator_cache_key=CACHE_KEY)
     torch.cuda.synchronize()
     setup = time.perf_counter() - tic
     print(f"[mixed] dx={MIXED_DX}: n={solver.V.ndofs} nodes, union states {tuple(solver.states.shape)} "
@@ -1818,7 +1911,7 @@ def phase_mixed_path(solver, setup_s: float) -> dict:
         return vs, time.perf_counter() - tic
 
     twin = build_mixed_solver(dx=MIXED_DX, device=DEVICE, use_kernels=False,
-                              probe_points=np.array(list(benchmark_points().values())))
+                              probe_points=np.array(list(benchmark_points().values())), operator_cache_key=CACHE_KEY)
     (vk, _), (vk2, _) = windows(solver, None), windows(solver, 1)
     vw, wall_w = windows(twin, None)
     require(bool(torch.isfinite(twin.states).all()), "Path M's twin run is finite")
@@ -1853,6 +1946,405 @@ def phase_mixed_dx05() -> None:
           + f"; launches per model {json.dumps(res.launches)}")
     require(res.all_finite, "Path M at dx=0.5 finite")
     require(max(gaps.values()) <= DT + 1e-6, "Path M's dx=0.5 probes within one dt of the JAX values")
+
+
+class CacheLedger:
+    """The operator disk cache over one run, as the solvers use it: every
+    assembly given a ``cache_key`` (``fem``'s two entry points) timed, the
+    slot it read or wrote, each slot's cold assembly (its miss, the store
+    apart) and store, and each hit.  Saved = the sum over hits of the slot's
+    cold assembly less the hit, less every store.  The first cold pair (the
+    dx=0.1 slab's, phase 3) is kept for phase 21 (e)."""
+
+    def __init__(self):
+        from fenicsx_beat_tpu_torch import cache, fem
+
+        self.cold, self.stores, self.hits = {}, {}, []
+        self.first = None  # (slot, pair)
+        self._read = None
+        load, store = cache.load_arrays, fem._operator_cache_store
+
+        def read(path):
+            out = load(path)
+            self._read = (path, out is not None)
+            return out
+
+        def timed_store(path, mass, stiff):
+            tic = time.perf_counter()
+            store(path, mass, stiff)
+            self.stores[path] = time.perf_counter() - tic
+
+        cache.load_arrays = read
+        fem._operator_cache_store = timed_store
+        for name in ("assemble_mass_stiffness_stencil", "assemble_mass_stiffness"):
+            setattr(fem, name, self._timed(getattr(fem, name)))
+
+    def _timed(self, fn):
+        def timed(*args, **kw):
+            if kw.get("cache_key") is None:
+                return fn(*args, **kw)
+            self._read = None
+            tic = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds = time.perf_counter() - tic
+            if out is None or self._read is None:
+                return out  # a stencil the mesh declined: no slot
+            path, hit = self._read
+            if hit:
+                self.hits.append((path, seconds))
+            else:
+                self.cold[path] = seconds - self.stores.get(path, 0.0)
+                if self.first is None:
+                    self.first = (path, out)
+            return out
+
+        return timed
+
+    def adopt(self, proc) -> dict:
+        """Wait for the :func:`prefetch` process ``proc`` and take its
+        slots' cold assemblies and stores as this run's (its hits here
+        saved them); returns its report."""
+        out, err = proc.communicate(timeout=900)
+        require(proc.returncode == 0, f"chip_smoke.py --prefetch ran on the host (exit {proc.returncode}): "
+                                      f"{err[-2000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        self.cold.update({Path(k): v for k, v in report["cold"].items()})
+        self.stores.update({Path(k): v for k, v in report["stores"].items()})
+        return report
+
+    def saved(self) -> tuple[float, float]:
+        """(seconds the hits saved less the stores, seconds of the stores)."""
+        gained = sum(self.cold[path] - s for path, s in self.hits if path in self.cold)
+        stored = sum(self.stores.values())
+        return gained - stored, stored
+
+
+def cache_summary(ledger: CacheLedger, phase21_s: float) -> None:
+    """The operator cache over the run: slots, hits, seconds saved, against
+    phase 21's seconds and nvcc's for the forward-Euler sources."""
+    from fenicsx_beat_tpu_torch._build import load_library, source_seconds
+
+    saved, stored = ledger.saved()
+    fe = {k: v for k, v in source_seconds(load_library().compiler_output).items() if "_fe" in k}
+    nvcc_fe = sum(cpu for _, cpu in fe.values())
+    built = load_library().build_seconds
+    print(f"[cache] {len(ledger.cold)} pairs assembled and stored ({stored:.1f} s of stores), {len(ledger.hits)} "
+          f"loads: {saved:.1f} s saved net of the stores; phase 21 {phase21_s:.1f} s and nvcc for the "
+          f"forward-Euler sources {nvcc_fe:.1f} s (CPU seconds of each source's nvcc, summed; wall from the "
+          "parallel build's start: " + ", ".join(f"{k} {w:.1f} / {c:.1f}" for k, (w, c) in sorted(fe.items()))
+          + f"; the whole build {built:.1f} s wall): {phase21_s + nvcc_fe:.1f} s against {saved:.1f} s saved")
+
+
+def fe_form_rows(seed: int = 21) -> dict:
+    """Phase 21 (d): one step of each forward-Euler kernel (B1 with one
+    parameter set, B1's per-node form on a field of mixed celltypes, B7
+    with the celltypes as layers and 2% of the nodes in none) against its
+    twin at its path's width (TP06 n = 442,401, ToR-ORd and Land the psize
+    0.1 LV's 243,518), every state row by the one-step limits, nodes of no
+    layer equal; B1's per-node form on a uniform field gives B1's bits.
+    Each timed beside its twin (no library call computes it).  Returns the
+    rows."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.lv import MODELS
+    from fenicsx_beat_tpu_torch.benchmarks.profile_main import device_us_per_call
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for name, module, n in (("tp06", tp06, N_MAIN), ("torord_dyncl", MODELS["torord_dyncl"], N_LV),
+                            ("torord_dyncl_land", MODELS["torord_dyncl_land"], N_LV)):
+        spec = cuda_ode.ionic_model(module.forward_euler)
+        S_, NP = spec.num_states, spec.num_params
+        stim = "stim_amplitude" if "stim_amplitude" in module._PARAM_NAMES else "i_Stim_Amplitude"
+        table = np.stack([module.init_parameter_values(**{stim: 0.0}, celltype=ct) for ct in kc.CELLTYPES])
+        states = kc.check_states(name, n, rng)
+        v = rng.uniform(-90.0, 40.0, n)
+        tic = time.perf_counter()
+        res = kc.ionic_form_checks(spec, states, v, table, None, rng, beat_steps=0)
+        for form, r in res["forms"].items():
+            worst, top = 0.0, 0.0
+            for (t, dt, g), (a, e) in r["step"].items():
+                if g == "no layer":
+                    require(a == 0.0, f"{form} leaves the nodes of no layer as they were")
+                    continue
+                worst, top = max(worst, float(e.max())), max(top, a)
+            print(f"[fused_scope] (d) {form} one step at n={n}, t 0.5 and 2.0 ms, dt 0.025 and 0.05: "
+                  f"max|k-w| {top:.3e}, worst row |k-w| beyond 1 ulp / max|increment| {worst:.3e} "
+                  f"(limit {kc.IONIC_STEP_TOL:g})")
+            require(worst <= kc.IONIC_STEP_TOL, f"{form} one-step increments agree with its twin")
+            res["forms"][form]["err"] = (top, worst)
+        require(res["uniform_bits"], f"{spec.node_step.__name__} on a uniform field gives "
+                                     f"{spec.step.__name__}'s bits")
+        inp = res["inputs"]
+        S0, S0s, vk, fld = inp["S0"], inp["S0_storage"], inp["v"], inp["field"]
+        scratch, scratch_s = S0.clone(), S0s.clone()
+        ops = IONIC_OPS_PER_NODE[name] * n  # the GRL count: forward Euler drops the gates' exp
+        b1_bytes = 2 * S_ * n * 4  # S - 1 rows and v read, S rows written
+        timed = {
+            spec.step.__name__: (lambda: spec.step(scratch, vk, 1.0, 0.025, table[0]),
+                                 lambda: spec.step_twin(scratch, vk, 1.0, 0.025, table[0]), b1_bytes),
+            spec.node_step.__name__: (lambda: spec.node_step(scratch, vk, 1.0, 0.025, fld),
+                                      lambda: spec.step_twin(scratch, vk, 1.0, 0.025, fld),
+                                      b1_bytes + NP * n * 4),
+            spec.multi_step.__name__: (lambda: inp["b7"](scratch_s, vk, 1.0, 0.025, None),
+                                       lambda: inp["b7_twin"](scratch_s, vk, 1.0, 0.025, None),
+                                       b1_bytes + n * 4),  # and the model index
+        }
+        for form, (kern, twin, nbytes) in timed.items():
+            rows[form] = row(res["forms"][form]["err"], time_ms(kern), time_ms(twin, launches=5, reps=3),
+                             bound(nbytes, ops), None)
+        dev_us = {form: device_us_per_call(kern) for form, (kern, _, _) in timed.items()}
+        torch.cuda.synchronize()
+        print("[fused_scope] (d) device time per call (torch.profiler, us): "
+              + ", ".join(f"{k} {u:.2f}" for k, u in dev_us.items()))
+        print(f"[fused_scope] (d) {spec.name}: checks and timings {time.perf_counter() - tic:.1f} s")
+        del res, inp, scratch, scratch_s
+    print_rows(rows)
+    return rows
+
+
+def fe_paths(base) -> dict:
+    """Phase 21 (d): every forward-Euler kernel on a path, the dx=0.1
+    Niederer slab at dt :data:`FE_DT` for :data:`FE_STEPS` steps, Strang:
+    TP06's B1 on the kernels and on the twins (max|dv| < 1e-2), ToR-ORd's
+    and Land's B1, then one marker layer of six x bands, each model on a
+    field (B1's per-node form) and on a vector (B7's mixed form); counts
+    set to 0 before each run and read after it, every state finite."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.benchmarks.kernel_check import THRESHOLD
+    from fenicsx_beat_tpu_torch.benchmarks.lv import MODELS
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    models = {"tp06": tp06, "torord_dyncl": MODELS["torord_dyncl"], "torord_dyncl_land": MODELS["torord_dyncl_land"]}
+    specs = {k: cuda_ode.ionic_model(m.forward_euler) for k, m in models.items()}
+    wrappers = {f.__name__: f for s in specs.values() for f in (s.step, s.node_step, s.multi_step)}
+
+    def params(m, **kw):
+        stim = "stim_amplitude" if "stim_amplitude" in m._PARAM_NAMES else "i_Stim_Amplitude"
+        return m.init_parameter_values(**{stim: 0.0}, **kw)
+
+    def run(solver, tag):
+        zero_launches(wrappers)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        solver.solve((0.0, FE_STEPS * FE_DT), dt=FE_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        finite = bool(torch.isfinite(solver.states).all())
+        print(f"[fused_scope] (d) {tag}: {FE_STEPS} steps of {FE_DT} ms in {wall:.3f} s, finite {finite}, "
+              f"v range [{float(solver.v.min()):.2f}, {float(solver.v.max()):.2f}] mV, launches {json.dumps(counts)}")
+        require(finite, f"{tag}: every state finite")
+        return counts
+
+    launches = {}
+    for key, m in models.items():
+        s = dataclasses.replace(base, ode_fun=m.forward_euler, init_states=m.init_state_values(),
+                                parameters=params(m), v_index=0)
+        counts = run(s, f"{specs[key].name} B1 on the slab")
+        name = specs[key].step.__name__
+        require(counts.get(name, 0) == 2 * FE_STEPS, f"{name} twice a step")
+        launches[name] = counts.get(name, 0)
+        if key == "tp06":
+            twin = dataclasses.replace(s, use_kernels=False)
+            twin.solve((0.0, FE_STEPS * FE_DT), dt=FE_DT)
+            dv = float((s.v.double() - twin.v.double()).abs().max())
+            print(f"[fused_scope] (d) TP06 forward Euler, dx=0.1 slab, dt {FE_DT} ms (JAX's float64 run finite "
+                  f"there, tests/test_torch_ionic_fe.py), {FE_STEPS} steps: kernels vs twins max|dv| {dv:.3e} "
+                  f"(limit {THRESHOLD:g})")
+            require(dv < THRESHOLD, "the TP06 forward-Euler slab run's kernels vs twins max|dv| < 1e-2")
+            del twin
+        del s
+    x = base.V.dof_coords[:, 0]
+    n = x.shape[0]
+    markers = np.digitize(x, np.linspace(0.0, 20.0, 7)[1:-1]).astype(np.int64)
+    funs, init, prm = {}, {}, {}
+    cts = np.random.default_rng(5).integers(0, 3, n).astype(float)
+    for k, (key, m) in enumerate(models.items()):
+        field = np.tile(params(m)[:, None], (1, n))
+        field[m.parameter_index("celltype")] = cts
+        funs[2 * k], init[2 * k], prm[2 * k] = m.forward_euler, m.init_state_values(), field
+        funs[2 * k + 1], init[2 * k + 1], prm[2 * k + 1] = m.forward_euler, m.init_state_values(), params(m)
+    layer = dataclasses.replace(base, ode_fun=funs, init_states=init, parameters=prm,
+                                v_index={k: 0 for k in funs}, ode_markers=markers)
+    del prm
+    counts = run(layer, "six bands: each model on a field and on a vector")
+    for spec in specs.values():
+        for f in (spec.node_step, spec.multi_step):
+            require(counts.get(f.__name__, 0) == 2 * FE_STEPS, f"{f.__name__} twice a step in the six bands")
+            launches[f.__name__] = counts.get(f.__name__, 0)
+    return launches
+
+
+def phase_fused_scope(main: dict, mixed, ledger: CacheLedger) -> tuple[dict, dict, float]:
+    """Phase 21: the fused solver's remaining scope on the card, (a)-(e)
+    (module docstring).  ``main`` is phase 6's main path (P1-P9, ms/s, CG
+    and host syncs per step), ``mixed`` Path M's solver.  Returns the
+    forward-Euler kernels' rows and path launches and the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch import fem, stimulation
+    from fenicsx_beat_tpu_torch.benchmarks.mixed import TP06_MARKER, mixed_ionic
+    from fenicsx_beat_tpu_torch.benchmarks import kernel_check as kc
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import _build_solver, benchmark_points, run_niederer_benchmark
+    from fenicsx_beat_tpu_torch.conductivities import as_cell_tensors
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu_torch.ops import cuda_ode
+
+    tic0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    part = Laps("[fused_scope]")
+
+    # (a) merged Strang on the main path at full width
+    zero_launches(wrappers)
+    res = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, merge_strang_halves=True,
+                                 operator_cache_key=CACHE_KEY)
+    counts = {name: w.launches for name, w in wrappers.items() if w.launches}
+    chunk = int(round(20.0 / DT))  # run_niederer_benchmark's chunks of 20 ms
+    n_chunks = res.n_steps // chunk + 1  # and its warm-up chunk
+    # the unmerged main path again, right after (the host sets ms/s: phase
+    # 6's run is printed beside)
+    unmerged = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
+    at = [res.activation_times[f"P{i}"] for i in range(1, 10)]
+    gaps = [abs(a - b) for a, b in zip(at, JAX_MERGED_DX01)]
+    err = res.error_vs_published()
+    per_chunk = counts["tp06_grl_step_v"] / n_chunks
+    print(f"[fused_scope] (a) merged Strang, dx=0.1, {res.simulated_ms:g} ms: P1-P9 "
+          + " ".join(f"{a:.2f}" for a in at) + "; |P - P_jax merged| "
+          + ", ".join(f"P{i + 1}={g:.3f}" for i, g in enumerate(gaps))
+          + f"; max_rel_err_vs_converged={err:.4%} (JAX's {JAX_MERGED_MAX_REL_ERR:.2%}); ms_per_s="
+          f"{res.ms_per_second:.3f} beside the unmerged run after it {unmerged.ms_per_second:.3f} and phase 6's "
+          f"{main['ms_per_s']:.3f}; cg_iters mean "
+          f"{res.cg_iters_mean:.3f} (unmerged {main['cg_mean']:.3f}), host_syncs_per_step "
+          f"{res.host_syncs_per_step:.3f} (unmerged {main['syncs']:.3f}); ionic launches per chunk of {chunk} "
+          f"steps {per_chunk:g} (unmerged {2 * chunk}); launches {json.dumps(counts)}")
+    require(max(gaps) <= DT + 1e-6, "merged P1-P9 within one dt of the JAX package's merged values")
+    require(err is not None and err <= 0.05, "merged Strang within 5% of the converged published row")
+    require(per_chunk == chunk + 1, "merged Strang: n_steps + 1 ionic launches a chunk")
+    require_structured_pcg(counts, "the merged main path")
+
+    part("(a)")
+    # (b) the main path with its stimulus as a general space-time expression
+    base = _build_solver(dx=0.1, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY,
+                         probe_points=np.array(list(benchmark_points().values())))
+    s1 = base.I_s
+    w = s1.expr
+
+    def window(x, t):
+        return w.amplitude * ((t >= w.start) & (t <= w.start + w.duration)) * torch.ones_like(x[0])
+
+    gen = dataclasses.replace(base, I_s=stimulation.Stimulus(expr=window, dZ=s1.dZ, marker=s1.marker))
+    require(gen._b_units is None and gen._stim_terms[0][3] is None, "the general stimulus is assembled each step")
+    amps = gen.stimulus_amplitudes()
+    init, act0 = gen.states.clone(), gen.activation_time.clone()
+    gen.run_chunk(0.0, DT, chunk, amps, probed=True)  # warm-up, discarded, as run_niederer_benchmark
+    gen.states, gen.activation_time, gen.host_syncs, gen.cg_iterations = init, act0, 0, 0
+    zero_launches(wrappers)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    t, probes = 0.0, None
+    for _ in range(int(round(40.0 / (chunk * DT)))):
+        probes = gen.run_chunk(t, DT, chunk, amps, probed=True).probes
+        t += chunk * DT
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = {name: w_.launches for name, w_ in wrappers.items() if w_.launches}
+    gen_at = probes.cpu().numpy().tolist()
+    steps = int(round(t / DT))
+    quad, expr = gen._stim_terms[0][1], gen._stim_terms[0][2]
+    load_ms = time_ms(lambda: quad.assemble_load(expr, 1.0, device=gen.device, dtype=gen.dtype))
+    gaps = [abs(a - b) for a, b in zip(gen_at, main["at"])]
+    print(f"[fused_scope] (b) the main path's S1 stimulus as a general expression, 40 ms: P1-P9 "
+          + " ".join(f"{a:.2f}" for a in gen_at) + "; |P - P_TimeWindow| "
+          + ", ".join(f"P{i + 1}={g:.3f}" for i, g in enumerate(gaps))
+          + f"; ms_per_s={t / wall:.3f} (TimeWindow {main['ms_per_s']:.3f}); B8 launches {counts.get('csr_spmv', 0)} "
+          f"in {steps} steps; the load's assembly {load_ms:.4f} ms a step ({quad.W.shape[0]} cells x "
+          f"{quad.W.shape[1]} points, one B8 product); launches {json.dumps(counts)}")
+    require(max(gaps) <= DT + 1e-6, "the general-stimulus P1-P9 within one dt of the TimeWindow run's")
+    require(counts.get("csr_spmv", 0) == steps, "the general stimulus: one B8 launch a step")
+    del gen
+
+    part("(b)")
+    # (c) Path M with TP06's parameters as a node-aligned field
+    funs, init_m, params, v_idx = mixed_ionic()
+    n = mixed.V.ndofs
+    field = dict(params)
+    field[TP06_MARKER] = np.tile(np.asarray(params[TP06_MARKER], dtype=np.float64)[:, None], (1, n))
+    tab = dataclasses.replace(mixed, ode_fun=funs, init_states=init_m, parameters=params, v_index=v_idx)
+    fld = dataclasses.replace(mixed, ode_fun=funs, init_states=init_m, parameters=field, v_index=v_idx)
+    g = fld._ionic_fields[0]
+    tab.solve((0.0, 2.0), dt=DT)
+    zero_launches(wrappers)
+    fld.solve((0.0, 2.0), dt=DT)
+    counts = {name: w_.launches for name, w_ in wrappers.items() if w_.launches}
+    same = torch.equal(fld.states, tab.states) and torch.equal(fld.activation_time, tab.activation_time)
+    S = fld.states.clone()
+    v = fld.v.clone()
+    sub = S[: g.model.num_states].index_select(1, g.nodes).contiguous()
+    step_ms = time_ms(lambda: cuda_ode.field_step(S, v, g, 1.0, DT))
+    kernel_ms = time_ms(lambda: g.model.node_step(sub, v[: sub.shape[1]], 1.0, DT, g.field))
+    print(f"[fused_scope] (c) Path M, TP06's marker on a broadcast ({g.field.shape[0]}, {n}) field, 2 ms: states "
+          f"and activation times equal to the table run: {same}; max|dV| {float((fld.v - tab.v).abs().max()):.3e}; "
+          f"launches {json.dumps(counts)}; the field marker's step {step_ms:.4f} ms ({g.nodes.numel()} nodes: "
+          f"gather, B1's per-node form {kernel_ms:.4f} ms, scatter; {step_ms - kernel_ms:.4f} ms a step beside the "
+          f"kernel)")
+    require(same, "Path M on a broadcast TP06 field equals its table run bit for bit")
+    require(counts.get("tp06_grl_node_step_v", 0) > 0 and counts.get("tp06_grl_multi_step_v", 0) == 0,
+            "the field run launched TP06's per-node form and not its B7")
+    del tab
+    # a field that varies in space: one step, kernels against twins
+    rng = np.random.default_rng(7)
+    cts = rng.integers(0, 3, n).astype(float)
+    varying = dict(params)
+    varying[TP06_MARKER] = field[TP06_MARKER].copy()
+    varying[TP06_MARKER][tp06.parameter_index("celltype")] = cts
+    fld = dataclasses.replace(fld, ode_fun=funs, init_states=init_m, parameters=varying, v_index=v_idx)
+    g = fld._ionic_fields[0]
+    S = fld.states.clone()
+    S[:19] = torch.as_tensor(kc.check_states("tp06", n, rng), device=S.device).to(S.dtype)
+    v = torch.as_tensor(rng.uniform(-90.0, 40.0, n), device=S.device).to(S.dtype)
+    worst = 0.0
+    for _, Sx in kc.step_check_states(S, "tp06"):
+        for dt in (0.025, 0.05):
+            out = kc.ionic_step_errors_by_group(
+                lambda a, b, t, d, p: cuda_ode.field_step(a, b, g, t, d, True),
+                lambda a, b, t, d, p: cuda_ode.field_step(a, b, g, t, d, False), Sx, v, 1.0, dt, None,
+                {"tp06": g.nodes})
+            worst = max(worst, float(out["tp06"][1].max()))
+    print(f"[fused_scope] (c) a TP06 field of mixed celltypes: one step, kernels vs twins on the marker's nodes, "
+          f"worst row |k-w| beyond 1 ulp / max|increment| {worst:.3e} (limit {kc.IONIC_STEP_TOL:g})")
+    require(worst <= kc.IONIC_STEP_TOL, "the varying field's step agrees with its twin")
+    del fld, S
+
+    part("(c)")
+    # (d) forward Euler: the nine kernels against their twins, then on paths
+    rows = fe_form_rows()
+    launches = fe_paths(base)
+
+    part("(d)")
+    # (e) the cache: the dx=0.1 slab pair, cold (phase 3) and warm
+    slot, cold_pair = ledger.first
+    tic = time.perf_counter()
+    warm = fem.assemble_mass_stiffness_auto(base.V, as_cell_tensors(base.M, base.mesh), cache_key=CACHE_KEY)
+    warm_s = time.perf_counter() - tic
+    del base
+    equal = all(a.offsets == b.offsets and torch.equal(a.vals, b.vals) for a, b in zip(warm, cold_pair))
+    print(f"[fused_scope] (e) the dx=0.1 slab pair ({slot.name}): cold assembly {ledger.cold[slot]:.2f} s, its "
+          f"store {ledger.stores[slot]:.2f} s, warm load {warm_s:.2f} s; the warm pair equals the cold one bit "
+          f"for bit: {equal}")
+    require(equal, "the warm operator-cache load equals the cold assembly bit for bit")
+    part("(e)")
+    took = time.perf_counter() - tic0
+    print(f"[fused_scope] phase 21: {took:.1f} s")
+    return rows, launches, took
 
 
 def phase_fhn_kernels() -> dict:
@@ -1949,7 +2441,7 @@ def phase_bidomain_slab() -> None:
                     ("gs", dict(scheme="gs", gs_u_rtol=BIDOMAIN_GS_U_RTOL, monodomain=False)),
                     ("monolithic, twins", dict(scheme="monolithic", use_kernels=False, monodomain=False))):
         zero_launches(wrappers)
-        r, solvers[tag] = bs.run_slab(BIDOMAIN_DX, dt=DT, device=DEVICE, return_solver=True, **kw)
+        r, solvers[tag] = bs.run_slab(BIDOMAIN_DX, dt=DT, device=DEVICE, return_solver=True, cache_key=CACHE_KEY, **kw)
         launches[tag] = {name: w.launches for name, w in wrappers.items() if w.launches}
         runs[tag] = r
         mono = (f"; matched monodomain {r['mono_ms_per_s']:.3f} ms/s (CG worst step {r['mono_cg_iters_max']}), "
@@ -1980,7 +2472,7 @@ def phase_bidomain_slab() -> None:
     dv_field, du_field = field_gaps(bi, tw)
     # float32's own noise at every node: the kernel run again, from states
     # moved by one ulp at random
-    nz = bs.slab_solver(BIDOMAIN_DX, device=DEVICE, scheme="monolithic")
+    nz = bs.slab_solver(BIDOMAIN_DX, device=DEVICE, scheme="monolithic", cache_key=CACHE_KEY)
     bs.perturb_states(nz, 1)
     bs.timed_solve(nz, 5.0, 10.0, DT)
     nv, nu = field_gaps(nz, bi)
@@ -2418,7 +2910,8 @@ def phase_ode_main(ode: dict) -> dict:
     wrappers = {**kernel_wrappers(), **ode_wrappers(ode)}
 
     def build(use_kernels=True):
-        return _build_solver(dx=ODE_DX, theta=0.5, model=m, device=DEVICE, use_kernels=use_kernels)
+        return _build_solver(dx=ODE_DX, theta=0.5, model=m, device=DEVICE, use_kernels=use_kernels,
+                             operator_cache_key=CACHE_KEY)
 
     tic = time.perf_counter()
     zero_launches(wrappers)
@@ -2723,7 +3216,7 @@ def phase_pcg_sequences(solver) -> dict:
     return {k: statistics.mean(r[0] for r in v) for k, v in out.items()}
 
 
-def phase_main_path() -> dict:
+def phase_main_path() -> tuple[dict, dict]:
     import math
 
     from fenicsx_beat_tpu_torch.benchmarks.niederer import run_niederer_benchmark
@@ -2731,7 +3224,7 @@ def phase_main_path() -> dict:
 
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
-    res = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE)
+    res = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
     launches = {name: w.launches for name, w in wrappers.items()}
 
     print(f"[main] {res.summary()}")
@@ -2757,7 +3250,7 @@ def phase_main_path() -> dict:
     new_pde_solve = FusedMonodomainSolver._pde_solve
     FusedMonodomainSolver._pde_solve = old_pde_solve
     try:
-        old = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE)
+        old = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
     finally:
         FusedMonodomainSolver._pde_solve = new_pde_solve
     old_at = [old.activation_times[f"P{i}"] for i in range(1, 10)]
@@ -2767,7 +3260,8 @@ def phase_main_path() -> dict:
           f"{gap:.3%} apart), host_syncs_per_step={old.host_syncs_per_step:.3f}; P1-P9 "
           + " ".join(f"{a:.2f}" for a in old_at))
     require(gap <= 0.01, "the main path's CG iterations within 1% of the old sequence's")
-    return launches, at
+    return launches, {"at": at, "ms_per_s": res.ms_per_second, "cg_mean": res.cg_iters_mean,
+                      "syncs": res.host_syncs_per_step}
 
 
 def phase_lv_path(solver, setup_s: float, prepace_s: float = 0.0) -> tuple[dict, float]:
@@ -3277,17 +3771,19 @@ def phase_ecg_setup():
     tic = time.perf_counter()
     geo = get_3D_slab_geometry(None, dx=0.1, Lx=20.0, Ly=7.0, Lz=3.0)
     M = define_conductivity_tensor(f0=geo.f0, **default_conductivities("Niederer"))
-    main = ECGRecovery(v=fem.Function(fem.functionspace(geo.mesh, ("P", 1))), M=M, device=DEVICE)
+    main = ECGRecovery(v=fem.Function(fem.functionspace(geo.mesh, ("P", 1))), M=M, device=DEVICE,
+                       operator_cache_key=CACHE_KEY)
     print(f"[ecg_setup] dx=0.1: n={main.V.ndofs}, kernel {main.kernel}, offsets {main.offsets}, "
           f"host setup {time.perf_counter() - tic:.1f} s (assembly {main.setup_s['assembly_s']:.1f} s)")
     torch.cuda.reset_peak_memory_stats()
-    scale = build_ecg_scale(dx=0.05, device=DEVICE)
+    scale = build_ecg_scale(dx=0.05, device=DEVICE, operator_cache_key=CACHE_KEY)  # its pair: the prefetch's
     e = scale.ecg
     peak = torch.cuda.max_memory_allocated() / 2**30
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     print(f"[ecg_setup] dx=0.05: n={scale.V.ndofs}, {scale.n_cells} cells, kernel {e.kernel}, "
           f"clusters {window_spans(e.offsets)}; mesh {scale.mesh_build_s:.1f} s, recovery "
-          f"{scale.recovery_setup_s:.1f} s (assembly {e.setup_s['assembly_s']:.1f} s, operators to the "
+          f"{scale.recovery_setup_s:.1f} s (assembly {e.setup_s['assembly_s']:.1f} s, from the operator cache: the "
+          f"prefetch's pair, operators to the "
           f"card {e.setup_s['operators_s']:.1f} s), electrode weights {scale.electrode_weights_s:.1f} s; "
           f"peak device memory {peak:.2f} GiB, peak host memory of the process so far {host_gib:.1f} GiB")
     require(main.V.ndofs == N_MAIN and main.kernel == "B5", f"dx=0.1 recovery: {N_MAIN} nodes on B5")
@@ -3375,22 +3871,23 @@ def _lead_gaps(a: dict, b: dict) -> dict:
 
 def phase_ecg_main() -> dict:
     """Configuration 1: the dx=0.1 Strang slab, 40 ms, a pseudo-ECG frame
-    every 1 ms, on the kernels (launches counted) and on the twins, the
-    kernel run held to :data:`ECG_LEAD_TOL` (3x the float32 noise measured
-    with the PDE SpMV summed in another order, PERF.md)."""
+    every 1 ms, on the kernels (launches counted) and its first
+    :data:`ECG_TWIN_T` ms on the twins, the kernel run's frames there held
+    to :data:`ECG_LEAD_TOL` (3x the float32 noise measured over 40 ms with
+    the PDE SpMV summed in another order, PERF.md)."""
     import numpy as np
     import torch
 
     from fenicsx_beat_tpu_torch.benchmarks.ecg_scale import run_niederer_ecg
 
-    kw = dict(dx=0.1, dt=DT, T=40.0, theta=0.5, frame_ms=1.0, device=DEVICE)
+    kw = dict(dx=0.1, dt=DT, T=40.0, theta=0.5, frame_ms=1.0, device=DEVICE, operator_cache_key=CACHE_KEY)
     wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
     zero_launches(wrappers)
     res = run_niederer_ecg(**kw)
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    twin = run_niederer_ecg(**kw, use_kernels=False)
+    twin = run_niederer_ecg(**{**kw, "T": ECG_TWIN_T}, use_kernels=False)
 
     for tag, r in (("kernels", res), ("twins", twin)):
         it = np.array(r["cg_iters_per_frame"])
@@ -3405,8 +3902,8 @@ def phase_ecg_main() -> dict:
     print(f"[ecg_main] CG iterations per frame (kernels): {res['cg_iters_per_frame']}")
     print("[ecg_main] 12-lead extremes (kernels, min/max): " + ", ".join(
         f"{k} {min(v):.4e}/{max(v):.4e}" for k, v in res["leads"].items()))
-    gap = _lead_gaps(res["leads"], twin["leads"])
-    print("[ecg_main] per lead max|kernels - twins| / max|twins|: "
+    gap = _lead_gaps({k: v[:len(twin["leads"][k])] for k, v in res["leads"].items()}, twin["leads"])
+    print(f"[ecg_main] per lead max|kernels - twins| / max|twins| over the twins' {ECG_TWIN_T:g} ms: "
           + ", ".join(f"{k}={v:.2e}" for k, v in gap.items()))
     print(f"[ecg_main] max lead gap {max(gap.values()):.3e} (limit {ECG_LEAD_TOL:g}); peak device memory "
           f"{peak:.2f} GiB; launches {json.dumps(launches)}")
@@ -3442,7 +3939,7 @@ def phase_ecg_scale(scale) -> dict:
 
 
 
-def phase_adjoint() -> tuple[dict, dict]:
+def phase_adjoint(ref_proc) -> tuple[dict, dict]:
     """Phase 19, the differentiable solver on the card: (a) B8's
     combination on the LV operator group (mass, fiber, transverse) at
     psize 0.15, forward, dx and dw against the twin's within 1e-4 of
@@ -3456,25 +3953,14 @@ def phase_adjoint() -> tuple[dict, dict]:
     the fit from (b)'s lane gradient: the loss at the new point, from a
     forward sweep, below (b)'s; (d) the lane window of the same fit at
     psize 0.5 over 10 ms (two 5 ms segments) against the CPU's float64
-    window of the same problem (``fit_scale.py reference``, a process of its
-    own started first and run beside (a)-(c)), value and gradients within 3x
+    window of the same problem (``fit_scale.py reference``, ``ref_proc``
+    from :func:`fit_reference`, run beside the phases), value and gradients within 3x
     the largest gap to the float64 one of the CPU's float32 window and its
     runs from states one ulp away (three seeds).  Prints nodes, seconds per segment forward
     and backward, CG iterations per step in forward and adjoint solves, host
     syncs, B8 launches per step and peak memory.  Returns the two B8 rows
     and their launches in (b)'s lane run."""
-    tic = time.perf_counter()
-    # (d)'s CPU reference runs beside (a)-(c), torch on one of the host's cores
-    ref_proc = subprocess.Popen(
-        [sys.executable, "-m", "fenicsx_beat_tpu_torch.benchmarks.fit_scale", "reference", "--device", "cpu"],
-        cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        return _adjoint_checks(ref_proc, tic)
-    finally:
-        if ref_proc.poll() is None:
-            ref_proc.kill()
-            ref_proc.communicate()
+    return _adjoint_checks(ref_proc, time.perf_counter())
 
 
 def _adjoint_checks(ref_proc, tic: float) -> tuple[dict, dict]:
@@ -3932,25 +4418,21 @@ def phase_biv(steady: dict) -> None:
             "the conduction run launches ToR-ORd's B1 and B8")
 
 
-@contextlib.contextmanager
 def bidomain_reference():
     """Phase 20 (c)'s CPU reference (``bidomain_scale.py --lv-reference``:
-    the psize 0.3 LV over 5 ms in float64 and four
-    float32 witnesses per scheme), a process of its own on three of the
-    host's cores at a lower priority (``nice``: the phases beside it are
-    host-bound), started before the custom-ODE phases so that it is done
-    by (c); it is killed if it is still running when the block ends."""
-    proc = subprocess.Popen(
-        ["nice", "-n", "10", sys.executable, "-m", "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale", "--lv-psize",
-         str(LV_CHECK_PSIZE), "--dt", str(DT), "--lv-reference", str(BIDOMAIN_REF_NPZ)],
-        cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "3"},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        yield proc
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    the psize 0.3 LV over 5 ms in float64 and four float32 witnesses per
+    scheme), a process of its own on two of the host's cores
+    (:func:`start_background`), started at the run's start so that it is
+    done by (c)."""
+    return start_background(["-m", "fenicsx_beat_tpu_torch.benchmarks.bidomain_scale", "--lv-psize",
+                             str(LV_CHECK_PSIZE), "--dt", str(DT), "--lv-reference", str(BIDOMAIN_REF_NPZ)], 2)
+
+
+def fit_reference():
+    """Phase 19 (d)'s CPU reference (``fit_scale.py reference``), a process
+    of its own on one of the host's cores (:func:`start_background`),
+    started at the run's start so that it is done by (d)."""
+    return start_background(["-m", "fenicsx_beat_tpu_torch.benchmarks.fit_scale", "reference", "--device", "cpu"], 1)
 
 
 def phase_bidomain_amg(ref_proc) -> None:
@@ -4051,9 +4533,81 @@ def phase_amg_biv(steady: dict, ref_proc) -> None:
     end = time.perf_counter()
     print(f"[biv] phase 20 took {end - tic:.1f} s: (a) and (b) {mid - tic:.1f} s, (c) {end - mid:.1f} s")
 
+def prefetch() -> int:
+    """``--prefetch``: the cold assemblies of the two largest pairs no
+    earlier phase holds, the dx=0.05 ECG slab's (phase 8, 3,449,001 nodes,
+    as ``ECGRecovery`` assembles it) and the dx=0.1 bidomain slab's ``|i``
+    and ``|e`` (phase 12, as ``BidomainSolver`` does), into the run's
+    operator cache, on the host (the card hidden); the smoke run starts it
+    after the build and takes its report (each slot's assembly and store
+    seconds, the last line) before phase 8.  Host work beside a host-bound
+    run: the phases then load the pairs (an input that differed would
+    only miss, and the phase assemble its pair itself)."""
+    sys.path.insert(0, str(ROOT))
+    tic = time.perf_counter()
+    ledger = CacheLedger()
+    from fenicsx_beat_tpu_torch import fem
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+    from fenicsx_beat_tpu_torch.conductivities import as_cell_tensors
+    from fenicsx_beat_tpu_torch.geometry import get_3D_slab_geometry
+
+    mesh = get_3D_slab_geometry(None, dx=0.05, Lx=20.0, Ly=7.0, Lz=3.0).mesh  # build_ecg_scale's slab
+    fem.assemble_mass_stiffness_auto(fem.functionspace(mesh, ("P", 1)), as_cell_tensors(1.0, mesh),
+                                     cache_key=CACHE_KEY)
+    del mesh
+    geo = get_3D_slab_geometry(None, dx=BIDOMAIN_DX, Lx=bs.LX, Ly=bs.LY, Lz=bs.LZ)  # bs.slab_solver's
+    V = fem.functionspace(geo.mesh, ("P", 1))
+    for tag, M in zip(("|i", "|e"), bs.bidomain_tensors(geo.f0)):
+        fem.assemble_mass_stiffness_auto(V, as_cell_tensors(M, geo.mesh), cache_key=CACHE_KEY + tag)
+    print(json.dumps({"cold": {str(k): v for k, v in ledger.cold.items()},
+                      "stores": {str(k): v for k, v in ledger.stores.items()},
+                      "seconds": time.perf_counter() - tic}))
+    return 0
+
+
+def start_background(args: list, threads: int):
+    """A host process of this run beside it (``args`` after the
+    interpreter), on ``threads`` of the host's cores at a lower priority,
+    the card hidden; killed at exit if it still runs."""
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, *args], cwd=ROOT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": str(threads)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+    atexit.register(stop)
+    return proc
+
+
+class Laps:
+    """Seconds of each stretch of the run (or of a phase: ``tag``), printed
+    as each ends and, at the end, all of them, the longest first."""
+
+    def __init__(self, tag: str = "[time]"):
+        self.tag = tag
+        self.start = self.last = time.perf_counter()
+        self.laps = []
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.laps.append((label, now - self.last))
+        print(f"{self.tag} {label}: {now - self.last:.1f} s (at {now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+    def summary(self) -> None:
+        print("[time] by stretch, longest first: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(self.laps, key=lambda kv: -kv[1])))
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:] == ["--prefetch"]:  # the host's half of phases 8 and 12 (a process of the run's own)
+        return prefetch()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -4063,86 +4617,153 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     tic = time.perf_counter()
+    # the operator disk cache in a directory of this run's own, empty at
+    # its start, so the first assembly of each pair is a real one
+    cache_home = ROOT / "build" / "chip_smoke_cache"
+    shutil.rmtree(cache_home, ignore_errors=True)
+    os.environ["XDG_CACHE_HOME"] = str(cache_home)
+    ledger = CacheLedger()
+    lap = Laps()
     device = phase_device()
     phase_build()
+    lap("1-2 device and build")
     if sys.argv[1:] == ["--phase", "20"]:  # phase 20 alone (it needs phase 7's steady states), no result line
-        with bidomain_reference() as ref_proc:
-            phase_amg_biv(phase_steady_states()[0], ref_proc)
+        ref_proc = bidomain_reference()
+        phase_amg_biv(phase_steady_states()[0], ref_proc)
         print(f"[done] {time.perf_counter() - tic:.1f} s (phase 20 alone)")
         return 0
+    if sys.argv[1:] == ["--phase", "21"]:  # phase 21 alone (with the main path and Path M's setup), no result line
+        _, main = phase_main_path()
+        mixed, _ = phase_mixed_setup()
+        cache_summary(ledger, phase_fused_scope(main, mixed, ledger)[2])
+        print(f"[done] {time.perf_counter() - tic:.1f} s (phase 21 alone)")
+        return 0
+    # host work beside the run, each a process of its own: phases 8 and
+    # 12's cold assemblies, phase 19 (d)'s and phase 20 (c)'s CPU references
+    prefetch_proc = start_background([str(Path(__file__).resolve()), "--prefetch"], 1)
+    fit_ref_proc, bidomain_ref_proc = fit_reference(), bidomain_reference()
     rows, main_solver = phase_kernels()
+    lap("3 kernels (B1-B4)")
     phase_pcg_sequences(main_solver)
+    lap("3 PCG sequences")
     del main_solver
     lv_solver, lv_setup = phase_lv_setup()
+    lv_markers = lv_solver.ode_markers  # the layers of every full-width LV below
     rows.update(phase_lv_kernels(lv_solver))
+    lap("3 LV setup and B7/B8")
     steady, prepace_s, _ = phase_steady_states()
-    torord_lv, torord_lv_setup = phase_torord_lv_setup(steady)
+    lap("3 ToR-ORd steady states")
+    torord_lv, torord_lv_setup = phase_torord_lv_setup(steady, lv_markers)
     rows.update(phase_torord_kernels(torord_lv))
+    lap("3 ToR-ORd LV setup and kernels")
     rows.update(phase_fhn_kernels())
+    lap("3 FHN kernels")
     phase_kernel_checks()
+    lap("4 kernel checks")
     phase_lv_parity()
     phase_torord_lv_parity()
-    launches, main_at = phase_main_path()
+    lap("5 LV parity")
+    launches, main = phase_main_path()
+    main_at = main["at"]
+    lap("6 main path")
     lv_launches, _ = phase_lv_path(lv_solver, lv_setup)
     for name in ("tp06_grl_multi_step_v", "csr_spmv"):
         launches[name] = lv_launches[name]
+        lap("7 LV path (TP06)")
     del lv_solver
     torord_launches, t_end = phase_lv_path(torord_lv, torord_lv_setup + prepace_s, prepace_s)
     launches["torord_grl_multi_step_v"] = torord_launches["torord_grl_multi_step_v"]
+    lap("7 LV path (ToR-ORd)")
     launches["torord_grl_step_v"] = phase_slab()["torord_grl_step_v"]
+    lap("7 slab demo")
     launches.update(phase_node_paths(torord_lv, t_end))
+    lap("7 per-node paths")
     # the OO path (MonodomainModel + the ODE adapters + the splitting solver)
     phase_oo_niederer(main_at)
+    lap("18a OO Niederer")
     phase_oo_lv(torord_lv, steady)
+    lap("18b OO LV")
     del torord_lv
     phase_oo_kernel_check(steady)
     phase_oo_row_aliasing()
+    lap("18c-d OO checks")
     phase_spaces(main_at)  # the OO path on P2 and with the ODE at quadrature points
+    lap("18e spaces")
     phase_spaces_dx05()
+    lap("18e spaces dx=0.5")
     # ToR-ORd dynCl + Land: pre-pacing (its B1's path), its kernels, the
     # psize 0.3 parity, Path L (B7, B8) and its layers as a per-node field
     land_steady, land_prepace_s, launches["torord_land_grl_step_v"] = phase_steady_states("torord_dyncl_land")
-    land_lv, land_lv_setup = phase_torord_lv_setup(land_steady, "torord_dyncl_land")
+    lap("16 Land steady states")
+    land_lv, land_lv_setup = phase_torord_lv_setup(land_steady, lv_markers, "torord_dyncl_land")
     rows.update(phase_torord_kernels(land_lv, seed=4, model="torord_dyncl_land", n_b1=N_MAIN))
+    lap("16 Land LV setup and kernels")
     phase_torord_lv_parity("torord_dyncl_land")
+    lap("16 Land LV parity")
     land_launches, t_end = phase_lv_path(land_lv, land_lv_setup + land_prepace_s, land_prepace_s)
     launches["torord_land_grl_multi_step_v"] = land_launches["torord_land_grl_multi_step_v"]
     launches.update(lv_node_path(land_lv, t_end))
+    lap("16 Path L")
     del land_lv
     # Path M: B7's mixed form against its twin, the dx=0.1 run, the dx=0.5 parity
     mixed, mixed_setup = phase_mixed_setup()
     rows.update(phase_mixed_kernels(mixed))
+    lap("17 Path M setup and kernels")
     launches.update(phase_mixed_path(mixed, mixed_setup))
+    lap("17 Path M")
+    # phase 21: merged Strang, a general stimulus, Path M's marker on a
+    # field, forward Euler's nine kernels, the operator cache
+    fe_rows, fe_launches, phase21_s = phase_fused_scope(main, mixed, ledger)
+    rows.update(fe_rows)
+    launches.update(fe_launches)
+    lap("21 fused scope")
     del mixed
     phase_mixed_dx05()
+    lap("17 Path M dx=0.5")
+    pre = ledger.adopt(prefetch_proc)
+    print(f"[prefetch] the dx=0.05 ECG pair and the dx=0.1 bidomain pairs, assembled and stored on the host beside "
+          f"the run in {pre['seconds']:.1f} s: " + ", ".join(
+              f"{Path(k).name} {v:.1f} s (store {pre['stores'].get(k, 0.0):.1f} s)" for k, v in pre["cold"].items()))
+    lap("prefetch taken")
     ecg_main, ecg_scale = phase_ecg_setup()
     rows.update(phase_stencil_kernels(ecg_main, ecg_scale))
+    lap("8-9 ECG setup, B5/B6")
     del ecg_main
     launches["stencil_spmv"] = phase_ecg_main()["stencil_spmv"]
+    lap("10 ECG 1")
     launches["stencil_spmv_window"] = phase_ecg_scale(ecg_scale)["stencil_spmv_window"]
+    lap("11 ECG 2")
     del ecg_scale
     phase_bidomain_slab()
+    lap("12 bidomain slab")
     phase_bidomain_references()
+    lap("13 bidomain references")
     demo_launches, demo_rows = phase_bidomain_demo()
     launches.update(demo_launches)
-    # phase 20 (c)'s CPU reference runs beside the custom-ODE phases, phase
-    # 19 and phase 20 (a)-(b)
-    with bidomain_reference() as ref_proc:
-        ode = phase_ode_build()
-        rows.update(phase_ode_kernels(ode))
-        phase_ode_vs_fhn(ode)
-        launches.update(phase_ode_paths(ode))
-        launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
-        phase_ode_demo(ode)
-        launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
-        # phase 19: the differentiable solver (B8's combination, forward and backward)
-        adj_rows, adj_launches = phase_adjoint()
-        rows.update(adj_rows)
-        launches.update(adj_launches)
-        # phase 20: SA-AMG on the card (the BiV's Laplace solves, the bidomain's u
-        # block) and the BiV demo at full width, through B8 and ToR-ORd's B1
-        phase_amg_biv(steady, ref_proc)
+    lap("14 bidomain demo")
+    ode = phase_ode_build()
+    rows.update(phase_ode_kernels(ode))
+    lap("15 ODE build and kernels")
+    phase_ode_vs_fhn(ode)
+    launches.update(phase_ode_paths(ode))
+    lap("15 ODE vs FHN, paths")
+    launches.update(phase_ode_main(ode))  # the generated inline FHN's GRL B1: the custom-ODE path's count
+    lap("15 ODE main")
+    phase_ode_demo(ode)
+    launches.update(phase_ode_bidomain(ode, demo_rows))  # its FE B1: the bidomain demo's count
+    lap("15 ODE demo, bidomain")
+    # phase 19: the differentiable solver (B8's combination, forward and backward)
+    adj_rows, adj_launches = phase_adjoint(fit_ref_proc)
+    rows.update(adj_rows)
+    launches.update(adj_launches)
+    lap("19 adjoint")
+    # phase 20: SA-AMG on the card (the BiV's Laplace solves, the bidomain's u
+    # block) and the BiV demo at full width, through B8 and ToR-ORd's B1
+    phase_amg_biv(steady, bidomain_ref_proc)
+    lap("20 AMG, BiV")
 
+    cache_summary(ledger, phase21_s)
+    lap.summary()
     kernels = []
     for name, r in rows.items():
         source, replaces = SOURCES[name] if name in SOURCES else ode_source(name)

@@ -32,6 +32,7 @@ import torch
 
 __all__ = [
     "KernelLibrary", "load_library", "load_model_library", "model_symbol", "NVCC_FLAGS", "ptxas_resources",
+    "source_seconds",
     "check", "require_cuda_f32", "require_cuda_i32", "require_f32_like", "stream_ptr", "num_blocks",
 ]
 
@@ -50,7 +51,8 @@ NVCC_FLAGS = [
 # multiply-adds, whose placement the compiler chooses per kernel.  B1's
 # forms, which differ only in where the parameters come from, then give
 # the same bits on the same parameters.
-_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "fhn_", "ode_")
+_NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "tp06_fe", "torord_fe", "torord_land_fe", "fhn_",
+                   "ode_")
 # The kernels of TP06, ToR-ORd dynCl and ToR-ORd dynCl + Land divide with
 # the card's approximate full-range division (at most 2 ulp), not the IEEE
 # sequence whose checks and slow-path branches took about a third of TP06's
@@ -58,9 +60,10 @@ _NO_FMA_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "fhn_", "ode_")
 # H100, with the one-step and one-beat errors against the twin what the
 # IEEE build gives (benchmarks/b1_designs.py, PERF.md).  B1, the per-node
 # form and B7 of each model share the flags, so a uniform parameter field
-# gives B1's bits.  FitzHugh-Nagumo and the generated models keep the IEEE
-# division.
-_APPROX_DIV_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl")
+# gives B1's bits; the forward-Euler sources (``*_fe*.cu``, each a GRL
+# source built with its node body's scheme switch) take the same flags.
+# FitzHugh-Nagumo and the generated models keep the IEEE division.
+_APPROX_DIV_SOURCES = ("tp06_grl", "torord_grl", "torord_land_grl", "tp06_fe", "torord_fe", "torord_land_fe")
 
 
 def _nvcc_flags(src: Path) -> list[str]:
@@ -88,6 +91,16 @@ _SIGNATURES = {
     "torord_land_grl_step_v": _GRL_STEP,
     "torord_land_grl_node_step_v": _GRL_NODE_STEP,
     "torord_land_grl_multi_step_v": _GRL_MULTI_STEP,
+    # forward Euler: the GRL sources built with the node bodies' kFE switch
+    "tp06_fe_step_v": _GRL_STEP,
+    "tp06_fe_node_step_v": _GRL_NODE_STEP,
+    "tp06_fe_multi_step_v": _GRL_MULTI_STEP,
+    "torord_fe_step_v": _GRL_STEP,
+    "torord_fe_node_step_v": _GRL_NODE_STEP,
+    "torord_fe_multi_step_v": _GRL_MULTI_STEP,
+    "torord_land_fe_step_v": _GRL_STEP,
+    "torord_land_fe_node_step_v": _GRL_NODE_STEP,
+    "torord_land_fe_multi_step_v": _GRL_MULTI_STEP,
     "fhn_step_v": _GRL_STEP,
     "fhn_node_step_v": _GRL_NODE_STEP,
     "fhn_multi_step_v": _GRL_MULTI_STEP,
@@ -152,31 +165,48 @@ def _compile(sources: list[Path], out: Path, workdir: Path, include: list[Path])
     them into the shared library ``out``, renamed into place at the end,
     so a process that builds the same library at the same time never
     loads half a file, after the report (``out`` with suffix ``.log``), so a
-    library on disk always has its report.  Returns (seconds, the
-    compiler's report); raises on a failed compile or link."""
+    library on disk always has its report: each source's compiler output
+    under a ``== name (seconds)`` line (:func:`source_seconds`).  A source's
+    nvcc that is killed (a failed build) is reaped here too.  Returns
+    (seconds, the compiler's report); raises on a failed compile or link."""
     nvcc = _nvcc()
     incs = [f"-I{d}" for d in include]
     tic = time.perf_counter()
-    objs, procs = [], []
+    objs, procs, outs = [], [], []
     for src in sources:
         obj = workdir / f"{src.stem}.o"
         objs.append(obj)
+        outs.append(open(workdir / f"{src.stem}.out", "w+"))
         procs.append(subprocess.Popen(
             [nvcc, *_nvcc_flags(src), *incs, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            stdout=outs[-1], stderr=subprocess.STDOUT, text=True,
         ))
-    logs, failed = [], []
+    # each source's wall from the common start, and the CPU seconds of its
+    # nvcc and every process nvcc waited for (wait4's usage of the child)
+    seconds = [None] * len(procs)
     try:
-        for src, proc in zip(sources, procs):
-            text, _ = proc.communicate(timeout=600)
-            logs.append(f"== {src.name}\n{text}")
-            if proc.returncode != 0:
-                failed.append(f"{src.name} ({proc.returncode})")
+        while None in seconds:
+            for i, proc in enumerate(procs):
+                if seconds[i] is None:
+                    pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+                    if pid:
+                        proc.returncode = os.waitstatus_to_exitcode(status)
+                        seconds[i] = (time.perf_counter() - tic, usage.ru_utime + usage.ru_stime)
+            if time.perf_counter() - tic > 600:
+                raise RuntimeError("nvcc took more than 600 s")
+            time.sleep(0.02)
     finally:
         for proc in procs:  # none outlives a failed or timed-out build
-            if proc.poll() is None:
+            if proc.returncode is None:
                 proc.kill()
                 proc.wait()
+    logs, failed = [], []
+    for src, proc, text, (wall, cpu) in zip(sources, procs, outs, seconds):
+        text.seek(0)
+        logs.append(f"== {src.name} ({wall:.2f} s wall, {cpu:.2f} s cpu)\n{text.read()}")
+        text.close()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
     log = "".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
@@ -275,6 +305,14 @@ def load_model_library(body: str) -> KernelLibrary:
     seconds, log = _built(out, build)
     signatures = {f"{sym}_{scheme}_{form}": sig for scheme in _MODEL_SCHEMES for form, sig in _MODEL_FORMS.items()}
     return KernelLibrary(lib=_bind(out, signatures), path=out, build_seconds=seconds, compiler_output=log)
+
+
+def source_seconds(log: str) -> dict[str, tuple[float, float]]:
+    """``{source file name: (wall, cpu)}`` seconds from a build's report:
+    the wall from the build's start to the source's end (all run at once),
+    and the CPU time of its nvcc and of every process nvcc ran for it."""
+    pattern = r"^== (\S+) \(([\d.]+) s wall, ([\d.]+) s cpu\)$"
+    return {m.group(1): (float(m.group(2)), float(m.group(3))) for m in re.finditer(pattern, log, re.M)}
 
 
 def ptxas_resources(log: str) -> dict[str, tuple[int, int, int]]:

@@ -197,7 +197,7 @@ class BaseModel(abc.ABC):
         qdeg = int(self.parameters.get("quadrature_degree", 4))
         tic = perf_counter()
         self._stim_quads, self._stim_terms, self._b_units = stimulus_loads(
-            self.V, self._I_s, self._mesh, qdeg, self.device, self._dtype, general=True
+            self.V, self._I_s, self._mesh, qdeg, self.device, self._dtype
         )
         self.setup_s["stimulus"] = perf_counter() - tic
 

@@ -284,13 +284,14 @@ def _row(bi: BidomainSolver, case: str, setup_s: float, dt: float, T_timed: floa
 
 def run_slab(dx: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 10.0, u_precond: str = "auto",
              scheme: str = "monolithic", gs_u_rtol: float | None = None, device=None, use_kernels: bool = True,
-             monodomain: bool = True, return_solver: bool = False):
+             monodomain: bool = True, return_solver: bool = False, cache_key: str | None = None):
     """The bidomain slab at ``dx`` (and the matched monodomain run unless
     ``monodomain`` is False); one row, and the solver with
-    ``return_solver``."""
+    ``return_solver``.  ``cache_key`` opts both solvers' operator
+    assemblies into the disk cache."""
     tic = _time.perf_counter()
     bi = slab_solver(dx, device=device, u_precond=u_precond, scheme=scheme, gs_u_rtol=gs_u_rtol,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, cache_key=cache_key)
     dev = bi.device
     _sync(dev)
     setup_s = _time.perf_counter() - tic
@@ -300,7 +301,8 @@ def run_slab(dx: float, dt: float = 0.05, T_warm: float = 5.0, T_timed: float = 
                timed, _peak_gib(dev))
     row["dx"] = dx
     if monodomain:
-        mono = slab_solver(dx, device=device, monodomain=True, use_kernels=use_kernels)
+        mono = slab_solver(dx, device=device, monodomain=True, use_kernels=use_kernels,
+                           operator_cache_key=cache_key)
         m = timed_solve(mono, T_warm, T_timed, dt)
         row["mono_ms_per_s"] = m["ms_per_s"]
         row["mono_cg_iters_max"] = int(max(m["chunk_iters"]))

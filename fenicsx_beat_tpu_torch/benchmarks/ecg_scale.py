@@ -103,9 +103,10 @@ class ECGScaleSetup:
     electrode_weights_s: float
 
 
-def build_ecg_scale(dx: float = 0.05, device=None) -> ECGScaleSetup:
+def build_ecg_scale(dx: float = 0.05, device=None, operator_cache_key: str | None = None) -> ECGScaleSetup:
     """The slab, its ECG recovery and the registered electrodes, each part
-    timed (the host setup of :func:`run_ecg_scale`)."""
+    timed (the host setup of :func:`run_ecg_scale`); ``operator_cache_key``
+    opts the recovery's assembly into the operator disk cache."""
     tic = _time.perf_counter()
     geo = get_3D_slab_geometry(None, dx=dx, Lx=20.0, Ly=7.0, Lz=3.0)
     V = fem.functionspace(geo.mesh, ("P", 1))
@@ -114,7 +115,7 @@ def build_ecg_scale(dx: float = 0.05, device=None) -> ECGScaleSetup:
     mesh_s = _time.perf_counter() - tic
 
     tic = _time.perf_counter()
-    ecg = ECGRecovery(v=v, M=1.0, device=device)
+    ecg = ECGRecovery(v=v, M=1.0, device=device, operator_cache_key=operator_cache_key)
     setup_s = _time.perf_counter() - tic
 
     tic = _time.perf_counter()
@@ -192,24 +193,28 @@ def run_niederer_ecg(
     frame_ms: float = 1.0,
     device=None,
     use_kernels: bool = True,
+    operator_cache_key: str | None = None,
 ) -> dict:
     """The Niederer slab run for ``T`` ms with a pseudo-ECG frame every
     ``frame_ms``: the solver's voltage copied into a ``fem.Function``,
     :meth:`~..ecg.ECGRecovery.solve_device`, the 10 electrode potentials,
     and at the end the 12 leads.  ``use_kernels`` applies to the solver and
-    the recovery alike.  Returns the traces, each frame's CG iterations and
+    the recovery alike, ``operator_cache_key`` (the operator disk cache) to
+    both assemblies.  Returns the traces, each frame's CG iterations and
     convergence, the ECG's host syncs and seconds per frame by part (the
     voltage's pull to the host, the solve with its upload, the
     potentials), the simulation's seconds, and the setup's parts."""
     from .niederer import _build_solver
 
     tic = _time.perf_counter()
-    solver = _build_solver(dx=dx, theta=theta, device=device, use_kernels=use_kernels)
+    solver = _build_solver(dx=dx, theta=theta, device=device, use_kernels=use_kernels,
+                           operator_cache_key=operator_cache_key)
     dev = solver.device
     solver_s = _time.perf_counter() - tic
     tic = _time.perf_counter()
     vfun = fem.Function(solver.V)
-    ecg = ECGRecovery(v=vfun, M=solver.M, C_m=solver.C_m, device=dev, use_kernels=use_kernels)
+    ecg = ECGRecovery(v=vfun, M=solver.M, C_m=solver.C_m, device=dev, use_kernels=use_kernels,
+                      operator_cache_key=operator_cache_key)
     recovery_s = _time.perf_counter() - tic
     tic = _time.perf_counter()
     ecg.register_electrodes(list(ELECTRODES_MM.values()))

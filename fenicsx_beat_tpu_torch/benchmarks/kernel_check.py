@@ -290,7 +290,7 @@ def ionic_form_checks(ionic, states, v, table, rest, rng, device="cuda", beat_st
     :func:`ionic_step_errors_by_group` at t = 0.5 and 2.0 (the stimulus
     window of FHN and of the coverage source on at one, off at the other)
     and dt = 0.025 and 0.05, and :func:`ionic_beat_errors_by_group` over ``beat_steps``
-    steps of every cell.  Returns ``{"forms": {name: {"rows": state names
+    steps of every cell (none with ``beat_steps=0``: ``rest`` may be None).  Returns ``{"forms": {name: {"rows": state names
     in the form's row order, "step": {(t, dt, group): (max abs, per-row
     error)}, "beat": {group: (max abs, per-row error)}}}, "uniform_bits":
     B1's per-node form on a uniform field gives B1's bits, "inputs": the
@@ -334,10 +334,11 @@ def ionic_form_checks(ionic, states, v, table, rest, rng, device="cuda", beat_st
             for dt in (0.025, 0.05):
                 for g, e in ionic_step_errors_by_group(step, twin, S, v_k, t, dt, p, groups, row_v).items():
                     res["step"][(t, dt, g)] = e
-        r = rest(rng)
-        beat_groups = {g: x for g, x in groups.items() if g != "no layer"}
-        res["beat"] = ionic_beat_errors_by_group(step, twin, on(r[perm] if storage else r), p, beat_groups,
-                                                 n_steps=beat_steps, v_index=row_v)
+        if beat_steps:
+            r = rest(rng)
+            beat_groups = {g: x for g, x in groups.items() if g != "no layer"}
+            res["beat"] = ionic_beat_errors_by_group(step, twin, on(r[perm] if storage else r), p, beat_groups,
+                                                     n_steps=beat_steps, v_index=row_v)
         out[name] = res
     uniform = on(np.tile(table[1][:, None], (1, n)))
     a, b = S0.clone(), S0.clone()

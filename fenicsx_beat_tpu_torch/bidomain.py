@@ -129,7 +129,8 @@ class BidomainSolver:
         :func:`~.conductivities.as_cell_tensors` takes)
     ode_fun, init_states, parameters, v_index, ode_markers : the ionic model,
         as :class:`~.fused.FusedMonodomainSolver` takes them
-    I_s : Stimulus | list[Stimulus] (TimeWindow expressions)
+    I_s : Stimulus | list[Stimulus] (TimeWindow or any expression
+        ``f(x, t)``, the latter assembled each step at the PDE theta point)
     theta : splitting, in (0, 1] (1 Godunov, 0.5 Strang)
     pde_theta : the PDE's time rule, in (0, 1]
     cg_rtol, cg_atol, cg_maxiter : the block CG's tolerances (raised to at
@@ -139,8 +140,9 @@ class BidomainSolver:
         it applies, else AMG)
     u_amg_opts : keyword arguments of :func:`~.ops.amg.build_amg` over
         :data:`U_AMG_DEFAULTS`
-    cache_key : opts the AMG hierarchy into the disk cache (:mod:`.cache`;
-        the slot is keyed by the operator's bytes and the options)
+    cache_key : opts the operator pairs (``|i`` and ``|e``, keyed by mesh,
+        conductivity and dtype) and the AMG hierarchy (keyed by the
+        operator's bytes and the options) into the disk cache (:mod:`.cache`)
     scheme : "monolithic" | "gs"
     gs_v_rtol, gs_u_rtol : the gs solves' relative tolerances (None: cg_rtol)
     u_solve_every : 1 (the gs cadence above 1 is not ported)
@@ -189,13 +191,16 @@ class BidomainSolver:
         n = self._n = self.V.ndofs
         layer = ionic_layer(self._ionic, self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                             self.v_index, n, dev, dt_, self.use_kernels)
-        self._ionic_groups, self._ode_step = layer.groups, layer.step
+        self._ionic_groups, self._ionic_fields, self._ode_step = layer.groups, layer.fields, layer.step
         self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators, float64 on the host: one assembly per conductivity;
         # same mesh and assembler, so one pattern, and K_ie combines by value
-        mass, k_i = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M_i, self.mesh))
-        _, k_e = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M_e, self.mesh))
+        ck = self.cache_key
+        mass, k_i = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M_i, self.mesh),
+                                                      cache_key=None if ck is None else ck + "|i")
+        _, k_e = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M_e, self.mesh),
+                                                  cache_key=None if ck is None else ck + "|e")
         k_ie = k_i.combine(1.0, k_e, 1.0)
 
         # dtype-aware tolerances (bidomain.py:225-227 there): the defaults
@@ -346,13 +351,21 @@ class BidomainSolver:
     def _stimulus(self, ts, amps):
         """The stimulus load at the PDE theta point ``ts``: each TimeWindow
         term whose window holds ``ts`` (inclusive at both ends, compared in
-        the working dtype), or None."""
+        the working dtype) and each general expression's load assembled at
+        ``ts`` (``fem.CellQuadData.assemble_load``, one B8 product), or
+        None (``bidomain.py:510-518`` there)."""
         w = self._np_dtype
         b = None
-        for i, _, _, b_idx, (start, dur) in self._stim_terms:
-            if w(start) <= ts <= w(start + dur):
+        for i, quad, expr, b_idx, window in self._stim_terms:
+            if b_idx is None:
+                load = quad.assemble_load(expr, float(ts), device=self.device, dtype=self.dtype,
+                                          spmv=cuda_ell.csr_spmv if self.use_kernels else cuda_ell.csr_spmv_twin)
+                term = float(amps[i]) * load
+            elif w(window[0]) <= ts <= w(window[0] + window[1]):
                 term = float(amps[i]) * self._b_units[b_idx]
-                b = term if b is None else b + term
+            else:
+                continue
+            b = term if b is None else b + term
         return b
 
     def _step_monolithic(self, ops: _StepOps, v, u_e, dvu, ts, dt, amps):
@@ -472,8 +485,8 @@ class BidomainSolver:
 
     def stimulus_amplitudes(self) -> np.ndarray:
         """Live amplitude vector, read each chunk (``Stimulus.assign`` takes
-        effect at the next chunk)."""
-        amps = [float(stim.expr.amplitude) for _, _, stim in self._stim_quads]
+        effect at the next chunk); 1.0 for a general expression."""
+        amps = [float(stim.expr.amplitude) if stim is not None else 1.0 for _, _, stim in self._stim_quads]
         return np.asarray(amps or [0.0], dtype=self._np_dtype)
 
     def solve(

@@ -18,7 +18,25 @@
 
 #include <cstddef>
 
+// The scheme of the ionic step a translation unit builds: the generalized
+// Rush-Larsen step, or forward Euler where the unit defines
+// FBT_FORWARD_EULER (the *_fe*.cu sources, each a GRL source built again
+// with it).  kForwardEuler switches the node bodies (tp06.cuh, torord.cuh);
+// FBT_ENTRY names the unit's C entry point <model>_grl_<form> or
+// <model>_fe_<form>.
+#ifdef FBT_FORWARD_EULER
+#define FBT_ENTRY(model, form) model##_fe_##form
+#else
+#define FBT_ENTRY(model, form) model##_grl_##form
+#endif
+
 namespace fbt {
+
+#ifdef FBT_FORWARD_EULER
+constexpr bool kForwardEuler = true;
+#else
+constexpr bool kForwardEuler = false;
+#endif
 
 constexpr int kThreads = 256;          // threads per block of every kernel
 constexpr int kFinalizeThreads = 1024;

@@ -1,9 +1,11 @@
-// The ToR-ORd dynCl ionic model's generalized Rush-Larsen step for one
-// node, shared by the single-model kernel (B1, torord_grl.cu), its
-// per-node-parameter form (torord_grl_node.cu) and the multi-marker kernel
-// (B7, torord_grl_multi.cu), so all three run one copy of the formulas.
-// ToR-ORd dynCl + Land's three kernels (torord_land_grl*.cu) run the same
-// copy, switched to Land's dcai at compile time (torord_land.cuh).
+// The ToR-ORd dynCl ionic model's step for one node, shared by the
+// single-model kernel (B1, torord_grl.cu), its per-node-parameter form
+// (torord_grl_node.cu) and the multi-marker kernel (B7, torord_grl_multi.cu),
+// so all three run one copy of the formulas, in either scheme: the
+// generalized Rush-Larsen step or forward Euler (kFE, a compile-time switch
+// on gate_tau and gate_rate).  ToR-ORd dynCl + Land's three kernels
+// (torord_land_grl*.cu) run the same copy, switched to Land's dcai at
+// compile time (torord_land.cuh).
 //
 // The formulas are those of
 // fenicsx_beat_tpu/models/torord_dyncl.py:_compute and
@@ -53,6 +55,11 @@
 #endif
 #ifndef TORORD_MULTI_MIN_BLOCKS
 #define TORORD_MULTI_MIN_BLOCKS 3
+#endif
+// B7 over every block in forward Euler needs more than the 80 registers 3
+// blocks leave (it spilled 16 bytes there on an H100): 2 blocks an SM.
+#ifndef TORORD_FE_MULTI_MIN_BLOCKS
+#define TORORD_FE_MULTI_MIN_BLOCKS 2
 #endif
 
 // State rows, in the order of _STATE_NAMES (the CPU tests parse this table).
@@ -261,13 +268,26 @@ __host__ __device__ constexpr int torord_b7_min_blocks(bool blocks, int min_bloc
 }
 #endif
 
-// Exact exponential update toward x_inf with time constant tau (a gate) or
-// with rate `rate` (a diagonally linear state).
+// The update toward x_inf with time constant tau (a gate) or with rate
+// `rate` (a diagonally linear state): the exact exponential (GRL), or
+// forward Euler with the twin's rates (x_inf - x) / tau and
+// (x_inf - x) * rate (kFE).  The scheme switch of the node bodies: every
+// other state takes the explicit update in both schemes.
+template <bool kFE>
 __device__ __forceinline__ float gate_tau(float x, float x_inf, float tau, float dt) {
-    return x_inf + (x - x_inf) * expf(-dt / tau);
+    if constexpr (kFE) {
+        return x + dt * ((x_inf - x) / tau);
+    } else {
+        return x_inf + (x - x_inf) * expf(-dt / tau);
+    }
 }
+template <bool kFE>
 __device__ __forceinline__ float gate_rate(float x, float x_inf, float rate, float dt) {
-    return x_inf + (x - x_inf) * expf(-dt * rate);
+    if constexpr (kFE) {
+        return x + dt * ((x_inf - x) * rate);
+    } else {
+        return x_inf + (x - x_inf) * expf(-dt * rate);
+    }
 }
 
 // GHK driving force z*F*(x/(e^x - 1))*(ci*g_i*e^x - co*g_o), x = z*vfrt,
@@ -326,22 +346,23 @@ __device__ __forceinline__ float torord_inaca(float ca, float na, float gncx_fra
 #undef P
 }
 
-// Land's contraction states (torord_land.cuh): one GRL step of the 7
-// mechanics states of one node, in place, from the cytosolic Ca `cai`;
-// returns the troponin flux J_TRPN that enters Land's dcai.
-template <class Src>
+// Land's contraction states (torord_land.cuh): one step (GRL, or forward
+// Euler with kFE) of the 7 mechanics states of one node, in place, from the
+// cytosolic Ca `cai`; returns the troponin flux J_TRPN that enters Land's
+// dcai.
+template <bool kFE, class Src>
 __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld, float cai, float dt,
                                                        const Src& prm);
 
-// One GRL step of one node, in place: `row` points at the node's entry of
-// state row 0 and consecutive state rows lie `ld` floats apart; `v` is the
-// voltage to step from (the injected PDE voltage, not row v's content);
-// `prm` is where the parameters come from (fbt::ParamSet or
-// fbt::StridedParams, common.cuh).  kLand selects ToR-ORd dynCl + Land
-// (torord_land.cuh): the 7 mechanics states are stepped too, and the CaTrpn
-// ODE's flux J_TRPN replaces the troponin term of Bcai in dcai (the Land
-// variant's published form).  The parameters then follow TorordLandParams,
-// whose first 108 are TorordParams.
+// One step of one node (GRL, or forward Euler with kFE), in place: `row`
+// points at the node's entry of state row 0 and consecutive state rows lie
+// `ld` floats apart; `v` is the voltage to step from (the injected PDE
+// voltage, not row v's content); `prm` is where the parameters come from
+// (fbt::ParamSet or fbt::StridedParams, common.cuh).  kLand selects ToR-ORd
+// dynCl + Land (torord_land.cuh): the 7 mechanics states are stepped too,
+// and the CaTrpn ODE's flux J_TRPN replaces the troponin term of Bcai in
+// dcai (the Land variant's published form).  The parameters then follow
+// TorordLandParams, whose first 108 are TorordParams.
 //
 // The step runs in two phases, so that few values are live at once.  First
 // the old states give every current and flux, which set V, the 12
@@ -356,7 +377,7 @@ __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld,
 // result is that of computing everything first, bit for bit (with the IEEE
 // division too: benchmarks/b1_designs.py).  Parameters are read where they
 // are used.
-template <bool kLand = false, class Src>
+template <bool kLand = false, bool kFE = false, class Src>
 __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float v, float t,
                                                 float dt, const Src& prm) {
 #define P(name) prm(offsetof(TorordParams, name) / sizeof(float))
@@ -371,7 +392,7 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
         const float cai = ST(cai);
         // Land's mechanics (their own rows) read the old cai and give J_TRPN
         float J_TRPN = 0.0f;
-        if constexpr (kLand) J_TRPN = torord_land_mechanics(row, ld, cai, dt, prm);
+        if constexpr (kLand) J_TRPN = torord_land_mechanics<kFE>(row, ld, cai, dt, prm);
 
         const float cass = ST(cass), cansr = ST(cansr), cajsr = ST(cajsr);
         const float cli = ST(cli), clss = ST(clss), ki = ST(ki), kss = ST(kss);
@@ -461,8 +482,8 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
             const float anca_i = 1.0f / (k2n / km2n + (ni * ni) * (ni * ni));
             const float anca_ss = 1.0f / (k2n / km2n + (nss * nss) * (nss * nss));
             const float nca_i = ST(nca_i), nca_ss = ST(nca_ss);
-            ST(nca_i) = gate_rate(nca_i, anca_i * k2n / km2n, km2n, dt);
-            ST(nca_ss) = gate_rate(nca_ss, anca_ss * k2n / km2n, km2n, dt);
+            ST(nca_i) = gate_rate<kFE>(nca_i, anca_i * k2n / km2n, km2n, dt);
+            ST(nca_ss) = gate_rate<kFE>(nca_ss, anca_ss * k2n / km2n, km2n, dt);
 
             const float PCa_b = P(PCa_b);
             const float PCa = is_epi ? 1.2f * PCa_b : (is_mid ? 2.0f * PCa_b : PCa_b);
@@ -611,8 +632,8 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
             const float tau_relp = fmaxf(btp / (1.0f + 0.0123f / cajsr), 0.001f);
             const float Jrel_np = ST(Jrel_np), Jrel_p = ST(Jrel_p);
             Jrel = P(Jrel_b) * (Jrel_np * (1.0f - f_phos) + Jrel_p * f_phos);
-            ST(Jrel_np) = gate_tau(Jrel_np, Jrel_inf, tau_rel, dt);
-            ST(Jrel_p) = gate_tau(Jrel_p, Jrel_infp, tau_relp, dt);
+            ST(Jrel_np) = gate_tau<kFE>(Jrel_np, Jrel_inf, tau_rel, dt);
+            ST(Jrel_p) = gate_tau<kFE>(Jrel_p, Jrel_infp, tau_relp, dt);
         }
 
         // pacing stimulus (0-D mode)
@@ -699,9 +720,9 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
         const float mss = 1.0f / (em * em);
         const float q1 = (v - 4.823f) / 51.12f, q2 = (v + 45.79f) / 15.54f;
         const float tm = 0.06487f * expf(-(q1 * q1)) + 0.1292f * expf(-(q2 * q2));
-        ST(m) = gate_tau(ST(m), mss, tm, dt);
+        ST(m) = gate_tau<kFE>(ST(m), mss, tm, dt);
         const float mLss = 1.0f / (expf(-(v + 42.85f) / 5.264f) + 1.0f);
-        ST(mL) = gate_tau(ST(mL), mLss, tm, dt);
+        ST(mL) = gate_tau<kFE>(ST(mL), mLss, tm, dt);
     }
     {  // INa's h, hp, j, jp
         const float eh = expf((v + 71.55f) / 7.43f) + 1.0f;
@@ -713,10 +734,10 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
                                  : 0.77f * expf(0.0900900900900901f * v) /
                                        (0.13f * expf(0.0900900900900901f * v) + 0.0497581410839387f);
             const float th = 1.0f / (ah + bh);
-            ST(h) = gate_tau(ST(h), hss, th, dt);
+            ST(h) = gate_tau<kFE>(ST(h), hss, th, dt);
             const float ehp = expf((v + 77.55f) / 7.43f) + 1.0f;
             const float hssp = 1.0f / (ehp * ehp);
-            ST(hp) = gate_tau(ST(hp), hssp, th, dt);
+            ST(hp) = gate_tau<kFE>(ST(hp), hssp, th, dt);
         }
         const float aj = vlo ? -(v + 37.78f) * (25428.0f * expf(0.28831f * v) + 6.948e-6f) *
                                    expf(-0.04391f * v) / (50262745825.954f * expf(0.311f * v) + 1.0f)
@@ -724,26 +745,26 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
         const float bj = vlo ? 0.02424f * expf(0.12728f * v) / (1.0f * expf(0.1378f * v) + 0.00396086833990426f)
                              : 0.6f * expf(0.157f * v) / (1.0f * expf(0.1f * v) + 0.0407622039783662f);
         const float tj = 1.0f / (aj + bj);
-        ST(j) = gate_tau(ST(j), hss, tj, dt);
+        ST(j) = gate_tau<kFE>(ST(j), hss, tj, dt);
         const float tjp = 1.46f * tj;
-        ST(jp) = gate_tau(ST(jp), hss, tjp, dt);
+        ST(jp) = gate_tau<kFE>(ST(jp), hss, tjp, dt);
     }
     {  // INaL's hL, hLp
         const float hLss = 1.0f / (expf((v + 87.61f) / 7.488f) + 1.0f);
         const float thL = P(thL);
-        ST(hL) = gate_tau(ST(hL), hLss, thL, dt);
+        ST(hL) = gate_tau<kFE>(ST(hL), hLss, thL, dt);
         const float hLssp = 1.0f / (expf((v + 93.81f) / 7.488f) + 1.0f);
         const float thLp = 3.0f * thL;
-        ST(hLp) = gate_tau(ST(hLp), hLssp, thLp, dt);
+        ST(hLp) = gate_tau<kFE>(ST(hLp), hLssp, thLp, dt);
     }
     {  // Ito's a, ap, iF, iS, iFp, iSp
         const float vk = P(EKshift) + v;
         const float ta = 1.0515f / (1.0f / (1.2089f * (expf(-(vk - 18.4099f) / 29.3814f) + 1.0f)) +
                                     3.5f / (expf((vk + 100.0f) / 29.3814f) + 1.0f));
         const float ass = 1.0f / (expf(-(vk - 14.34f) / 14.82f) + 1.0f);
-        ST(a) = gate_tau(ST(a), ass, ta, dt);
+        ST(a) = gate_tau<kFE>(ST(a), ass, ta, dt);
         const float assp = 1.0f / (expf(-(vk - 24.34f) / 14.82f) + 1.0f);
-        ST(ap) = gate_tau(ST(ap), assp, ta, dt);
+        ST(ap) = gate_tau<kFE>(ST(ap), assp, ta, dt);
         const float iss = 1.0f / (expf((vk + 43.94f) / 5.711f) + 1.0f);
         const float delta_epi = is_epi ? 1.0f - 0.95f / (expf((vk + 70.0f) / 5.0f) + 1.0f) : 1.0f;
         const float tiF_b =
@@ -752,46 +773,46 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
                                              1.78e-8f * expf((vk + 114.1f) / 8.079f));
         const float tiF = delta_epi * tiF_b;
         const float tiS = delta_epi * tiS_b;
-        ST(iF) = gate_tau(ST(iF), iss, tiF, dt);
-        ST(iS) = gate_tau(ST(iS), iss, tiS, dt);
+        ST(iF) = gate_tau<kFE>(ST(iF), iss, tiF, dt);
+        ST(iS) = gate_tau<kFE>(ST(iS), iss, tiS, dt);
         const float dti_develop =
             1.354f + 0.0001f / (expf(-(vk - 12.23f) / 0.2154f) + expf((vk - 167.4f) / 15.89f));
         const float dti_recover = 1.0f - 0.5f / (expf((vk + 70.0f) / 20.0f) + 1.0f);
         const float tiFp = tiF * dti_develop * dti_recover;
-        ST(iFp) = gate_tau(ST(iFp), iss, tiFp, dt);
+        ST(iFp) = gate_tau<kFE>(ST(iFp), iss, tiFp, dt);
         const float tiSp = tiS * dti_develop * dti_recover;
-        ST(iSp) = gate_tau(ST(iSp), iss, tiSp, dt);
+        ST(iSp) = gate_tau<kFE>(ST(iSp), iss, tiSp, dt);
     }
     {  // ICaL's ff, fs, ffp, fcaf, fcas, fcafp (fcass = fss)
         const float fss = 1.0f / (expf((v + 19.58f) / 3.696f) + 1.0f);
         const float tff = 7.0f + 1.0f / (0.0045f * expf(-(v + 20.0f) / 10.0f) + 0.0045f * expf((v + 20.0f) / 10.0f));
-        ST(ff) = gate_tau(ST(ff), fss, tff, dt);
+        ST(ff) = gate_tau<kFE>(ST(ff), fss, tff, dt);
         const float tffp = 2.5f * tff;
-        ST(ffp) = gate_tau(ST(ffp), fss, tffp, dt);
+        ST(ffp) = gate_tau<kFE>(ST(ffp), fss, tffp, dt);
         const float tfs = 1000.0f + 1.0f / (3.5e-5f * expf(-(v + 5.0f) / 4.0f) + 3.5e-5f * expf((v + 5.0f) / 6.0f));
-        ST(fs) = gate_tau(ST(fs), fss, tfs, dt);
+        ST(fs) = gate_tau<kFE>(ST(fs), fss, tfs, dt);
         const float tfcaf = 7.0f + 1.0f / (0.04f * expf(-(v - 4.0f) / 7.0f) + 0.04f * expf((v - 4.0f) / 7.0f));
-        ST(fcaf) = gate_tau(ST(fcaf), fss, tfcaf, dt);
+        ST(fcaf) = gate_tau<kFE>(ST(fcaf), fss, tfcaf, dt);
         const float tfcafp = 2.5f * tfcaf;
-        ST(fcafp) = gate_tau(ST(fcafp), fss, tfcafp, dt);
+        ST(fcafp) = gate_tau<kFE>(ST(fcafp), fss, tfcafp, dt);
         const float tfcas = 100.0f + 1.0f / (0.00012f * expf(-v / 3.0f) + 0.00012f * expf(v / 7.0f));
-        ST(fcas) = gate_tau(ST(fcas), fss, tfcas, dt);
+        ST(fcas) = gate_tau<kFE>(ST(fcas), fss, tfcas, dt);
     }
     {  // ICaL's jca and d
         const float jcass = 1.0f / (expf((v + 18.08f) / 2.7916f) + 1.0f);
-        ST(jca) = gate_tau(ST(jca), jcass, P(tjca), dt);
+        ST(jca) = gate_tau<kFE>(ST(jca), jcass, P(tjca), dt);
         const float dss = v >= 31.4978f ? 1.0f : 1.0763f * expf(-1.007f * expf(-0.0829f * v));
         const float td = (P(offset) + 0.6f) + 1.0f / (expf(-0.05f * (v + P(vShift) + 6.0f)) +
                                                      expf(0.09f * (v + P(vShift) + 14.0f)));
-        ST(d) = gate_tau(ST(d), dss, td, dt);
+        ST(d) = gate_tau<kFE>(ST(d), dss, td, dt);
     }
     {  // IKs's xs1, xs2 (xs2ss = xs1ss)
         const float xs1ss = 1.0f / (expf(-(v + 11.6f) / 8.932f) + 1.0f);
         const float txs1 =
             817.3f + 1.0f / (0.0002326f * expf((v + 48.28f) / 17.8f) + 0.001292f * expf(-(v + 210.0f) / 230.0f));
-        ST(xs1) = gate_tau(ST(xs1), xs1ss, txs1, dt);
+        ST(xs1) = gate_tau<kFE>(ST(xs1), xs1ss, txs1, dt);
         const float txs2 = 1.0f / (0.01f * expf((v - 50.0f) / 20.0f) + 0.0193f * expf(-(v + 66.54f) / 31.0f));
-        ST(xs2) = gate_tau(ST(xs2), xs1ss, txs2, dt);
+        ST(xs2) = gate_tau<kFE>(ST(xs2), xs1ss, txs2, dt);
     }
     {  // IKr's 5-state Markov chain, diagonally linearized: all five old states first
         const float alpha = 0.1161f * expf(0.299f * vfrt);
@@ -806,19 +827,19 @@ __device__ __forceinline__ void torord_grl_node(float* row, long long ld, float 
         const float alpha_1 = P(alpha_1), beta_1 = P(beta_1);
         const float A_C1 = alpha_C2ToI + alpha_2 + beta_1;
         const float B_C1 = I * beta_ItoC2 + C2 * alpha_1 + O * beta_2;
-        ST(C1) = gate_rate(C1, B_C1 / A_C1, A_C1, dt);
+        ST(C1) = gate_rate<kFE>(C1, B_C1 / A_C1, A_C1, dt);
         const float A_C2 = alpha_1 + beta_;
         const float B_C2 = C1 * beta_1 + C3 * alpha;
-        ST(C2) = gate_rate(C2, B_C2 / A_C2, A_C2, dt);
+        ST(C2) = gate_rate<kFE>(C2, B_C2 / A_C2, A_C2, dt);
         const float A_C3 = alpha;
         const float B_C3 = C2 * beta_;
-        ST(C3) = gate_rate(C3, B_C3 / A_C3, A_C3, dt);
+        ST(C3) = gate_rate<kFE>(C3, B_C3 / A_C3, A_C3, dt);
         const float A_O = alpha_i + beta_2;
         const float B_O = C1 * alpha_2 + I * beta_i;
-        ST(O) = gate_rate(O, B_O / A_O, A_O, dt);
+        ST(O) = gate_rate<kFE>(O, B_O / A_O, A_O, dt);
         const float A_I = beta_ItoC2 + beta_i;
         const float B_I = C1 * alpha_C2ToI + O * alpha_i;
-        ST(I) = gate_rate(I, B_I / A_I, A_I, dt);
+        ST(I) = gate_rate<kFE>(I, B_I / A_I, A_I, dt);
     }
 #undef ST
 #undef P

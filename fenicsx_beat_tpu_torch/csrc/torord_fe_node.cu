@@ -1,0 +1,8 @@
+// B1's per-node form of ToR-ORd dynCl in forward Euler
+// (torord_fe_node_step_v): torord_grl_node.cu built with the scheme switch of
+// its node body on (torord.cuh's kFE), so the formulas are the one copy the
+// GRL kernels run.  The JAX kernel runs this step when it traces
+// fenicsx_beat_tpu/models/torord_dyncl.py:825.  A translation unit of its own,
+// so nvcc's time for it is its own.
+#define FBT_FORWARD_EULER
+#include "torord_grl_node.cu"

@@ -22,6 +22,9 @@
 // (torord.cuh), and the nodes staged (staged.cuh): persistent blocks of
 // TORORD_BLOCK threads that load the next tile's states into shared memory
 // while they step the current one, coalesced, in place.
+//
+// torord_fe.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord.cuh"
 
 namespace {
@@ -32,7 +35,7 @@ __global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     fbt::staged_steps<TORORD_NUM_STATES, TORORD_BLOCK, false>(
         states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
         [&](float* row, long long ld, float v, int i, int) {
-            fbt::torord_grl_node(row, ld, v, t, dt, fbt::ParamSet<TorordParams>{p});
+            fbt::torord_grl_node<false, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::ParamSet<TorordParams>{p});
             return static_cast<int>(TORORD_NUM_STATES);
         });
 }
@@ -44,8 +47,8 @@ extern "C" {
 // One GRL step over the (45, n) states, in place, with v replacing row v
 // first (v may alias that row).  `params` points to the 108 parameters on
 // the host, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
-int torord_grl_step_v(float* states, const float* v, long long n, float t, float dt,
-                      const float* params, void* stream) {
+int FBT_ENTRY(torord, step_v)(float* states, const float* v, long long n, float t, float dt,
+                              const float* params, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     TorordParams p;
     float* dst = reinterpret_cast<float*>(&p);

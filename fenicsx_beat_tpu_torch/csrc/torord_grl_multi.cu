@@ -22,12 +22,17 @@
 // runs one node a thread, at least TORORD_MULTI_MIN_BLOCKS blocks an SM (80
 // registers); over a block list staged (staged.cuh), where the staging
 // measured faster and over every block slower (benchmarks/b1_designs.py).
+//
+// torord_fe_multi.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord.cuh"
 
 namespace {
 
 template <bool kBlocks>
-__global__ void __launch_bounds__(fbt::kThreads, fbt::torord_b7_min_blocks(kBlocks, TORORD_MULTI_MIN_BLOCKS))
+__global__ void __launch_bounds__(fbt::kThreads,
+                                  fbt::torord_b7_min_blocks(kBlocks, fbt::kForwardEuler ? TORORD_FE_MULTI_MIN_BLOCKS
+                                                                                       : TORORD_MULTI_MIN_BLOCKS))
     torord_grl_multi_step_v_kernel(float* states, const float* vin,  // vin may alias row v
                                    const int* __restrict__ model, int n, float t, float dt,
                                    const TorordParams* __restrict__ table, int nm,
@@ -38,7 +43,7 @@ __global__ void __launch_bounds__(fbt::kThreads, fbt::torord_b7_min_blocks(kBloc
             if (kBlocks && mi == fbt::kOtherModel) return 0;  // another model's node (the mixed form)
             if (mi < 0 || mi >= nm) return 1;  // in no layer: V injected, the other rows stay
             const float* prow = reinterpret_cast<const float*>(table + mi);
-            fbt::torord_grl_node(row, ld, v, t, dt, fbt::StridedParams{prow, 1});
+            fbt::torord_grl_node<false, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::StridedParams{prow, 1});
             return static_cast<int>(TORORD_NUM_STATES);
         });
 }
@@ -53,9 +58,9 @@ extern "C" {
 // points to nm parameter sets of 108 floats each, on the device, in
 // _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
 // null for all of them.  Returns the cudaError_t of the launch.
-int torord_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
-                            float dt, const float* table, int nm, const int* blocks, int nblocks,
-                            void* stream) {
+int FBT_ENTRY(torord, multi_step_v)(float* states, const float* v, const int* model, long long n, float t,
+                                    float dt, const float* table, int nm, const int* blocks, int nblocks,
+                                    void* stream) {
     if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(TR_v == 0, "row v is row 0");
     static int caps[2] = {0, 0};

@@ -17,6 +17,9 @@
 // (torord_grl.cu): staged, 128 registers a thread; the staging overlaps the
 // state loads with the step, 116 us unstaged against 94 us at the LV's
 // n = 243,518 (H100 80GB HBM3, 700 W, benchmarks/b1_designs.py).
+//
+// torord_fe_node.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord.cuh"
 
 namespace {
@@ -27,7 +30,7 @@ __global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     fbt::staged_steps<TORORD_NUM_STATES, TORORD_BLOCK, false>(
         states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
         [&](float* row, long long ld, float v, int i, int) {
-            fbt::torord_grl_node(row, ld, v, t, dt, fbt::StridedParams{params + i, n});
+            fbt::torord_grl_node<false, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::StridedParams{params + i, n});
             return static_cast<int>(TORORD_NUM_STATES);
         });
 }
@@ -40,8 +43,8 @@ extern "C" {
 // first (v may alias that row); `params` is the [108, n] parameter field
 // on the device, in _PARAM_NAMES order.  Returns the cudaError_t of the
 // launch.
-int torord_grl_node_step_v(float* states, const float* v, const float* params, long long n,
-                           float t, float dt, void* stream) {
+int FBT_ENTRY(torord, node_step_v)(float* states, const float* v, const float* params, long long n,
+                                   float t, float dt, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     static int cap = 0;
     const long long ntiles = fbt::num_blocks(n, TORORD_BLOCK);

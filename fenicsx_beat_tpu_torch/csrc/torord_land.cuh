@@ -1,12 +1,12 @@
-// ToR-ORd dynCl coupled to the Land (2017) contraction model: one
-// generalized Rush-Larsen step of one node, shared by B1
-// (torord_land_grl.cu), its per-node-parameter form
+// ToR-ORd dynCl coupled to the Land (2017) contraction model: one step of
+// one node (generalized Rush-Larsen, or forward Euler: torord.cuh's kFE),
+// shared by B1 (torord_land_grl.cu), its per-node-parameter form
 // (torord_land_grl_node.cu) and B7 (torord_land_grl_multi.cu).
 //
 // The ionic part is torord.cuh's torord_grl_node<true>, the one copy of
 // ToR-ORd's formulas, whose Land switch replaces the troponin term of Bcai
 // by the CaTrpn ODE's flux J_TRPN in dcai.  Land's 7 mechanics states (all
-// diagonally linear, the exponential update toward (x_inf, rate)) are
+// diagonally linear, the update toward (x_inf, rate) of gate_rate) are
 // stepped by torord_land_mechanics below, from the cytosolic Ca before the
 // step.  The formulas are those of
 // fenicsx_beat_tpu/models/torord_dyncl_land.py:_mechanics and _compute,
@@ -81,7 +81,7 @@ namespace fbt {
 // CaTrpn's), CaTrpn and the flux J_TRPN into dcai, the distortions.  Every
 // expression keeps its own operation order, so the result is that of
 // computing everything first, bit for bit.
-template <class Src>
+template <bool kFE, class Src>
 __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld, float cai, float dt,
                                                        const Src& prm) {
 #define LP(name) prm(offsetof(TorordLandParams, name) / sizeof(float))
@@ -96,18 +96,18 @@ __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld,
         const float gammasu = LP(gammas) * fmaxf(zs_pos, zs_neg);
         const float ksu = kws * rw * (1.0f / rs - 1.0f);
         const float a_xs = ksu + gammasu;
-        const float XS_new = gate_rate(XS, kws * XW / a_xs, a_xs, dt);
+        const float XS_new = gate_rate<kFE>(XS, kws * XW / a_xs, a_xs, dt);
         const float gammawu = LP(gammaw) * fabsf(ST(Zetaw));
         const float kwu = kuw * (1.0f / rw - 1.0f) - kws;
         const float a_xw = kuw + kwu + kws + gammawu;
-        const float XW_new = gate_rate(XW, kuw * (1.0f - TmB - XS) / a_xw, a_xw, dt);
+        const float XW_new = gate_rate<kFE>(XW, kuw * (1.0f - TmB - XS) / a_xw, a_xw, dt);
         const float ku = LP(ku), ntm = LP(ntm);
         const float kb = ku * powf(LP(Trpn50), ntm) / (1.0f - rs - (1.0f - rs) * rw);
         const float CaTrpn_pos = fmaxf(ST(CaTrpn), 0.0f);
         const float unbind = fminf(powf(CaTrpn_pos, -ntm / 2.0f), 100.0f);
         const float bind = powf(CaTrpn_pos, ntm / 2.0f);
         const float a_tmb = kb * unbind + ku * bind;
-        ST(TmB) = gate_rate(TmB, kb * unbind * (1.0f - XS - XW) / a_tmb, a_tmb, dt);
+        ST(TmB) = gate_rate<kFE>(TmB, kb * unbind * (1.0f - XS - XW) / a_tmb, a_tmb, dt);
         ST(XS) = XS_new;
         ST(XW) = XW_new;
     }
@@ -118,7 +118,7 @@ __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld,
         const float catn = powf(cai * 1000.0f / cat50, LP(ntrpn));
         const float ktrpn = LP(ktrpn);
         const float CaTrpn = ST(CaTrpn);
-        ST(CaTrpn) = gate_rate(CaTrpn, catn / (catn + 1.0f), ktrpn * (catn + 1.0f), dt);
+        ST(CaTrpn) = gate_rate<kFE>(CaTrpn, catn / (catn + 1.0f), ktrpn * (catn + 1.0f), dt);
         const float dCaTrpn = ktrpn * (catn * (1.0f - CaTrpn) - CaTrpn);
         J_TRPN = dCaTrpn * prm(offsetof(TorordParams, trpnmax) / sizeof(float));
     }
@@ -127,15 +127,15 @@ __device__ __forceinline__ float torord_land_mechanics(float* row, long long ld,
         const float Aw = LP(Tot_A) * rs / ((1.0f - rs) * rw + rs);
         const float As = Aw;
         const float cs = LP(phi) * kws * ((1.0f - rs) * rw) / rs;
-        ST(Zetas) = gate_rate(ST(Zetas), As * LP(dLambda) / cs, cs, dt);
+        ST(Zetas) = gate_rate<kFE>(ST(Zetas), As * LP(dLambda) / cs, cs, dt);
         const float cw = LP(phi) * kuw * ((1.0f - rs) * (1.0f - rw)) / ((1.0f - rs) * rw);
-        ST(Zetaw) = gate_rate(ST(Zetaw), Aw * LP(dLambda) / cw, cw, dt);
+        ST(Zetaw) = gate_rate<kFE>(ST(Zetaw), Aw * LP(dLambda) / cw, cw, dt);
     }
     {  // Cd relaxes toward C = lam - 1 with a state-dependent viscosity
         const float C = lam - 1.0f;
         const float Cd = ST(Cd);
         const float eta = C - Cd < 0.0f ? LP(etas) : LP(etal);
-        ST(Cd) = gate_rate(Cd, C, LP(p_k) / eta, dt);
+        ST(Cd) = gate_rate<kFE>(Cd, C, LP(p_k) / eta, dt);
     }
     return J_TRPN;
 #undef ST

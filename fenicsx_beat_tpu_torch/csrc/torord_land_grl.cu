@@ -16,6 +16,9 @@
 // instructions set its time, and it takes that kernel's design
 // (torord_grl.cu): the 136 parameters (544 B) by value in the launch,
 // staged, the approximate division.
+//
+// torord_land_fe.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord_land.cuh"
 
 namespace {
@@ -26,7 +29,7 @@ __global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     fbt::staged_steps<TORORD_LAND_NUM_STATES, TORORD_BLOCK, false>(
         states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
         [&](float* row, long long ld, float v, int i, int) {
-            fbt::torord_grl_node<true>(row, ld, v, t, dt, fbt::ParamSet<TorordLandParams>{p});
+            fbt::torord_grl_node<true, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::ParamSet<TorordLandParams>{p});
             return static_cast<int>(TORORD_LAND_NUM_STATES);
         });
 }
@@ -38,8 +41,8 @@ extern "C" {
 // One GRL step over the (52, n) states, in place, with v replacing row v
 // first (v may alias that row).  `params` points to the 136 parameters on
 // the host, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
-int torord_land_grl_step_v(float* states, const float* v, long long n, float t, float dt,
-                           const float* params, void* stream) {
+int FBT_ENTRY(torord_land, step_v)(float* states, const float* v, long long n, float t, float dt,
+                                   const float* params, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     TorordLandParams p;
     float* dst = reinterpret_cast<float*>(&p);

@@ -22,6 +22,9 @@
 // design (torord_grl_multi.cu): over every block one node a thread, at
 // least TORORD_LAND_MULTI_MIN_BLOCKS blocks an SM (the most that spill no
 // register); over a block list staged.
+//
+// torord_land_fe_multi.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord_land.cuh"
 
 namespace {
@@ -38,7 +41,7 @@ __global__ void __launch_bounds__(fbt::kThreads, fbt::torord_b7_min_blocks(kBloc
             if (kBlocks && mi == fbt::kOtherModel) return 0;  // another model's node (the mixed form)
             if (mi < 0 || mi >= nm) return 1;  // in no layer: V injected, the other rows stay
             const float* prow = reinterpret_cast<const float*>(table + mi);
-            fbt::torord_grl_node<true>(row, ld, v, t, dt, fbt::StridedParams{prow, 1});
+            fbt::torord_grl_node<true, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::StridedParams{prow, 1});
             return static_cast<int>(TORORD_LAND_NUM_STATES);
         });
 }
@@ -53,9 +56,9 @@ extern "C" {
 // points to nm parameter sets of 136 floats each, on the device, in
 // _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
 // null for all of them.  Returns the cudaError_t of the launch.
-int torord_land_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
-                                 float dt, const float* table, int nm, const int* blocks, int nblocks,
-                                 void* stream) {
+int FBT_ENTRY(torord_land, multi_step_v)(float* states, const float* v, const int* model, long long n, float t,
+                                         float dt, const float* table, int nm, const int* blocks, int nblocks,
+                                         void* stream) {
     if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(TR_v == 0, "row v is row 0");
     static int caps[2] = {0, 0};

@@ -14,6 +14,9 @@
 // coalesced: 960 B a node against B1's 416.  B1's design: staged, 128
 // registers a thread (265 us unstaged against 222 us at n = 442,401 on an
 // H100 80GB HBM3 at 700 W, benchmarks/b1_designs.py).
+//
+// torord_land_fe_node.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "torord_land.cuh"
 
 namespace {
@@ -24,7 +27,7 @@ __global__ void __launch_bounds__(TORORD_BLOCK, TORORD_MIN_BLOCKS)
     fbt::staged_steps<TORORD_LAND_NUM_STATES, TORORD_BLOCK, false>(
         states, vin, nullptr, n, (n + TORORD_BLOCK - 1) / TORORD_BLOCK, [](int k) { return k; },
         [&](float* row, long long ld, float v, int i, int) {
-            fbt::torord_grl_node<true>(row, ld, v, t, dt, fbt::StridedParams{params + i, n});
+            fbt::torord_grl_node<true, fbt::kForwardEuler>(row, ld, v, t, dt, fbt::StridedParams{params + i, n});
             return static_cast<int>(TORORD_LAND_NUM_STATES);
         });
 }
@@ -37,8 +40,8 @@ extern "C" {
 // first (v may alias that row); `params` is the [136, n] parameter field
 // on the device, in _PARAM_NAMES order.  Returns the cudaError_t of the
 // launch.
-int torord_land_grl_node_step_v(float* states, const float* v, const float* params, long long n,
-                                float t, float dt, void* stream) {
+int FBT_ENTRY(torord_land, node_step_v)(float* states, const float* v, const float* params, long long n,
+                                        float t, float dt, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     static int cap = 0;
     const long long ntiles = fbt::num_blocks(n, TORORD_BLOCK);

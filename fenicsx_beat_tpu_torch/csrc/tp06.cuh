@@ -1,7 +1,10 @@
-// The ten Tusscher-Panfilov 2006 ionic model's generalized Rush-Larsen step
-// for one node, shared by the single-model kernel (B1, tp06_grl.cu) and the
-// multi-marker kernel (B7, tp06_grl_multi.cu), so both run one copy of the
-// formulas.
+// The ten Tusscher-Panfilov 2006 ionic model's step for one node, shared by
+// the single-model kernel (B1, tp06_grl.cu), its per-node-parameter form
+// (tp06_grl_node.cu) and the multi-marker kernel (B7, tp06_grl_multi.cu),
+// so all run one copy of the formulas, in either scheme: the generalized
+// Rush-Larsen step, or forward Euler (kFE, a compile-time switch on the
+// gate update rl and on R_prime's update; every other state takes the
+// explicit update in both).
 //
 // The formulas are those of
 // fenicsx_beat_tpu/models/tentusscher_panfilov_2006.py:generalized_rush_larsen,
@@ -26,6 +29,11 @@
 #endif
 #ifndef TP06_MIN_BLOCKS
 #define TP06_MIN_BLOCKS 6
+#endif
+// The per-node form in forward Euler needs more than the 80 registers 6
+// blocks leave (it spilled 8 bytes there on an H100): 5 blocks an SM.
+#ifndef TP06_FE_NODE_MIN_BLOCKS
+#define TP06_FE_NODE_MIN_BLOCKS 5
 #endif
 
 // State rows, in the order of _STATE_NAMES (the CPU tests parse this table).
@@ -116,13 +124,21 @@ namespace fbt {
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
-// Rush-Larsen gate update toward x_inf with time constant tau.
+// A gate's update toward x_inf with time constant tau: the exact
+// exponential (Rush-Larsen), or forward Euler with the twin's rate
+// (x_inf - x) / tau (kFE).
+template <bool kFE>
 __device__ __forceinline__ float rl(float x, float x_inf, float tau, float dt) {
-    return x_inf + (x - x_inf) * expf(-dt / tau);
+    if constexpr (kFE) {
+        return x + dt * ((x_inf - x) / tau);
+    } else {
+        return x_inf + (x - x_inf) * expf(-dt / tau);
+    }
 }
 
-// One GRL step of one node, in place: `row` points at the node's entry of
-// state row 0 and consecutive state rows lie `ld` floats apart; `V` is the
+// One step of one node (GRL, or forward Euler with kFE), in place: `row`
+// points at the node's entry of state row 0 and consecutive state rows lie
+// `ld` floats apart; `V` is the
 // voltage to step from (the injected PDE voltage, not row V's content);
 // `prm` is where the parameters come from (fbt::ParamSet or
 // fbt::StridedParams, common.cuh).
@@ -137,7 +153,7 @@ __device__ __forceinline__ float rl(float x, float x_inf, float tau, float dt) {
 // the old gate values, and every expression keeps its own operation order,
 // so the result is that of computing everything first, bit for bit (with
 // the IEEE division too: benchmarks/b1_designs.py).
-template <class Src>
+template <bool kFE = false, class Src>
 __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V, float t, float dt,
                                               const Src& prm) {
 #define TP(name) prm(offsetof(Tp06Params, name) / sizeof(float))
@@ -235,18 +251,21 @@ __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V,
                            i_b_Ca + i_p_K + i_p_Ca + i_Stim);
         const float dK_i = -(i_K1 + i_to + i_Kr + i_Ks + i_p_K + i_Stim - 2.0f * i_NaK) * CmF;
 
-        const float rp_rate = k2 * Ca_ss + TP(k4);
-        const float rp_inf = TP(k4) / rp_rate;
-
         // fCass gates on the old Ca_ss
         const float y = 1.0f / (1.0f + sq(Ca_ss / 0.05f));
         const float fCass_inf = 0.6f * y + 0.4f;
         const float tau_fCass = 80.0f * y + 2.0f;
 
         row[S_V * ld] = V + dt * dV;
-        row[S_fCass * ld] = rl(fCass, fCass_inf, tau_fCass, dt);
+        row[S_fCass * ld] = rl<kFE>(fCass, fCass_inf, tau_fCass, dt);
         row[S_Ca_i * ld] = Ca_i + dt * dCa_i;
-        row[S_R_prime * ld] = rp_inf + (R_prime - rp_inf) * expf(-dt * rp_rate);
+        if constexpr (kFE) {  // the twin's dR_prime, explicit
+            row[S_R_prime * ld] = R_prime + dt * (-k2 * Ca_ss * R_prime + TP(k4) * (1.0f - R_prime));
+        } else {  // the linear ODE's exact exponential
+            const float rp_rate = k2 * Ca_ss + TP(k4);
+            const float rp_inf = TP(k4) / rp_rate;
+            row[S_R_prime * ld] = rp_inf + (R_prime - rp_inf) * expf(-dt * rp_rate);
+        }
         row[S_Ca_SR * ld] = Ca_SR + dt * dCa_SR;
         row[S_Ca_ss * ld] = Ca_ss + dt * dCa_ss;
         row[S_Na_i * ld] = Na_i + dt * dNa_i;
@@ -255,11 +274,11 @@ __device__ __forceinline__ void tp06_grl_node(float* row, long long ld, float V,
 
     // ---- phase 2: the V-only gates, one at a time ---------------------------
     // Each reads its own row, which phase 1 did not write: the old value.
-#define GATE(S, x_inf, tau)                                  \
-    do {                                                     \
-        const float inf_ = (x_inf);                          \
-        const float tau_ = (tau);                            \
-        row[(S) * ld] = rl(row[(S) * ld], inf_, tau_, dt);   \
+#define GATE(S, x_inf, tau)                                     \
+    do {                                                        \
+        const float inf_ = (x_inf);                             \
+        const float tau_ = (tau);                               \
+        row[(S) * ld] = rl<kFE>(row[(S) * ld], inf_, tau_, dt); \
     } while (0)
     GATE(S_Xr1, 1.0f / (1.0f + expf((-26.0f - V) / 7.0f)),
          (450.0f / (1.0f + expf((-45.0f - V) / 10.0f))) * (6.0f / (1.0f + expf((V + 30.0f) / 11.5f))));

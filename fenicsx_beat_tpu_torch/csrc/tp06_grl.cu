@@ -22,6 +22,9 @@
 // 80GB HBM3 at 700 W (benchmarks/b1_designs.py): 116 registers and 60 us
 // of device time with the body in one phase and the IEEE division, 70
 // registers and 51 us in two phases, 59 registers and 30 us as built.
+//
+// tp06_fe.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "tp06.cuh"
 
 namespace {
@@ -31,7 +34,7 @@ __global__ void __launch_bounds__(TP06_BLOCK, TP06_MIN_BLOCKS)
                            int n, float t, float dt, Tp06Params p) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fbt::tp06_grl_node(states + i, n, vin[i], t, dt, fbt::ParamSet<Tp06Params>{p});
+    fbt::tp06_grl_node<fbt::kForwardEuler>(states + i, n, vin[i], t, dt, fbt::ParamSet<Tp06Params>{p});
 }
 
 }  // namespace
@@ -41,8 +44,8 @@ extern "C" {
 // One GRL step over the (19, n) states, in place, with v replacing row V
 // first (v may alias row V).  `params` points to the 54 parameters on the
 // host, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
-int tp06_grl_step_v(float* states, const float* v, long long n, float t, float dt,
-                    const float* params, void* stream) {
+int FBT_ENTRY(tp06, step_v)(float* states, const float* v, long long n, float t, float dt,
+                            const float* params, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     Tp06Params p;
     float* dst = reinterpret_cast<float*>(&p);

@@ -31,6 +31,9 @@
 // 3.35 TB/s.  As for B1, its instructions set its time in practice, and it
 // takes B1's design (tp06_grl.cu): the two-phase body, the register cap
 // and the approximate division.
+//
+// tp06_fe_multi.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "tp06.cuh"
 
 namespace {
@@ -51,7 +54,7 @@ __global__ void __launch_bounds__(fbt::kThreads, TP06_MIN_BLOCKS * TP06_BLOCK / 
         return;
     }
     const float* row = reinterpret_cast<const float*>(table + mi);
-    fbt::tp06_grl_node(states + i, n, V, t, dt, fbt::StridedParams{row, 1});
+    fbt::tp06_grl_node<fbt::kForwardEuler>(states + i, n, V, t, dt, fbt::StridedParams{row, 1});
 }
 
 }  // namespace
@@ -64,9 +67,9 @@ extern "C" {
 // points to nm parameter sets of 54 floats each, on the device, in
 // _PARAM_NAMES order; `blocks` lists the nblocks blocks to launch, or is
 // null for all of them.  Returns the cudaError_t of the launch.
-int tp06_grl_multi_step_v(float* states, const float* v, const int* model, long long n, float t,
-                          float dt, const float* table, int nm, const int* blocks, int nblocks,
-                          void* stream) {
+int FBT_ENTRY(tp06, multi_step_v)(float* states, const float* v, const int* model, long long n, float t,
+                                  float dt, const float* table, int nm, const int* blocks, int nblocks,
+                                  void* stream) {
     if (!fbt::multi_args_ok(n, nm, blocks, nblocks)) return cudaErrorInvalidValue;
     static_assert(S_V == 0, "row V is row 0");
     const auto kernel = blocks ? &tp06_grl_multi_step_v_kernel<true> : &tp06_grl_multi_step_v_kernel<false>;

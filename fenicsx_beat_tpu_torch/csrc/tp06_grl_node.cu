@@ -16,16 +16,19 @@
 // parameter row): 368 B a node against B1's 152.  It takes B1's design
 // (tp06_grl.cu): the two-phase body, the register cap and the approximate
 // division.
+//
+// tp06_fe_node.cu builds this source again in forward Euler (FBT_FORWARD_EULER,
+// common.cuh): the entry point FBT_ENTRY names, the node body's kFE.
 #include "tp06.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(TP06_BLOCK, TP06_MIN_BLOCKS)
+__global__ void __launch_bounds__(TP06_BLOCK, fbt::kForwardEuler ? TP06_FE_NODE_MIN_BLOCKS : TP06_MIN_BLOCKS)
     tp06_grl_node_step_v_kernel(float* states, const float* vin,  // vin may alias row V
                                 const float* __restrict__ params, int n, float t, float dt) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fbt::tp06_grl_node(states + i, n, vin[i], t, dt, fbt::StridedParams{params + i, n});
+    fbt::tp06_grl_node<fbt::kForwardEuler>(states + i, n, vin[i], t, dt, fbt::StridedParams{params + i, n});
 }
 
 }  // namespace
@@ -35,8 +38,8 @@ extern "C" {
 // One GRL step over the (19, n) states, in place, with v replacing row V
 // first (v may alias row V); `params` is the [54, n] parameter field on the
 // device, in _PARAM_NAMES order.  Returns the cudaError_t of the launch.
-int tp06_grl_node_step_v(float* states, const float* v, const float* params, long long n,
-                         float t, float dt, void* stream) {
+int FBT_ENTRY(tp06, node_step_v)(float* states, const float* v, const float* params, long long n,
+                                 float t, float dt, void* stream) {
     if (n < 1 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
     tp06_grl_node_step_v_kernel<<<fbt::num_blocks(n, TP06_BLOCK), TP06_BLOCK, 0,
                                   static_cast<cudaStream_t>(stream)>>>(

@@ -235,7 +235,8 @@ class ECGRecovery:
     float32 on CUDA, float64 on the CPU (:mod:`.config`).  ``use_kernels``
     False runs the kernels' plain PyTorch twins.  After construction,
     ``kernel`` names the SpMV of the solve (``"B5"``, ``"B6"`` or ``"B8"``)
-    and ``setup_s`` holds the seconds of its parts.
+    and ``setup_s`` holds the seconds of its parts.  ``operator_cache_key``
+    opts the operator assembly into the disk cache (``ecg.py:228`` there).
     """
 
     v: fem.Function
@@ -246,6 +247,7 @@ class ECGRecovery:
     petsc_options: dict[str, Any] = field(
         default_factory=lambda: {"ksp_type": "cg", "ksp_rtol": 1.0e-8, "ksp_atol": 1.0e-8}
     )
+    operator_cache_key: str | None = None  # opts the assembly into the operator disk cache
     device: Any = None
     dtype: Any = None
     use_kernels: bool = True
@@ -261,9 +263,11 @@ class ECGRecovery:
         n = self._n = self.V.ndofs
 
         # host assembly in float64: the stencil where the mesh allows,
-        # ELL otherwise (fem.assemble_mass_stiffness_auto)
+        # ELL otherwise (fem.assemble_mass_stiffness_auto), from the
+        # operator disk cache where operator_cache_key opts in
         tic = _time.perf_counter()
-        mass, stiff = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M, self.mesh))
+        mass, stiff = fem.assemble_mass_stiffness_auto(self.V, as_cell_tensors(self.M, self.mesh),
+                                                       cache_key=self.operator_cache_key)
         self.setup_s = {"assembly_s": _time.perf_counter() - tic}
 
         tic = _time.perf_counter()

@@ -30,19 +30,29 @@ its host time.  The triplets pack into one CSR pattern without a global
 sort (:func:`_cell_blocks_to_csr`), and P1 keeps the closed form and the
 COO pipeline of the JAX package's numpy branch.  Where the JAX package
 calls its native C++ kit, the port takes the kit's numpy branch: the slot
-loop of ``assemble_mass_stiffness_stencil`` and the barycentric sweep of
-``_locate_cells``.  The operator disk cache is not ported.
+loop of ``assemble_mass_stiffness_stencil`` and the bounding-box-prefiltered
+barycentric sweep of ``_locate_cells``.
+
+The operator disk cache (the JAX package's ``fem.py:869-894, 1080-1165``):
+a ``cache_key`` opts an assembly into it (:mod:`.cache`, kind
+``operators``); the slot is a sha256 fingerprint of the key, the space
+(degree, dofs, cells), the dtype and the bytes of the mesh's coordinates
+and cells and of the conductivity, so the content decides a hit and a hit
+returns the arrays of a fresh assembly bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import cache
 from .convert import stencil_from_numpy
 from .mesh import Mesh, _row_searchsorted
 from .ops.quadrature import simplex_rule
@@ -788,17 +798,72 @@ def _check_pde_space(V: FunctionSpace) -> None:
         )
 
 
+def _operator_cache_path(kind: str, cache_key: str, V: FunctionSpace, M_cells, dtype) -> Path:
+    """The disk-cache slot of an assembled ``(mass, stiffness)`` pair
+    (``fem.py:1118-1144`` there): keyed by ``kind`` and the caller's key,
+    and by content, the space, the dtype, the mesh's coordinates and cells
+    and the conductivity's bytes."""
+    el = V.element
+    parts = (kind, cache_key, V.ndofs, V.mesh.num_cells, f"{el.family}{el.degree}", V.block_size,
+             np.dtype(dtype or np.float64).name)
+    return cache.fingerprint("operators", parts, (V.mesh.coords, V.mesh.cells,
+                                                  np.asarray(M_cells, dtype=np.float64)))
+
+
+def _operator_cache_load(path, dtype):
+    """The pair a slot holds (stencil or ELL, as it was stored), or None."""
+    f = cache.load_arrays(path)
+    if f is None:
+        return None
+    try:
+        n = int(f["n"])
+        if "offsets" in f:
+            offs = tuple(int(d) for d in f["offsets"])
+            return tuple(stencil_from_numpy(offs, f[k], dtype=_torch_dtype(dtype)) for k in ("mvals", "kvals"))
+        tail = "tail_rows" in f
+        return tuple(
+            ELLMatrix(cols=f["cols"], vals=f[k], shape=(n, n),
+                      tail_rows=f["tail_rows"] if tail else None, tail_cols=f["tail_cols"] if tail else None,
+                      tail_vals=f[f"{k}_tail"] if tail else None)
+            for k in ("mvals", "kvals")
+        )
+    except (KeyError, ValueError):
+        return None
+
+
+def _operator_cache_store(path, mass, stiff) -> None:
+    """Publish a stencil or ELL pair to its slot (:func:`cache.store_arrays`)."""
+    if isinstance(mass, ELLMatrix):
+        arrays = dict(n=mass.shape[0], cols=mass.cols, mvals=mass.vals, kvals=stiff.vals)
+        if mass.has_tail:
+            arrays.update(tail_rows=mass.tail_rows, tail_cols=mass.tail_cols, mvals_tail=mass.tail_vals,
+                          kvals_tail=stiff.tail_vals)
+    else:
+        arrays = dict(n=mass.shape[0], offsets=np.asarray(mass.offsets, dtype=np.int64),
+                      mvals=mass.vals.numpy(), kvals=stiff.vals.numpy())
+    cache.store_arrays(path, arrays)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype or np.float64)).dtype
+
+
 def assemble_mass_stiffness_stencil(
     V: FunctionSpace,
     M_cells: np.ndarray | float,
     max_offsets: int = 64,
+    *,
+    dtype=None,
+    cache_key: str | None = None,
 ):
     """Direct stencil-form assembly of the consistent mass and anisotropic
     stiffness for a P1 space whose operator has a small global column-offset
     set (lexicographically ordered structured meshes).  Returns ``(mass,
-    stiff)`` as float64 CPU :class:`~.ops.sparse.StencilMatrix`, or
-    ``None`` for any other space or when the offset set exceeds
-    ``max_offsets``.
+    stiff)`` as CPU :class:`~.ops.sparse.StencilMatrix` with values of the
+    numpy ``dtype`` (float64 when None), or ``None`` for any other space or
+    when the offset set exceeds ``max_offsets``.  ``cache_key`` opts into
+    the operator disk cache (``max_offsets`` keys the slot too, so a warm
+    slot never hands back a wider stencil than the bound allows).
 
     Each of the 16 element-matrix (i, j) slots scatters straight into the
     ``[n, K]`` stencil table with ``np.bincount``: no COO sort and no
@@ -806,6 +871,12 @@ def assemble_mass_stiffness_stencil(
     ``fem.py:1042-1066``)."""
     if not _is_p1(V):
         return None
+    slot = None
+    if cache_key is not None:
+        slot = _operator_cache_path("stencil", f"{cache_key}|mo{max_offsets}", V, M_cells, dtype)
+        cached = _operator_cache_load(slot, dtype)
+        if cached is not None:
+            return cached
     mesh = V.mesh
     nd = V.ndofs_per_cell
     n = V.ndofs
@@ -845,8 +916,10 @@ def assemble_mass_stiffness_stencil(
             kst += np.bincount(lin, weights=ke_ij, minlength=n * K)
 
     offsets_t = tuple(int(v) for v in offs)
-    mass = stencil_from_numpy(offsets_t, mst.reshape(n, K))
-    stiff = stencil_from_numpy(offsets_t, kst.reshape(n, K))
+    mass = stencil_from_numpy(offsets_t, mst.reshape(n, K), dtype=_torch_dtype(dtype))
+    stiff = stencil_from_numpy(offsets_t, kst.reshape(n, K), dtype=_torch_dtype(dtype))
+    if slot is not None:
+        _operator_cache_store(slot, mass, stiff)
     return mass, stiff
 
 
@@ -940,7 +1013,7 @@ def _cell_blocks_to_csr(row_dofs: np.ndarray, col_dofs: np.ndarray, blocks, shap
     return n_first[indptr], sorted_cols[first].astype(np.int32), vals
 
 
-def _csr_to_ell_group(indptr, cols, vals_list, shape) -> tuple[ELLMatrix, ...]:
+def _csr_to_ell_group(indptr, cols, vals_list, shape, dtype=None) -> tuple[ELLMatrix, ...]:
     """ELL matrices of one layout from a shared CSR pattern (the layout
     ``coo_to_ell_group`` gives: a row's entries in column order, then
     padding at the row's own column with value 0; rare long rows spill
@@ -956,43 +1029,59 @@ def _csr_to_ell_group(indptr, cols, vals_list, shape) -> tuple[ELLMatrix, ...]:
     for vals in vals_list:
         ell_vals = np.zeros((n_rows, width))
         ell_vals[urows, pos] = vals
-        out.append(_build_ell(ell_cols, ell_vals, counts, shape, None))
+        out.append(_build_ell(ell_cols, ell_vals, counts, shape, dtype))
     return tuple(out)
 
 
-def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float):
+def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float, *, dtype=None,
+                            cache_key: str | None = None):
     """Consistent mass and anisotropic stiffness as two host
     :class:`~.ops.sparse.ELLMatrix` of one shared layout, so
-    ``a*Mass + b*Stiff`` is a value-level combination.  ``M_cells``: scalar,
+    ``a*Mass + b*Stiff`` is a value-level combination, with values of the
+    numpy ``dtype`` (float64 when None).  ``M_cells``: scalar,
     [gdim, gdim] or per-cell [nc, gdim, gdim].  P1 goes through the COO
     pipeline (one sort of the shared pattern for both value sets); any
     other Lagrange space through its reference tensors and
-    :func:`_cell_blocks_to_csr`.  Quadrature and blocked spaces raise."""
+    :func:`_cell_blocks_to_csr`.  Quadrature and blocked spaces raise.
+    ``cache_key`` opts into the operator disk cache."""
     _check_pde_space(V)
+    slot = None
+    if cache_key is not None:
+        slot = _operator_cache_path("ell", cache_key, V, M_cells, dtype)
+        cached = _operator_cache_load(slot, dtype)
+        if cached is not None:
+            return cached
     if _is_p1(V):
         rows, cols, mvals, kvals, shape = assemble_mass_stiffness_coo(V, M_cells)
-        return coo_to_ell_group(rows, cols, [mvals, kvals], shape)
-    Me, Ke = _element_matrices(V, M_cells)
-    shape = (V.ndofs, V.ndofs)
-    indptr, cols, vals = _cell_blocks_to_csr(V.cell_dofs, V.cell_dofs, [Me, Ke], shape)
-    return _csr_to_ell_group(indptr, cols, vals, shape)
+        pair = coo_to_ell_group(rows, cols, [mvals, kvals], shape, dtype)
+    else:
+        Me, Ke = _element_matrices(V, M_cells)
+        shape = (V.ndofs, V.ndofs)
+        indptr, cols, vals = _cell_blocks_to_csr(V.cell_dofs, V.cell_dofs, [Me, Ke], shape)
+        pair = _csr_to_ell_group(indptr, cols, vals, shape, dtype)
+    if slot is not None:
+        _operator_cache_store(slot, *pair)
+    return pair
 
 
-def assemble_mass_stiffness_auto(V: FunctionSpace, M_cells: np.ndarray | float):
+def assemble_mass_stiffness_auto(V: FunctionSpace, M_cells: np.ndarray | float, *, dtype=None,
+                                 cache_key: str | None = None):
     """Stencil-first operator assembly: the direct stencil where the mesh
     structure allows (P1), ELL otherwise, upgraded to stencil form when
     the ELL pattern turns out to be a global stencil (the JAX
     ``BaseModel``'s route).  Returns two :class:`~.ops.sparse.StencilMatrix`
-    (float64 CPU) or two host float64 :class:`~.ops.sparse.ELLMatrix`."""
-    pair = assemble_mass_stiffness_stencil(V, M_cells)
+    (CPU) or two host :class:`~.ops.sparse.ELLMatrix`, with values of the
+    numpy ``dtype`` (float64 when None).  ``cache_key`` opts both
+    assemblies into the operator disk cache (``fem.py:941-967`` there)."""
+    pair = assemble_mass_stiffness_stencil(V, M_cells, dtype=dtype, cache_key=cache_key)
     if pair is not None:
         return pair
-    mass, stiff = assemble_mass_stiffness(V, M_cells)
+    mass, stiff = assemble_mass_stiffness(V, M_cells, dtype=dtype, cache_key=cache_key)
     mst = ell_to_stencil(mass)
     if mst is not None:
         kst = ell_to_stencil(stiff)
         if kst is not None and kst.offsets == mst.offsets:
-            return mst, kst
+            return tuple(A.with_values(A.vals.to(_torch_dtype(dtype))) for A in (mst, kst))
     return mass, stiff
 
 
@@ -1279,22 +1368,39 @@ def dirichletbc(value: float, dofs: np.ndarray, V: FunctionSpace | None = None) 
 
 def _locate_cells(mesh: Mesh, points: np.ndarray, tol: float = 1e-10) -> np.ndarray:
     """Lowest-index cell containing each point (vectorized barycentric
-    test over all cells, one point at a time); -1 when outside."""
+    test, one point at a time, over the cells whose bounding box holds
+    it); -1 when outside.  Barycentric coordinates all >= -tol put a point
+    at most (tdim + 1) * tol of the cell's extent outside its box on each
+    axis, so boxes padded by more than that drop no cell the test accepts,
+    and only the cells left need their geometry (the JAX package's native
+    sweep prefilters the same way, and so only where tdim == gdim: an
+    embedded cell's test reads the point's projection onto it)."""
     pts = np.asarray(points, dtype=np.float64)
     if pts.ndim == 1:
         pts = pts[None, :]
     pts = pts[:, : mesh.gdim]
-    geom = cell_geometry(mesh)
-    x0 = mesh.coords[mesh.cells[:, 0]]  # [nc, gdim]
+    boxed = mesh.tdim == mesh.gdim
+    boxes = []  # per axis: the cells' padded (lo, hi)
+    for a in range(mesh.gdim if boxed else 0):
+        c = [mesh.coords[mesh.cells[:, k], a] for k in range(mesh.cells.shape[1])]
+        lo, hi = functools.reduce(np.minimum, c), functools.reduce(np.maximum, c)
+        pad = (hi - lo) * max(4 * (mesh.tdim + 1) * tol, 1e-8)
+        boxes.append((lo - pad, hi + pad))
     out = np.full(pts.shape[0], -1, dtype=np.int64)
     for pi, p in enumerate(pts):
-        d = p[None, :] - x0  # [nc, gdim]
-        xi = np.einsum("cg,cig->ci", d, geom.inv_edges)  # [nc, tdim]
+        cand = np.arange(mesh.num_cells)
+        for (lo, hi), x in zip(boxes, p):
+            cand = cand[(lo[cand] <= x) & (hi[cand] >= x)]
+        if not cand.size:
+            continue
+        geom = cell_geometry(mesh, cand)
+        d = p[None, :] - mesh.coords[mesh.cells[cand, 0]]  # [nk, gdim]
+        xi = np.einsum("cg,cig->ci", d, geom.inv_edges)  # [nk, tdim]
         lam0 = 1.0 - xi.sum(axis=1)
         ok = (xi >= -tol).all(axis=1) & (lam0 >= -tol)
         hits = np.nonzero(ok)[0]
         if hits.size:
-            out[pi] = hits[0]
+            out[pi] = cand[hits[0]]
     return out
 
 

@@ -18,10 +18,10 @@ in one shared CSR layout and the generic Jacobi-PCG around the CSR SpMV
 kernel B8, whose exit test ``sqrt(rr) > tol`` is JAX's ``cg``'s, so the
 iteration counts match the JAX solver's.
 
-The ionic model is TP06, ToR-ORd dynCl or ToR-ORd dynCl + Land generalized
-Rush-Larsen (V in row 0), FitzHugh-Nagumo forward Euler (V in row 1), or
-either step of a model that ``odefile.load_ode`` generated (V in its row),
-and the solver takes
+The ionic model is TP06, ToR-ORd dynCl or ToR-ORd dynCl + Land, generalized
+Rush-Larsen or forward Euler (V in row 0), FitzHugh-Nagumo forward Euler (V
+in row 1), or either step of a model that ``odefile.load_ode`` generated (V
+in its row), and the solver takes
 its kernels from the model's entry in
 :data:`~.ops.cuda_ode.IONIC_MODELS` (:func:`~.splitting.ionic_layer`,
 shared with the bidomain solver): B1 for one parameter vector, B1's
@@ -31,18 +31,26 @@ B7 for marker-partitioned layers: a dict ``ode_fun`` with ``ode_markers``
 composes through :func:`~.odesolver.make_multi_ode`, whose masks become
 B7's per-node model index, one launch per model, each over the blocks
 that hold its nodes where the markers mix models
-(:func:`~.ops.cuda_ode.mixed_multi_step`).  Stimuli are separable TimeWindow
-loads on cell or exterior-facet measures.  On the CPU every kernel runs as its plain
+(:func:`~.ops.cuda_ode.mixed_multi_step`); a marker whose parameters are a
+node-aligned ``[NP, n]`` field steps its own nodes through B1's per-node
+form (:func:`~.splitting.ionic_layer`).  Stimuli on cell or exterior-facet
+measures: a TimeWindow's load assembled once, any other expression's each
+step at the PDE theta point (one B8 product).  On the CPU every kernel runs as its plain
 PyTorch twin, which is how the port is held against the JAX solver;
 ``use_kernels=False`` selects the twins on any device (the kernel check's
 reference on the card); there is no silent switch between the two.
 
-Scope of this port: TP06, ToR-ORd dynCl, ToR-ORd dynCl + Land,
-FitzHugh-Nagumo and generated models (one parameter vector, a per-node
-parameter field, or one vector per marker, the markers' models mixed or
-not), P1, Godunov (theta=1) and Strang (theta=0.5) splitting.  Everything
-else the JAX solver offers (merged Strang, other models, per-marker
-parameter fields, non-TimeWindow stimuli) raises ``NotImplementedError``.  The node axis is not padded.
+Splitting: any theta (1 Godunov, 0.5 Strang; the tentative ionic step
+``theta*dt``, the corrective ``(1-theta)*dt`` skipped at theta=1) and
+merged Strang (``merge_strang_halves=True`` with theta=0.5: per chunk
+A(dt/2) [B(dt) A(dt)]^{n-1} B(dt) A(dt/2), ``n_steps + 1`` ionic launches
+instead of ``2*n_steps``, activation sampled at the midpoints).  Scope of
+this port: TP06, ToR-ORd dynCl, ToR-ORd dynCl + Land, FitzHugh-Nagumo and
+generated models (one parameter vector, a per-node parameter field, or one
+vector or field per marker, the markers' models mixed or not), P1.  Other
+models raise ``NotImplementedError``.  The node axis is not padded.
+``operator_cache_key`` opts the assembly into the operator disk cache
+(:func:`~.fem.assemble_mass_stiffness_auto`).
 """
 
 from __future__ import annotations
@@ -88,20 +96,22 @@ class FusedMonodomainSolver:
     ----------
     mesh : Mesh
     M : conductivity spec (scalar / tensor / ConductivityTensor)
-    ode_fun : the ionic step, ``generalized_rush_larsen`` of
-        ``models.tentusscher_panfilov_2006``, ``models.torord_dyncl``,
-        ``models.torord_dyncl_land`` or ``models.fitzhughnagumo`` (whose
-        ``forward_euler`` is the same step), or a dict marker -> one of
-        those steps (multi-marker layers, of one model or several, with
-        ``ode_markers``)
+    ode_fun : the ionic step, ``generalized_rush_larsen`` or
+        ``forward_euler`` of ``models.tentusscher_panfilov_2006``,
+        ``models.torord_dyncl``, ``models.torord_dyncl_land`` or
+        ``models.fitzhughnagumo`` (whose two are one step), or a dict
+        marker -> one of those steps (multi-marker layers, of one model or
+        several, with ``ode_markers``)
     init_states : (S,) or (S, n_nodes); a dict marker -> those with a dict ``ode_fun``
     parameters : the model's parameter vector (NP,), or a node-aligned
-        (NP, n_nodes) field; a dict marker -> vector with a dict ``ode_fun``
+        (NP, n_nodes) field; a dict marker -> vector or field with a dict
+        ``ode_fun``
     v_index : the model's voltage row in the state array (TP06 and
         ToR-ORd: 0, FHN: 1); a dict with a dict ``ode_fun``
-    I_s : Stimulus | list[Stimulus] (TimeWindow expressions on cell or
-        exterior-facet measures)
-    theta : 1.0 Godunov / 0.5 Strang (``monodomain_solver.py:94-113``)
+    I_s : Stimulus | list[Stimulus] on cell or exterior-facet measures
+        (TimeWindow or any expression ``f(x, t)``)
+    theta : the splitting, 1.0 Godunov / 0.5 Strang / any other value
+        (``monodomain_solver.py:94-113``)
     monitor : a :class:`~.telemetry.BaseMonitor`: each chunk runs in its
         ``fused_chunk`` section, then ``record_ksp`` (the chunk's largest
         CG count, last residual, convergence) and ``advance_step`` over the
@@ -110,6 +120,10 @@ class FusedMonodomainSolver:
         named; float32 on CUDA, float64 on CPU by default (:mod:`.config`)
     use_kernels : False runs the plain PyTorch twins of the kernels
     ode_markers : per-node marker array (or an object with ``.x.array``)
+    operator_cache_key : opts the operator assembly into the disk cache
+        (the content of mesh, conductivity and dtype decides a hit)
+    merge_strang_halves : with theta=0.5, merge each chunk's interior ionic
+        half-steps into full steps (ignored with a warning at other theta)
     """
 
     mesh: Mesh
@@ -130,6 +144,7 @@ class FusedMonodomainSolver:
     dtype: Any = None
     use_kernels: bool = True
     ode_markers: Any = None
+    operator_cache_key: str | None = None
     merge_strang_halves: bool = False
 
     def __post_init__(self):
@@ -159,19 +174,20 @@ class FusedMonodomainSolver:
         # (fused.py:104-136), whose dicts compose through make_multi_ode
         layer = ionic_layer(self._ionic, self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                             self.v_index, n, dev, dt_, self.use_kernels)
-        self._ionic_groups, self._ode_step = layer.groups, layer.step
+        self._ionic_groups, self._ionic_fields, self._ode_step = layer.groups, layer.fields, layer.step
         self.init_states, self.v_index = layer.init_states, layer.v_index
 
         # operators: assembled in float64 on the host (stencil first, ELL
         # otherwise, fem.assemble_mass_stiffness_auto), the theta system on
         # the device
         M_cells = as_cell_tensors(self.M, self.mesh)
-        mass, stiff = fem.assemble_mass_stiffness_auto(self.V, M_cells)
+        mass, stiff = fem.assemble_mass_stiffness_auto(self.V, M_cells, cache_key=self.operator_cache_key)
         self._pde = ThetaSystem(mass, stiff, self.C_m, self.pde_theta, p["ksp_rtol"], p["ksp_atol"],
                                 p["ksp_max_it"], dev, dt_, self.use_kernels)
         self._structured, self._pos = self._pde.structured, self._pde.pos
 
-        # stimuli: separable TimeWindow loads, assembled once on the host
+        # stimuli: TimeWindow loads assembled once on the host, general
+        # expressions each step on the device
         self._stim_quads, self._stim_terms, self._b_units = stimulus_loads(
             self.V, self.I_s, self.mesh, p["quadrature_degree"], dev, dt_
         )
@@ -194,12 +210,11 @@ class FusedMonodomainSolver:
         self.last_cg: CGInfo | None = None  # the last chunk's CG statistics
 
     def _check_scope(self):
-        if self.merge_strang_halves:
-            raise NotImplementedError("merged Strang splitting is not ported yet")
         self._ionic = check_ionic_scope(self.ode_fun, self.ode_markers, self.init_states, self.parameters,
                                         self.v_index)
-        if not (np.isclose(self.theta, 1.0) or np.isclose(self.theta, 0.5)):
-            raise NotImplementedError(f"theta={self.theta}: the port runs Godunov (1) or Strang (0.5)")
+        self._merged = bool(self.merge_strang_halves) and bool(np.isclose(self.theta, 0.5))
+        if self.merge_strang_halves and not self._merged:
+            logger.warning("merge_strang_halves requires theta=0.5 (got %g); ignored", self.theta)
 
     # ------------------------------------------------------------------
     @property
@@ -217,8 +232,9 @@ class FusedMonodomainSolver:
         return self._pde.operators(dt)
 
     def _assemble_rhs(self, B, v_prev, t_stim, dt, amps):
-        """b = B v_prev + the stimulus loads whose window holds ``t_stim``
-        (inclusive at both ends, compared in the working dtype)."""
+        """b = B v_prev + the stimulus loads at ``t_stim``: each TimeWindow's
+        where its window holds it (inclusive at both ends, compared in the
+        working dtype), each general expression's assembled at it."""
         return self._pde.rhs(B, v_prev, self._stim_terms, self._b_units, t_stim, dt, amps)
 
     def _pde_solve(self, ops, v_prev, x0, t_stim, dt, amps):
@@ -230,17 +246,27 @@ class FusedMonodomainSolver:
     def run_chunk(self, t0, dt: float, n_steps: int, amps=None, probed: bool = False) -> ChunkResult:
         """Advance ``n_steps`` steps of ``dt`` from time ``t0``, updating
         :attr:`states` and :attr:`activation_time` (``fused.py:604-693``).
-        The steps run in the monitor's ``fused_chunk`` section; then the
-        monitor records the chunk's CG statistics and advances over
-        ``(t0, t)``, as the JAX solver's ``solve`` does per chunk."""
+        Each step: the tentative ionic step of ``theta*dt``, the PDE step,
+        the corrective ionic step of ``(1-theta)*dt`` at ``t + theta*dt``
+        (none at theta=1), the activation stamp ``t``.  Merged Strang: the
+        tentative step is ``dt/2`` at k = 0 and ``dt`` after, no corrective
+        step, the activation sampled at the midpoint of the carried and the
+        stepped voltage and stamped ``t - dt`` for k > 0, and one trailing
+        ``dt/2`` step with its own stamp closes the chunk (``n_steps + 1``
+        ionic launches).  The steps run in the monitor's ``fused_chunk``
+        section; then the monitor records the chunk's CG statistics and
+        advances over ``(t0, t)``, as the JAX solver's ``solve`` does per
+        chunk."""
         w = self._np_dtype
         amps = self.stimulus_amplitudes() if amps is None else amps
         dtw = w(dt)
         dt_f = float(dtw)
         theta = float(self.theta)
-        strang = not np.isclose(theta, 1.0)
+        merged = self._merged
+        corrective = not merged and not np.isclose(theta, 1.0)
         tent_dt = float(w(theta) * dtw)
         corr_dt = float(w(1.0 - theta) * dtw)
+        half_dt = float(w(0.5) * dtw)
         ops = self._operators(dt_f)
         thr = float(self.activation_threshold)
         vi = self.v_index
@@ -252,25 +278,37 @@ class FusedMonodomainSolver:
         all_conv = True
         rr = None
         with self.monitor.track_time("fused_chunk"):
-            for _ in range(n_steps):
-                # tentative ODE step (monodomain_solver.py:68), PDE voltage injected
-                self._ode_step(states, v_cur, float(t), tent_dt)
+            for k in range(n_steps):
+                # tentative ODE step (monodomain_solver.py:68), PDE voltage
+                # injected; merged: A(dt/2) opens the chunk, A(dt) after
+                self._ode_step(states, v_cur, float(t), (half_dt if k == 0 else dt_f) if merged else tent_dt)
                 v = states[vi]
+                if merged and k > 0:
+                    # the previous step's Strang sample A(dt/2): the voltage
+                    # row advances by forward Euler, so it is the midpoint
+                    v_mid = 0.5 * (v_cur + v)
+                    act = torch.where((v_mid > thr) & (act < 0), float(t - dtw), act)
                 # PDE theta-step; stimulus at the PDE theta point; CG warm-started
                 # from the previous step's increment
                 t_stim = t + w(self.pde_theta) * dtw
                 v_new, iters, rr, conv = self._pde_solve(ops, v, v + dv, t_stim, dt_f, amps)
                 dv = v_new - v
-                if strang:
+                if corrective:
                     # corrective ODE step (Strang, monodomain_solver.py:99-113)
                     self._ode_step(states, v_new, float(t + w(theta) * dtw), corr_dt)
                     v_new = states[vi]
-                act = torch.where((v_new > thr) & (act < 0), float(t), act)
+                if not merged:
+                    act = torch.where((v_new > thr) & (act < 0), float(t), act)
                 t = t + dtw
                 v_cur = v_new
                 it_max = max(it_max, iters)
                 it_sum += iters
                 all_conv &= conv
+            if merged and n_steps:
+                # the trailing A(dt/2) closes the chunk's Strang composition
+                self._ode_step(states, v_cur, float(t), half_dt)
+                v_cur = states[vi]
+                act = torch.where((v_cur > thr) & (act < 0), float(t - dtw), act)
             # one voltage-row write-back per chunk (Godunov: v_cur is the PDE result)
             states[vi].copy_(v_cur)
         self.activation_time = act
@@ -287,8 +325,9 @@ class FusedMonodomainSolver:
     # ------------------------------------------------------------------
     def stimulus_amplitudes(self) -> np.ndarray:
         """Live amplitude vector, read each chunk (``Stimulus.assign`` takes
-        effect at the next chunk)."""
-        amps = [float(stim.expr.amplitude) for _, _, stim in self._stim_quads]
+        effect at the next chunk); 1.0 for a general expression, whose
+        value is its own."""
+        amps = [float(stim.expr.amplitude) if stim is not None else 1.0 for _, _, stim in self._stim_quads]
         return np.asarray(amps or [0.0], dtype=self._np_dtype)
 
     @property
@@ -306,7 +345,14 @@ class FusedMonodomainSolver:
         (:meth:`run_chunk`, each reported to the monitor);
         ``save_callback(t, v_host)`` fires after each chunk.  Returns
         ``Status.NOT_CONVERGING`` if any step's CG stopped at ``ksp_max_it``
-        without meeting its tolerance."""
+        without meeting its tolerance.
+
+        The chunks are the JAX solver's (``fenicsx_beat_tpu/fused.py:762-823``):
+        ``round((T - T0) / dt)`` steps cut into chunks of ``save_freq`` (one
+        chunk when None), the last one shorter, the time carried between
+        chunks in the working dtype.  A merged Strang run depends on its
+        chunking (each chunk opens and closes with a half step), so equal
+        chunks are what make it JAX's."""
         T0, T = interval
         n_total = int(round((T - T0) / dt))
         chunk = save_freq or n_total

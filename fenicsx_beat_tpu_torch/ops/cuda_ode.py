@@ -1,7 +1,7 @@
 """B1 and B7: the ionic steps of the splitting solvers -- one generalized
-Rush-Larsen step with the PDE voltage injected into row V -- for TP06,
-ToR-ORd dynCl, ToR-ORd dynCl + Land and FitzHugh-Nagumo (whose GRL step is
-forward Euler).
+Rush-Larsen or forward-Euler step with the PDE voltage injected into row
+V -- for TP06, ToR-ORd dynCl, ToR-ORd dynCl + Land and FitzHugh-Nagumo
+(whose GRL step is forward Euler).
 
 Each model has three forms, counterparts of
 ``fenicsx_beat_tpu/ops/pallas_ode.py``:
@@ -20,7 +20,9 @@ one launch of each model's B7 kernel over the union ``[S_max, n]`` states,
 on that model's own rows, its grid only the 256-node blocks that hold its
 nodes (the JAX kernel's ``active[model, block]`` table as a compacted
 grid, :func:`mixed_groups`); a node of another model (index
-:data:`OTHER_MODEL`) is left untouched.
+:data:`OTHER_MODEL`) is left untouched.  A marker whose parameters are a
+node-aligned field steps its own nodes through B1's per-node form
+(:func:`field_step`: a gather, the kernel, a scatter).
 
 B1's forms inject V into the model's own voltage row
 (:attr:`IonicModel.v_index`: 0 for TP06 and ToR-ORd, 1 for FHN).  B7 works
@@ -34,11 +36,16 @@ launch the hand-written kernels (``csrc/tp06_grl{,_node,_multi}.cu``,
 ``csrc/fhn_{step,node,multi}.cu``; one copy of each model's formulas in
 ``csrc/tp06.cuh``, ``csrc/torord.cuh`` (with Land's ``csrc/torord_land.cuh``)
 and ``csrc/fhn.cuh``); on a CPU tensor they run their plain PyTorch twins.
+The ionic sources of TP06, ToR-ORd and Land are each built twice, as
+``<model>_grl_*`` and, by ``csrc/<model>_fe*.cu``, as ``<model>_fe_*``: the
+node body's compile-time scheme switch (``kFE``) turns its gate and
+linear-state updates into forward Euler, whose twin is the model's
+``forward_euler``.
 The JAX kernels trace any jnp model.  Here the
 models in :data:`IONIC_MODELS` have kernels, which :func:`ionic_model`
 looks up by the model's step function, so the solvers pick kernels by
-model: the four hand-written ones by their ``generalized_rush_larsen``,
-and every model that ``odefile.load_ode`` generates by both of its steps
+model: the three hand-written models by their ``generalized_rush_larsen``
+and ``forward_euler``, FitzHugh-Nagumo by its one step, and every model that ``odefile.load_ode`` generates by both of its steps
 (:func:`register_model`: GRL1 and forward Euler, the JAX kernel runs
 either), whose kernels are the templates ``csrc/ode_{step,node,multi}.cu.in``
 with the model's own node body, built at the first launch.  Any other model
@@ -74,6 +81,9 @@ __all__ = [
     "mixed_groups",
     "mixed_multi_step",
     "mixed_multi_step_twin",
+    "FieldGroup",
+    "field_group",
+    "field_step",
     "tp06_grl_step_v",
     "tp06_grl_step_v_twin",
     "tp06_grl_node_step_v",
@@ -89,6 +99,21 @@ __all__ = [
     "torord_land_grl_node_step_v",
     "torord_land_grl_multi_step_v",
     "torord_land_grl_multi_step_v_twin",
+    "tp06_fe_step_v",
+    "tp06_fe_step_v_twin",
+    "tp06_fe_node_step_v",
+    "tp06_fe_multi_step_v",
+    "tp06_fe_multi_step_v_twin",
+    "torord_fe_step_v",
+    "torord_fe_step_v_twin",
+    "torord_fe_node_step_v",
+    "torord_fe_multi_step_v",
+    "torord_fe_multi_step_v_twin",
+    "torord_land_fe_step_v",
+    "torord_land_fe_step_v_twin",
+    "torord_land_fe_node_step_v",
+    "torord_land_fe_multi_step_v",
+    "torord_land_fe_multi_step_v_twin",
     "fhn_step_v",
     "fhn_step_v_twin",
     "fhn_node_step_v",
@@ -302,6 +327,27 @@ torord_land_grl_step_v = _b1("torord_land_grl_step_v", land, torord_land_grl_ste
 torord_land_grl_node_step_v = _b1_node("torord_land_grl_node_step_v", land, torord_land_grl_step_v_twin)
 torord_land_grl_multi_step_v = _b7("torord_land_grl_multi_step_v", land, torord_land_grl_multi_step_v_twin)
 
+# forward Euler of the three hand-written models: the same sources' _fe_
+# entries (the node bodies' compile-time scheme switch), the models'
+# forward_euler as their twins
+tp06_fe_step_v_twin = _b1_twin(tp06, tp06.forward_euler)
+tp06_fe_multi_step_v_twin = _b7_twin(tp06, tp06.forward_euler)
+tp06_fe_step_v = _b1("tp06_fe_step_v", tp06, tp06_fe_step_v_twin)
+tp06_fe_node_step_v = _b1_node("tp06_fe_node_step_v", tp06, tp06_fe_step_v_twin)
+tp06_fe_multi_step_v = _b7("tp06_fe_multi_step_v", tp06, tp06_fe_multi_step_v_twin)
+
+torord_fe_step_v_twin = _b1_twin(torord, torord.forward_euler)
+torord_fe_multi_step_v_twin = _b7_twin(torord, torord.forward_euler)
+torord_fe_step_v = _b1("torord_fe_step_v", torord, torord_fe_step_v_twin)
+torord_fe_node_step_v = _b1_node("torord_fe_node_step_v", torord, torord_fe_step_v_twin)
+torord_fe_multi_step_v = _b7("torord_fe_multi_step_v", torord, torord_fe_multi_step_v_twin)
+
+torord_land_fe_step_v_twin = _b1_twin(land, land.forward_euler)
+torord_land_fe_multi_step_v_twin = _b7_twin(land, land.forward_euler)
+torord_land_fe_step_v = _b1("torord_land_fe_step_v", land, torord_land_fe_step_v_twin)
+torord_land_fe_node_step_v = _b1_node("torord_land_fe_node_step_v", land, torord_land_fe_step_v_twin)
+torord_land_fe_multi_step_v = _b7("torord_land_fe_multi_step_v", land, torord_land_fe_multi_step_v_twin)
+
 fhn_step_v_twin = _b1_twin(fhn)
 fhn_multi_step_v_twin = _b7_twin(fhn)
 fhn_step_v = _b1("fhn_step_v", fhn, fhn_step_v_twin)
@@ -337,16 +383,29 @@ class IonicModel:
 
 
 IONIC_MODELS = {
-    m.module.generalized_rush_larsen: m
-    for m in (
-        IonicModel("tp06", tp06, tp06_grl_step_v, tp06_grl_node_step_v, tp06_grl_multi_step_v,
-                   tp06_grl_step_v_twin, tp06_grl_multi_step_v_twin),
-        IonicModel("torord_dyncl", torord, torord_grl_step_v, torord_grl_node_step_v,
-                   torord_grl_multi_step_v, torord_grl_step_v_twin, torord_grl_multi_step_v_twin),
-        IonicModel("torord_dyncl_land", land, torord_land_grl_step_v, torord_land_grl_node_step_v,
-                   torord_land_grl_multi_step_v, torord_land_grl_step_v_twin, torord_land_grl_multi_step_v_twin),
-        IonicModel("fhn", fhn, fhn_step_v, fhn_node_step_v, fhn_multi_step_v, fhn_step_v_twin,
-                   fhn_multi_step_v_twin),
+    fun: m
+    for fun, m in (
+        (tp06.generalized_rush_larsen,
+         IonicModel("tp06", tp06, tp06_grl_step_v, tp06_grl_node_step_v, tp06_grl_multi_step_v,
+                    tp06_grl_step_v_twin, tp06_grl_multi_step_v_twin)),
+        (torord.generalized_rush_larsen,
+         IonicModel("torord_dyncl", torord, torord_grl_step_v, torord_grl_node_step_v,
+                    torord_grl_multi_step_v, torord_grl_step_v_twin, torord_grl_multi_step_v_twin)),
+        (land.generalized_rush_larsen,
+         IonicModel("torord_dyncl_land", land, torord_land_grl_step_v, torord_land_grl_node_step_v,
+                    torord_land_grl_multi_step_v, torord_land_grl_step_v_twin, torord_land_grl_multi_step_v_twin)),
+        (tp06.forward_euler,
+         IonicModel("tp06_fe", tp06, tp06_fe_step_v, tp06_fe_node_step_v, tp06_fe_multi_step_v,
+                    tp06_fe_step_v_twin, tp06_fe_multi_step_v_twin)),
+        (torord.forward_euler,
+         IonicModel("torord_dyncl_fe", torord, torord_fe_step_v, torord_fe_node_step_v,
+                    torord_fe_multi_step_v, torord_fe_step_v_twin, torord_fe_multi_step_v_twin)),
+        (land.forward_euler,
+         IonicModel("torord_dyncl_land_fe", land, torord_land_fe_step_v, torord_land_fe_node_step_v,
+                    torord_land_fe_multi_step_v, torord_land_fe_step_v_twin, torord_land_fe_multi_step_v_twin)),
+        (fhn.generalized_rush_larsen,
+         IonicModel("fhn", fhn, fhn_step_v, fhn_node_step_v, fhn_multi_step_v, fhn_step_v_twin,
+                    fhn_multi_step_v_twin)),
     )
 }
 
@@ -385,9 +444,9 @@ def ionic_model(fun: Callable) -> IonicModel:
     except (KeyError, TypeError):
         raise NotImplementedError(
             f"{getattr(fun, '__module__', '?')}.{getattr(fun, '__name__', fun)}: the port's ionic "
-            "kernels run the generalized Rush-Larsen step of "
+            "kernels run the generalized Rush-Larsen or forward-Euler step of "
             + " or ".join(f"models.{m.__name__.rsplit('.', 1)[-1]}" for m in (tp06, torord, land, fhn))
-            + " (forward_euler is FitzHugh-Nagumo's), or either step of a model that odefile.load_ode "
+            + " (FitzHugh-Nagumo's two are one), or either step of a model that odefile.load_ode "
             "generated; other models are not ported yet (ROADMAP A4, A8)"
         ) from None
 
@@ -455,6 +514,47 @@ def mixed_groups(masks: np.ndarray, models: list, params: list, device, dtype) -
         groups.append(MixedGroup(model=spec, index=torch.as_tensor(index, device=device), table=table,
                                  table_host=table.double().cpu().numpy(), blocks=blocks, nodes=nodes))
     return groups
+
+
+@dataclass(frozen=True)
+class FieldGroup:
+    """One marker of a dict ``ode_fun`` whose parameters are a node-aligned
+    ``[NP, n]`` field: B1's per-node form of its model steps that marker's
+    nodes alone (:func:`field_step`), gathered from the union states into
+    the model's own row order and scattered back, so no other node's
+    states are read (the JAX composition's semantics)."""
+
+    model: IonicModel
+    nodes: torch.Tensor  # int64 ids of the marker's nodes, on the device
+    field: torch.Tensor  # (NP, len(nodes)): the field's columns of those nodes, in the states' dtype
+
+
+def field_group(mask: np.ndarray, model: IonicModel, field, device, dtype) -> FieldGroup:
+    """The :class:`FieldGroup` of the marker whose nodes ``mask`` selects,
+    from its model and its ``[NP, n]`` parameter field."""
+    field = np.asarray(field, dtype=np.float64)
+    if field.shape != (model.num_params, mask.shape[0]):
+        raise ValueError(f"node-aligned parameters of shape {field.shape}: {model.name} needs "
+                         f"({model.num_params}, {mask.shape[0]})")
+    ids = np.flatnonzero(mask)
+    return FieldGroup(model=model, nodes=torch.as_tensor(ids, device=device),
+                      field=torch.as_tensor(np.ascontiguousarray(field[:, ids]), device=device).to(dtype))
+
+
+def field_step(states: torch.Tensor, v: torch.Tensor, g: FieldGroup, t: float, dt: float,
+               use_kernels: bool = True) -> torch.Tensor:
+    """One step of a :class:`FieldGroup`'s nodes in the union states
+    ``(S_max, n)`` of ``make_multi_ode``'s storage layout, in place: their
+    columns of the model's rows gathered (rows 0 and V exchanged back to
+    the model's order), B1's per-node form on them with ``v``'s entries
+    injected (its twin with ``use_kernels=False``, and on the CPU), and
+    the result scattered back.  Costs two extra passes over the marker's
+    states (the gather and the scatter) beside the kernel's."""
+    m, S, vi = g.model, g.model.num_states, g.model.v_index
+    sub = _swap_rows(states[:S].index_select(1, g.nodes), vi).contiguous()
+    (m.node_step if use_kernels else m.step_twin)(sub, v.index_select(0, g.nodes), t, dt, g.field)
+    states[:S].index_copy_(1, g.nodes, _swap_rows(sub, vi))
+    return states
 
 
 def mixed_multi_step_twin(states: torch.Tensor, v: torch.Tensor, groups: list[MixedGroup], t: float,

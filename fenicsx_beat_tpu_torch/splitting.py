@@ -6,7 +6,8 @@
   :data:`~.ops.cuda_ode.IONIC_MODELS` steps the states (B1 for one
   parameter vector, B1's per-node form for a node-aligned ``[NP, n]``
   field, B7 for marker layers: one launch per model, in its block-list
-  form where the markers mix models), or its twin.
+  form where the markers mix models, and B1's per-node form on the nodes
+  of each marker that takes a field), or its twin.
 
 The stimulus loads and the diffusion step are :mod:`.theta_system`'s.
 """
@@ -40,10 +41,10 @@ def check_ionic_scope(ode_fun, ode_markers, init_states, parameters,
         for name, value in (("init_states", init_states), ("parameters", parameters), ("v_index", v_index)):
             if not isinstance(value, dict):
                 raise ValueError(f"a dict ode_fun takes {name} as a dict keyed by marker")
-        if any(q is None or np.ndim(q) != 1 for q in parameters.values()):
+        if any(q is None or np.ndim(q) not in (1, 2) for q in parameters.values()):
             raise NotImplementedError(
-                f"each marker's {models.name} model needs its parameter vector (B7's table); "
-                "per-marker parameter fields are not ported yet"
+                f"each marker's {models.name} model needs its parameter vector (B7's table) or a "
+                "node-aligned parameter field (B1's per-node form)"
             )
         return models
     ionic = cuda_ode.ionic_model(ode_fun)
@@ -60,14 +61,17 @@ class IonicLayer:
     voltage row, and ``step(states, v, t, dt)``, which injects ``v`` and
     steps ``states`` in place through one kernel of the model's entry (or
     its twin).  For marker layers ``groups`` holds B7's launches, one
-    :class:`~.ops.cuda_ode.MixedGroup` per model (its per-node index and
-    parameter table on the device); marker layers keep their states in
+    :class:`~.ops.cuda_ode.MixedGroup` per model over the markers that take
+    a parameter vector (its per-node index and parameter table on the
+    device), and ``fields`` one :class:`~.ops.cuda_ode.FieldGroup` per
+    marker that takes a field; marker layers keep their states in
     ``make_multi_ode``'s storage layout, V in row 0."""
 
     init_states: np.ndarray  # (S,) or (S, n)
     v_index: int
     step: Callable[[torch.Tensor, torch.Tensor, float, float], torch.Tensor]
     groups: list[cuda_ode.MixedGroup] | None = None
+    fields: list[cuda_ode.FieldGroup] | None = None
 
 
 def ionic_layer(ionic: cuda_ode.IonicModel | MarkerModels, ode_fun, ode_markers, init_states, parameters,
@@ -78,7 +82,9 @@ def ionic_layer(ionic: cuda_ode.IonicModel | MarkerModels, ode_fun, ode_markers,
     contract, ``fenicsx_beat_tpu/fused.py:104-136``), whose masks become B7's
     per-node model index (one model) or B7's mixed form's groups
     (:func:`~.ops.cuda_ode.mixed_groups`); 2-D ``parameters`` take B1's
-    per-node form."""
+    per-node form, and so does a marker whose parameters are a field
+    (:func:`~.ops.cuda_ode.field_step` on its nodes, after B7's launches;
+    its nodes are in no B7 group, so B7 only injects V there)."""
     k = use_kernels
     if isinstance(ode_fun, dict):
         markers = ode_markers.x.array if hasattr(ode_markers, "x") else ode_markers
@@ -86,10 +92,28 @@ def ionic_layer(ionic: cuda_ode.IonicModel | MarkerModels, ode_fun, ode_markers,
         if markers.shape[0] != n:
             raise ValueError(f"ode_markers has {markers.shape[0]} entries, expected {n}")
         multi_fun, init, masks, vi = make_multi_ode(markers, ode_fun, init_states, parameters, v_index)
-        groups = cuda_ode.mixed_groups(masks, [cuda_ode.ionic_model(f) for f in multi_fun.multi["funs"]],
-                                       multi_fun.multi["params"], device, dtype)
-        step = cuda_ode.mixed_multi_step if k else cuda_ode.mixed_multi_step_twin
-        return IonicLayer(init, vi, lambda states, v, t, dt: step(states, v, groups, t, dt), groups=groups)
+        models = [cuda_ode.ionic_model(f) for f in multi_fun.multi["funs"]]
+        params = multi_fun.multi["params"]
+        by_field = [i for i, q in enumerate(params) if np.ndim(q) == 2]
+        by_table = [i for i in range(len(params)) if i not in by_field]
+        fields = [cuda_ode.field_group(masks[i], models[i], params[i], device, dtype) for i in by_field]
+        groups = cuda_ode.mixed_groups(masks[by_table], [models[i] for i in by_table],
+                                       [params[i] for i in by_table], device, dtype) if by_table else []
+        free = None
+        if not groups and not masks.any(axis=0).all():  # no B7 launch injects V at the nodes of no marker
+            free = torch.as_tensor(np.flatnonzero(~masks.any(axis=0)), device=device)
+        multi = cuda_ode.mixed_multi_step if k else cuda_ode.mixed_multi_step_twin
+
+        def step(states, v, t, dt):
+            if groups:
+                multi(states, v, groups, t, dt)
+            elif free is not None:
+                states[0].index_copy_(0, free, v.index_select(0, free))
+            for g in fields:
+                cuda_ode.field_step(states, v, g, t, dt, k)
+            return states
+
+        return IonicLayer(init, vi, step, groups=groups, fields=fields)
     params = np.asarray(parameters, dtype=np.float64)
     if params.ndim == 2:
         if params.shape != (ionic.num_params, n):

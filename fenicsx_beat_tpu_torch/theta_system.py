@@ -175,19 +175,15 @@ class ThetaSystem:
         return x, k, rr, converged
 
 
-def stimulus_loads(V, I_s, mesh: Mesh, degree: int, device: torch.device, dtype: torch.dtype,
-                   general: bool = False):
+def stimulus_loads(V, I_s, mesh: Mesh, degree: int, device: torch.device, dtype: torch.dtype):
     """The stimuli of ``I_s`` on ``V``: ``(stim_quads, terms, b_units)``
     (:func:`~.stimulation.stimulus_quadratures` with quadrature of
     ``degree`` on cell or exterior-facet measures, then
     :func:`~.stimulation.separable_stimulus_terms`), each TimeWindow load
     assembled once on the host and stacked on the device as ``b_units``
-    [n_loads, n] (None without one).  General expressions are evaluated
-    each step; with ``general=False`` (the fused and bidomain solvers) they
-    raise ``NotImplementedError``."""
+    [n_loads, n] (None without one).  General expressions are assembled
+    each step at the time the solver gives (:func:`add_stimulus_loads`)."""
     stim_quads = stimulus_quadratures(V, _transform_I_s(I_s, dZ=dx_measure(mesh)), degree=degree)
-    if not general and any(stim is None for _, _, stim in stim_quads):
-        raise NotImplementedError("only TimeWindow stimuli are ported (general expressions are not)")
     terms, b_units = separable_stimulus_terms(stim_quads)
     b = torch.as_tensor(np.stack(b_units), device=device).to(dtype) if b_units else None
     return stim_quads, terms, b

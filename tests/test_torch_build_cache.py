@@ -9,7 +9,8 @@ The build flags of each source (``_build._nvcc_flags``): every ionic
 source rounds without contraction (``-fmad=false``); TP06's, ToR-ORd's
 and ToR-ORd dynCl + Land's divide approximately (``-prec-div=false``),
 FitzHugh-Nagumo's and the generated models' templates do not, nor does
-any other kernel.  And ``benchmarks/b1_designs.py``'s count of a
+any other kernel; the forward-Euler sources take their GRL sources' flags.
+The report keeps each source's nvcc seconds (``_build.source_seconds``).  And ``benchmarks/b1_designs.py``'s count of a
 ``cuobjdump -sass`` listing and the sources of its designs (those not
 kept from ``benchmarks/b1_designs/``), and the flags of
 ``benchmarks/lv_division.py``'s builds."""
@@ -52,6 +53,11 @@ def _load(tmp_path):
     return out, _build._built(out, lambda work: _build._compile([src], out, work, []))
 
 
+def untimed(log: str) -> str:
+    """A build report without its ``== source (seconds)`` lines."""
+    return "\n".join(line for line in log.splitlines() if not line.startswith("== "))
+
+
 def test_report_read_back_on_a_cache_hit(tmp_path, fake_nvcc):
     out, (_, log) = _load(tmp_path)
     assert out.is_file() and out.with_suffix(".log").read_text() == log
@@ -61,6 +67,8 @@ def test_report_read_back_on_a_cache_hit(tmp_path, fake_nvcc):
     assert again_seconds == 0.0 and again == log
     assert fake_nvcc.read_text().count("x") == compiles  # nothing built again
     assert _build.ptxas_resources(again) == {"_Z6kernelPf": (42, 0, 0)}
+    (name, (wall, cpu)), = _build.source_seconds(again).items()
+    assert name == "kernel.cu" and wall >= 0.0 and cpu >= 0.0
 
 
 def test_library_without_its_report_is_built_again(tmp_path, fake_nvcc):
@@ -69,10 +77,13 @@ def test_library_without_its_report_is_built_again(tmp_path, fake_nvcc):
     compiles = fake_nvcc.read_text().count("x")
     _, again = _load(tmp_path)[1]
     assert fake_nvcc.read_text().count("x") == 2 * compiles
-    assert again == log and out.with_suffix(".log").is_file()
+    # the same report, but for the seconds each build took
+    assert untimed(again) == untimed(log) and out.with_suffix(".log").is_file()
 
 
-APPROX_DIV = ("tp06_grl", "torord_grl", "torord_land_grl")
+# the forward-Euler sources (``*_fe*.cu``: each a GRL source with its node
+# body's scheme switch on) take the GRL sources' flags
+APPROX_DIV = ("tp06_grl", "torord_grl", "torord_land_grl", "tp06_fe", "torord_fe", "torord_land_fe")
 IEEE_DIV = ("fhn_", "ode_")
 
 

@@ -6,8 +6,8 @@ All states agree within atol 1e-8 (CG tolerance rtol 1e-8 on both sides;
 the port's symmetric SpMV sums in another order) and activation times are
 equal.  Also: a JAX checkpoint continued by the port, the port's
 checkpoint read by JAX, a run with node-aligned (2-D) parameters, the
-device policy, the unported options, and the import boundary (the port
-never loads jax or the JAX package).
+device policy, the options that stay unported, and the import boundary (the
+port never loads jax or the JAX package).
 """
 
 import dataclasses
@@ -155,20 +155,27 @@ def test_default_device_is_the_card():
         tnied.run_niederer_benchmark(dx=DX, T=1.0)
 
 
+def unported_step(states, t, parameters, dt):
+    """An ionic step the port has no kernel for."""
+    return states
+
+
+# merged Strang, any theta, forward Euler and a marker's parameter field run
+# since they were ported (tests/test_torch_fused_scope.py,
+# tests/test_torch_ionic_fe.py); a model with no kernels still raises, alone
+# or in a marker layer, and so does a model given no parameters
 @pytest.mark.parametrize(
     "kw",
     [
-        {"merge_strang_halves": True},
-        {"ode_fun": ttp.forward_euler},
-        {"theta": 0.7},
-        {"ode_fun": {0: ttp.forward_euler}, "ode_markers": np.zeros(672, dtype=int)},
-        # markers that mix models run (tests/test_torch_mixed_ode.py); a
-        # marker's parameter field does not
-        {"ode_fun": {0: ttp.generalized_rush_larsen, 1: ttor.generalized_rush_larsen},
+        {"ode_fun": unported_step},
+        {"ode_fun": ttp.rhs},
+        {"ode_fun": {0: unported_step}, "ode_markers": np.zeros(672, dtype=int)},
+        {"ode_fun": {0: ttp.generalized_rush_larsen, 1: unported_step},
          "ode_markers": np.arange(672) % 2,
          "init_states": {0: ttp.init_state_values(), 1: ttor.init_state_values()},
          "parameters": {0: np.tile(ttp.init_parameter_values()[:, None], (1, 672)), 1: ttor.init_parameter_values()},
          "v_index": {0: 0, 1: 0}},
+        {"parameters": None},
     ],
 )
 def test_unported_options_raise(kw):

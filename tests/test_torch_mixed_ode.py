@@ -129,10 +129,16 @@ def test_scope_names_every_model_and_keeps_refusals():
     one = check_ionic_scope({0: ttp.generalized_rush_larsen, 1: ttp.generalized_rush_larsen}, np.ones(4),
                             {0: init[1], 1: init[1]}, {0: params[1], 1: params[1]}, {0: 0, 1: 0})
     assert one.groups == ((cuda_ode.ionic_model(ttp.generalized_rush_larsen), (0, 1)),) and one.name == "tp06"
-    with pytest.raises(NotImplementedError, match="per-marker parameter fields"):
-        check_ionic_scope(funs, np.ones(4), init, {1: params[1], 3: np.tile(params[3][:, None], (1, 4))}, v_idx)
+    # a marker's parameter field and forward Euler are in the scope since
+    # they were ported (tests/test_torch_fused_scope.py, test_torch_ionic_fe.py)
+    field = check_ionic_scope(funs, np.ones(4), init, {1: params[1], 3: np.tile(params[3][:, None], (1, 4))}, v_idx)
+    assert field.name == "tp06+torord_dyncl_land"
+    fe = check_multi_models({1: ttp.forward_euler, 3: tland.generalized_rush_larsen})
+    assert fe.name == "tp06_fe+torord_dyncl_land"
+    with pytest.raises(NotImplementedError, match="parameter vector"):
+        check_ionic_scope(funs, np.ones(4), init, {1: params[1], 3: None}, v_idx)
     with pytest.raises(NotImplementedError):
-        check_multi_models({1: ttp.forward_euler, 3: tland.generalized_rush_larsen})
+        check_multi_models({1: ttp.rhs, 3: tland.generalized_rush_larsen})
 
 
 def test_groups_overlap_no_marker_and_blocks():

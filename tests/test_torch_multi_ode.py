@@ -135,12 +135,16 @@ def test_twin_accepts_its_own_voltage_row():
 
 
 def test_non_tp06_models_raise():
+    """A step with no kernels raises; TP06's forward Euler has its kernels."""
     markers = np.zeros(10, dtype=np.int64)
     with pytest.raises(NotImplementedError, match="A4"):
         tode.make_multi_ode(
-            markers, {0: ttp.forward_euler}, {0: ttp.init_state_values()},
+            markers, {0: ttp.rhs}, {0: ttp.init_state_values()},
             {0: ttp.init_parameter_values()}, {0: 0},
         )
+    fun, *_ = tode.make_multi_ode(markers, {0: ttp.forward_euler}, {0: ttp.init_state_values()},
+                                  {0: ttp.init_parameter_values()}, {0: 0})
+    assert fun.multi["funs"] == [ttp.forward_euler]
 
 
 @pytest.mark.cuda

@@ -340,11 +340,13 @@ def test_registration_and_refusals():
     assert other is not tm and _spec(other, SCHEMES[0]).name == "fhn_copy_grl"
     assert len(cuda_ode.IONIC_MODELS) == n_models + 2
     assert _build.model_symbol(load("coverage")[0].cuda_source) != _build.model_symbol(tm.cuda_source)
-    # the hand-written TP06's forward Euler still raises; a GRL/FE pair of
-    # one generated model is two models to B7: they compose, and the mixed
-    # layer's twin step equals make_multi_ode's composed step
+    # a step with no kernels raises (the hand-written TP06's forward Euler
+    # has its kernels); a GRL/FE pair of one generated model is two models
+    # to B7: they compose, and the mixed layer's twin step equals
+    # make_multi_ode's composed step
     with pytest.raises(NotImplementedError, match="A4"):
-        cuda_ode.ionic_model(ttp.forward_euler)
+        cuda_ode.ionic_model(ttp.rhs)
+    assert cuda_ode.ionic_model(ttp.forward_euler).name == "tp06_fe"
     pair = {0: tm.generalized_rush_larsen, 1: tm.forward_euler}
     assert [(spec is grl, m) for spec, m in check_multi_models(pair).groups] == [(True, (0,)), (False, (1,))]
     assert check_multi_models(pair).groups[1][0] is fe

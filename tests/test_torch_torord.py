@@ -233,7 +233,7 @@ def test_get_steady_state_matches_jax(tmp_path, tracked):
 
 def test_single_cell_refuses_an_unported_model(tmp_path):
     with pytest.raises(NotImplementedError, match="A8"):
-        tsc.get_steady_state(fun=ttor.forward_euler, init_states=ttor.init_state_values(),
+        tsc.get_steady_state(fun=ttor.rhs, init_states=ttor.init_state_values(),
                              parameters=ttor.init_parameter_values(), outdir=tmp_path, nbeats=1, BCL=1,
                              device="cpu")
 
