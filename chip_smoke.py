@@ -301,10 +301,26 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    start; at the end the seconds the cache saved are printed against phase
    21's and nvcc's for the forward-Euler sources.
 
+22. (run last) the command line, ``python -m fenicsx_beat_tpu_torch`` in
+   processes of its own: the psize 0.1 LV (243,518 nodes, 1,323,510
+   tets) written as a binary Gmsh 4.1 file with its endocardial cells (a
+   vertex on the ENDO facets) tagged, read back by ``io.read_msh`` to the
+   same coordinates, cells and tags; ``run --mesh`` on it (TP06, dt 0.05,
+   10 ms, a snapshot every ms, the stimulus on that tag: B1 and B8) with
+   every activation time and snapshot equal bit for bit to the same solver
+   built here from the arrays read (``cli.build_mesh_solver``), every state
+   finite and every endocardial node fired; ``ecg`` on its checkpoint (10
+   frames, B8, finite traces, seconds a frame) and ``post`` (its count of
+   activated nodes that of ``run``); ``run`` on the slab at the command
+   line's default dx=0.5 equal to ``run_niederer_benchmark``; one VTU
+   frame of the LV through ``io.VTUWriter`` read back to the same values;
+   the seconds of each part.
+
 ``python3 chip_smoke.py --phase 20`` runs phase 20 alone (after the build
 and phase 7's pacing) and prints no result line: a shorter run for work on
 that phase, not the smoke run; ``--phase 21`` runs phase 21 alone (after
-the build, phase 6's main path and Path M's setup), the same way.
+the build, phase 6's main path and Path M's setup), the same way;
+``--phase 22`` runs phase 22 alone (after the build).
 
 After the build, three host processes of the run's own run beside it,
 each on one or two of the host's cores at a lower priority with the card
@@ -4533,6 +4549,220 @@ def phase_amg_biv(steady: dict, ref_proc) -> None:
     end = time.perf_counter()
     print(f"[biv] phase 20 took {end - tic:.1f} s: (a) and (b) {mid - tic:.1f} s, (c) {end - mid:.1f} s")
 
+# Phase 22, the command line: ``python -m fenicsx_beat_tpu_torch`` in
+# processes of its own on the psize 0.1 LV written as a binary Gmsh 4.1 file
+# with its endocardial cells tagged, and on the Niederer slab at the command
+# line's default dx=0.5
+CLI_T, CLI_SAVE_FREQ = 10.0, 20  # run --mesh: 10 ms at dt 0.05, a snapshot every ms (10 ECG frames)
+CLI_ENDO_TAG, CLI_WALL_TAG = 1, 2  # cells with a vertex on the ENDO facets, and the rest
+# run --mesh's stimulus on the endocardial cells: 100 times the command
+# line's default, since its solver keeps the JAX package's C_m of 1 uF/mm^2
+# (the demos' value, 100 times the Niederer slab's), so the stimulated
+# shell of one element depolarizes past threshold within the 2 ms window
+CLI_AMPLITUDE = 5_000_000.0
+
+
+def write_msh41_binary(path, coords, cells, cell_tags) -> Path:
+    """A tetrahedral mesh as a binary Gmsh 4.1 file (little-endian, size_t
+    of 8 bytes, the published layout ``io.read_msh`` parses): one volume
+    entity per tag value, whose physical tag is that value; the nodes in
+    one block in their order (tags 1..n); the cells in a block for each run
+    of equal tags, in their order, so the file reads back to the arrays
+    written.  A helper of this script and of the tests: the package reads
+    Gmsh files and writes none, as the JAX package."""
+    import numpy as np
+
+    coords = np.ascontiguousarray(coords, dtype="<f8")
+    cells, tags = np.asarray(cells, dtype=np.int64), np.asarray(cell_tags, dtype=np.int64)
+    n, nc = coords.shape[0], cells.shape[0]
+    vals = sorted(int(v) for v in np.unique(tags))
+    ent = {v: k + 1 for k, v in enumerate(vals)}
+
+    def sz(*v):
+        return np.asarray(v, dtype="<u8").tobytes()
+
+    def i4(*v):
+        return np.asarray(v, dtype="<i4").tobytes()
+
+    bbox = np.r_[coords.min(axis=0), coords.max(axis=0)].astype("<f8").tobytes()
+    out = [b"$MeshFormat\n4.1 1 8\n", i4(1), b"\n$EndMeshFormat\n$Entities\n", sz(0, 0, 0, len(vals))]
+    for v in vals:  # tag, bounding box, one physical tag, no bounding surfaces
+        out += [i4(ent[v]), bbox, sz(1), i4(v), sz(0)]
+    out += [b"\n$EndEntities\n$Nodes\n", sz(1, n, 1, n), i4(3, 1, 0), sz(n),
+            np.arange(1, n + 1, dtype="<u8").tobytes(), coords.tobytes(), b"\n$EndNodes\n$Elements\n"]
+    starts = np.flatnonzero(np.r_[True, tags[1:] != tags[:-1]])
+    ends = np.r_[starts[1:], nc]
+    out.append(sz(len(starts), nc, 1, nc))
+    for a, b in zip(starts, ends):
+        rec = np.empty((b - a, 5), dtype="<u8")
+        rec[:, 0] = np.arange(a + 1, b + 1)
+        rec[:, 1:] = cells[a:b] + 1
+        out += [i4(3, ent[int(tags[a])], 4), sz(b - a), rec.tobytes()]
+    out.append(b"\n$EndElements\n")
+    path = Path(path)
+    path.write_bytes(b"".join(out))
+    return path
+
+
+def cli_start(*args) -> subprocess.Popen:
+    """``python -m fenicsx_beat_tpu_torch *args`` from the checkout's root."""
+    return subprocess.Popen([sys.executable, "-m", "fenicsx_beat_tpu_torch", *map(str, args)], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_wait(proc: subprocess.Popen, timeout: float = 600) -> tuple[str, dict, float]:
+    """(stdout, kernel launches, wall seconds) of a command-line process;
+    raises with its output when it fails."""
+    tic = time.perf_counter()
+    out, err = proc.communicate(timeout=timeout)
+    wall = time.perf_counter() - tic
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(proc.args[1:])} exited {proc.returncode}:\n{out}\n{err[-4000:]}")
+    launches = {}
+    for line in out.splitlines():
+        if line.startswith("kernel launches: "):
+            launches = json.loads(line[len("kernel launches: "):])
+    return out, launches, wall
+
+
+def cli_line(out: str, head: str) -> str:
+    """The first line of ``out`` that starts with ``head``."""
+    return next(line for line in out.splitlines() if line.startswith(head))
+
+
+def vtu_array(path: Path, name: str, dtype) -> "np.ndarray":
+    """A binary DataArray of a VTU file, decoded (its 4-byte size, then the data)."""
+    import base64
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    for el in ET.parse(path).getroot().iter("DataArray"):
+        if el.get("Name") == name:
+            raw = base64.b64decode(el.text)
+            require(int(np.frombuffer(raw[:4], "<u4")[0]) == len(raw) - 4, f"{name}'s size header")
+            return np.frombuffer(raw[4:], dtype)
+    raise KeyError(name)
+
+
+def phase_cli() -> None:
+    """Phase 22: the command line through its real entry point.  The psize
+    0.1 LV as a binary Gmsh 4.1 file (its cells with a vertex on the ENDO
+    facets tagged 1, the rest 2), read back exactly; ``run --mesh`` (TP06,
+    B1 and B8) against the same solver built here from the arrays read,
+    bit for bit; ``ecg`` (B8) and ``post`` on its checkpoint; ``run`` on the
+    slab at dx=0.5 against ``run_niederer_benchmark``; one VTU frame of the
+    LV read back."""
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch import io as tio
+    from fenicsx_beat_tpu_torch.benchmarks.niederer import run_niederer_benchmark
+    from fenicsx_beat_tpu_torch.cli import build_mesh_solver
+    from fenicsx_beat_tpu_torch.geometry import get_lv_ellipsoid_geometry
+    from fenicsx_beat_tpu_torch.models import tentusscher_panfilov_2006 as tp06
+
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    lap = Laps("[cli time]")
+    slab_proc = cli_start("run", "--outdir", work / "slab", "--device", DEVICE)  # the defaults: dx 0.5, dt 0.05, 20 ms, TP06
+    geo = get_lv_ellipsoid_geometry(psize_ref=LV_PSIZE, cache=False)
+    mesh = geo.mesh
+    endo_verts = np.unique(mesh.entities(2)[geo.ffun.find(geo.markers["ENDO"][0])])
+    tags = np.where(np.isin(mesh.cells, endo_verts).any(axis=1), CLI_ENDO_TAG, CLI_WALL_TAG)
+    lap("LV geometry")
+    tic = time.perf_counter()
+    msh = write_msh41_binary(work / "lv.msh", mesh.coords, mesh.cells, tags)
+    write_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    m2, ct, ft = tio.read_msh(msh)
+    read_s = time.perf_counter() - tic
+    require(np.array_equal(m2.coords, mesh.coords) and np.array_equal(m2.cells, mesh.cells), "read_msh's arrays")
+    require(ct is not None and np.array_equal(ct.indices, np.arange(mesh.num_cells))
+            and np.array_equal(ct.values, tags) and ft is None, "read_msh's cell tags")
+    print(f"[cli] psize {LV_PSIZE} LV: {mesh.num_vertices} nodes, {mesh.num_cells} tets, {int((tags == 1).sum())} "
+          f"tagged {CLI_ENDO_TAG} (endocardial): binary Gmsh 4.1 {msh.stat().st_size / 2**20:.1f} MiB written in "
+          f"{write_s:.2f} s, read back equal in {read_s:.2f} s ({card()})")
+    lap("msh write and read")
+
+    run_dir = work / "run"
+    out, run_launches, run_wall = cli_wait(cli_start("run", "--mesh", msh, "-T", CLI_T, "--dt", DT, "--save-freq",
+                                                     CLI_SAVE_FREQ, "--stim-marker", CLI_ENDO_TAG,
+                                                     "--stim-amplitude", CLI_AMPLITUDE, "--outdir", run_dir,
+                                                     "--device", DEVICE))
+    n_act = int(cli_line(out, "nodes activated: ").split()[2].split("/")[0])
+    print(f"[cli] run --mesh: {cli_line(out, 'nodes activated')}; {cli_line(out, 'seconds')}; the process "
+          f"{run_wall:.1f} s; launches {json.dumps(run_launches)}")
+    for name in ("tp06_grl_step_v", "csr_spmv"):
+        require(run_launches.get(name, 0) > 0, f"{name} launched by run --mesh")
+    lap("run --mesh")
+    # the same solver here, from the arrays read_msh gave
+    tic = time.perf_counter()
+    solver = build_mesh_solver(m2, ct, tp06, stim_marker=CLI_ENDO_TAG, stim_amplitude=CLI_AMPLITUDE, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+    n = solver.V.ndofs
+    snaps = []
+    tic = time.perf_counter()
+    solver.solve((0.0, CLI_T), dt=DT, save_freq=CLI_SAVE_FREQ,
+                 save_callback=lambda t, v: snaps.append(np.asarray(v[:n], dtype=np.float32)))
+    run_s = time.perf_counter() - tic
+    act = solver.activation_times()[:n]
+    data = tio.load_checkpoint(run_dir / "voltage")
+    require(np.array_equal(np.load(run_dir / "activation_times.npy"), act),
+            "run --mesh's activation times equal the in-process solver's bit for bit")
+    require(np.array_equal(data.values, np.stack(snaps)), "run --mesh's snapshots equal the in-process solver's")
+    require(bool(torch.isfinite(solver.states).all()), "every state of the LV run finite")
+    require(bool((act[endo_verts] >= 0).all()), "every endocardial node fired")
+    require(int((act >= 0).sum()) == n_act, "run --mesh's count of activated nodes")
+    print(f"[cli] in-process: setup {setup_s:.2f} s, {CLI_T:g} ms in {run_s:.2f} s ({CLI_T / run_s:.2f} ms/s); "
+          f"activation times and {len(snaps)} snapshots equal bit for bit; {n_act} of {n} nodes fired "
+          f"(all {endo_verts.size} endocardial), range [{act[act >= 0].min():.2f}, {act.max():.2f}] ms")
+    del solver
+    torch.cuda.empty_cache()
+    lap("in-process LV")
+
+    ckpt = run_dir / "voltage.npz"
+    post_proc = cli_start("post", ckpt)
+    out, ecg_launches, ecg_wall = cli_wait(cli_start("ecg", ckpt, "--device", DEVICE))
+    ecg = cli_line(out, "ecg: ")
+    traces = np.load(run_dir / "voltage_ecg.npz")["traces"]
+    require(traces.shape == (len(data.times), 1) and bool(np.isfinite(traces).all()), "finite ECG traces")
+    require(" kernel B8 " in ecg and ecg_launches.get("csr_spmv", 0) > 0, "the ECG on B8")
+    print(f"[cli] ecg: {ecg}; {len(data.times)} frames, traces [{traces.min():.4e}, {traces.max():.4e}]; the "
+          f"process {ecg_wall:.1f} s; launches {json.dumps(ecg_launches)}")
+    out, _, _ = cli_wait(post_proc)
+    post_n = int(cli_line(out, "activated nodes: ").split()[2].split("/")[0])
+    require(post_n == n_act, f"post counts {post_n} activated nodes, run --mesh {n_act}")
+    print(f"[cli] post: {cli_line(out, 'activated nodes')}")
+    lap("ecg and post")
+
+    tic = time.perf_counter()
+    vtu = tio.VTUWriter(work / "vtu", m2)
+    vtu.write(float(data.times[-1]), data.values[-1])
+    vtu.close()
+    vtu_s = time.perf_counter() - tic
+    frame = work / "vtu" / "frame_000000.vtu"
+    require(np.array_equal(vtu_array(frame, "v", "<f4"), data.values[-1]), "the VTU frame's v read back")
+    require(np.array_equal(vtu_array(frame, "connectivity", "<i4"), m2.cells.ravel()), "the VTU frame's cells")
+    print(f"[cli] VTU frame of the LV: {frame.stat().st_size / 2**20:.1f} MiB in {vtu_s:.2f} s, read back equal")
+    lap("VTU")
+
+    out, slab_launches, _ = cli_wait(slab_proc)
+    got = json.loads((work / "slab" / "activation_times.json").read_text())[-1]
+    res = run_niederer_benchmark(dx=0.5, dt=DT, T=20.0, model=tp06, device=DEVICE)
+    require(all(got[k] == v for k, v in res.activation_times.items()),
+            "run on the slab equals run_niederer_benchmark")
+    require_structured_pcg(slab_launches, "run on the slab")
+    print(f"[cli] run (slab dx=0.5): {' '.join(out.split())[:200]}; P1-P9 equal to run_niederer_benchmark's; "
+          f"launches {json.dumps(slab_launches)}")
+    lap("run on the slab")
+    print(f"[cli] phase 22 by part (s): msh write {write_s:.2f}, read {read_s:.2f}; "
+          + "; ".join(f"{k} {v:.1f}" for k, v in lap.laps) + f" ({card()})")
+
+
 def prefetch() -> int:
     """``--prefetch``: the cold assemblies of the two largest pairs no
     earlier phase holds, the dx=0.05 ECG slab's (phase 8, 3,449,001 nodes,
@@ -4631,6 +4861,10 @@ def main() -> int:
         ref_proc = bidomain_reference()
         phase_amg_biv(phase_steady_states()[0], ref_proc)
         print(f"[done] {time.perf_counter() - tic:.1f} s (phase 20 alone)")
+        return 0
+    if sys.argv[1:] == ["--phase", "22"]:  # phase 22 alone (the command line), no result line
+        phase_cli()
+        print(f"[done] {time.perf_counter() - tic:.1f} s (phase 22 alone)")
         return 0
     if sys.argv[1:] == ["--phase", "21"]:  # phase 21 alone (with the main path and Path M's setup), no result line
         _, main = phase_main_path()
@@ -4761,6 +4995,9 @@ def main() -> int:
     # block) and the BiV demo at full width, through B8 and ToR-ORd's B1
     phase_amg_biv(steady, bidomain_ref_proc)
     lap("20 AMG, BiV")
+    # phase 22: the command line (run --mesh on the LV from a Gmsh file, ecg, post, run on the slab, a VTU frame)
+    phase_cli()
+    lap("22 command line")
 
     cache_summary(ledger, phase21_s)
     lap.summary()

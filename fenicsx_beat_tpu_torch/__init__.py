@@ -35,6 +35,7 @@ on the card unless the caller names the CPU.  Importing the package builds
 nothing: the kernels build at their first launch.
 """
 
+
 from . import (
     base_model,
     conductivities,
@@ -55,6 +56,8 @@ from .monodomain_model import MonodomainModel
 from .monodomain_solver import MonodomainSplittingSolver
 from .stimulation import Stimulus
 from .telemetry import BaseMonitor, NullMonitor, PerformanceMonitor
+
+__version__ = "0.1.0"  # the distribution's (pyproject.toml), both packages'
 
 __all__ = [
     "monodomain_model",

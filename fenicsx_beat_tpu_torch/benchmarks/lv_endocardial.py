@@ -12,8 +12,9 @@ conductivities along the fibres, then ``MonodomainModel`` +
 ``DolfinMultiODESolver`` (one ToR-ORd B1 launch per layer a step) +
 ``MonodomainSplittingSolver`` (the demo's Godunov splitting), printing
 the voltage range every 2 ms, and the pseudo-ECG potential at the
-electrode (2, 7, 0) through ``ECGRecovery``.  The demo's ``VTUWriter``
-output waits for the port of ``io.py`` (ROADMAP A14) and is not written.
+electrode (2, 7, 0) through ``ECGRecovery``; every 2 ms the voltage and
+the layers go to a ParaView frame through ``io.VTUWriter`` (``--outdir``,
+``viz/series.pvd``), as the demo writes them.
 
 Besides the demo's output, the run stamps activation times on the host
 from the voltage each step writes there (the fused solver's rule: the
@@ -32,6 +33,7 @@ import json
 import sys
 import time as _time
 from dataclasses import asdict, dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +42,7 @@ from .. import fem
 from ..conductivities import default_conductivities, define_conductivity_tensor
 from ..ecg import ECGRecovery
 from ..geometry import get_lv_ellipsoid_geometry
+from ..io import VTUWriter
 from ..models import torord_dyncl
 from ..monodomain_model import MonodomainModel
 from ..monodomain_solver import MonodomainSplittingSolver
@@ -110,10 +113,11 @@ class OOLVRun:
 
 
 def run_oo_lv(solver: MonodomainSplittingSolver, T: float, dt: float, probe_points: dict | None = None,
-              verbose: bool = True) -> OOLVRun:
+              verbose: bool = True, writer: VTUWriter | None = None, layers: np.ndarray | None = None) -> OOLVRun:
     """Step ``solver`` from 0 to ``T`` as the demo does (``solver.step``
-    by ``dt``, the voltage range printed every 2 ms), stamping activation
-    times from the host voltage after each step (above
+    by ``dt``, the voltage range printed every 2 ms and, with a
+    ``writer``, written with the ``layers`` as a VTU frame), stamping
+    activation times from the host voltage after each step (above
     :data:`~.niederer.ACTIVATION_THRESHOLD`); the timed loop ends with a
     device synchronize."""
     pde = solver.pde
@@ -136,6 +140,8 @@ def run_oo_lv(solver: MonodomainSplittingSolver, T: float, dt: float, probe_poin
             rows.append((step * dt, float(v.min()), float(v.max())))
             if verbose:
                 print(f"t={step * dt:6.1f}  v_range=[{v.min():8.2f}, {v.max():8.2f}]")
+            if writer is not None:
+                writer.write(step * dt, {"v": v, "layer": layers})
     if pde.device.type == "cuda":
         torch.cuda.synchronize(pde.device)
     wall = _time.perf_counter() - tic
@@ -168,6 +174,7 @@ def main(argv=None) -> int:
     ap.add_argument("--amplitude", type=float, default=None,
                     help="stimulus amplitude uA/cm^2 (default: 2000 at psize <= 0.15, scaled up with psize)")
     ap.add_argument("--device", default=None, help="cpu to run on the CPU (default: the card)")
+    ap.add_argument("-o", "--outdir", type=Path, default=Path("results-lv-endocardial"))
     args = ap.parse_args(argv)
 
     tic = _time.perf_counter()
@@ -185,7 +192,9 @@ def main(argv=None) -> int:
     M = define_conductivity_tensor(f0=geo.f0, **default_conductivities("Niederer"))
     solver = build_oo_lv(mesh, layers, M, I_s, steady, device=args.device)
     setup_s = _time.perf_counter() - tic
-    res = run_oo_lv(solver, args.T, args.dt, lv_probe_points(args.psize))
+    writer = VTUWriter(args.outdir / "viz", mesh)
+    res = run_oo_lv(solver, args.T, args.dt, lv_probe_points(args.psize), writer=writer, layers=layers)
+    print(f"ParaView series: {writer.close()}")
     phi = electrode_potential(solver.pde, M)
     print(f"Electrode potential: {phi:.6e}")
     out = {k: v for k, v in asdict(res).items() if k != "activation"}

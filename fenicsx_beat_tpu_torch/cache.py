@@ -29,7 +29,7 @@ import numpy as np
 __all__ = ["SCHEMA", "cache_dir", "fingerprint", "load_arrays", "store_arrays"]
 
 # bump on any change to what cached products mean or contain
-SCHEMA = 1
+SCHEMA = 2
 
 
 def cache_dir(kind: str) -> Path:

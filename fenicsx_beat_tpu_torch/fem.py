@@ -27,11 +27,11 @@ times a matrix tabulated once, ``Me = |K| M_hat`` and ``Ke = |K| sum_ts
 (G M G^T)_ts S_hat_ts`` with ``G`` the cell's inverse Jacobian, which
 equals the JAX package's exact quadrature to rounding at a fraction of
 its host time.  The triplets pack into one CSR pattern without a global
-sort (:func:`_cell_blocks_to_csr`), and P1 keeps the closed form and the
-COO pipeline of the JAX package's numpy branch.  Where the JAX package
-calls its native C++ kit, the port takes the kit's numpy branch: the slot
-loop of ``assemble_mass_stiffness_stencil`` and the bounding-box-prefiltered
-barycentric sweep of ``_locate_cells``.
+sort (:func:`_cell_blocks_to_csr`), and P1 keeps the closed form.  Where
+the JAX package calls its native C++ kit, the port calls its own copy
+(:mod:`.native`): the P1 cell geometry, the stencil tables, the P1 ELL pair
+of a bounded width with a COO tail, and point location, each where tdim ==
+gdim; embedded meshes and the other spaces take the numpy paths here.
 
 The operator disk cache (the JAX package's ``fem.py:869-894, 1080-1165``):
 a ``cache_key`` opts an assembly into it (:mod:`.cache`, kind
@@ -43,7 +43,6 @@ returns the arrays of a fresh assembly bit for bit.
 
 from __future__ import annotations
 
-import functools
 import itertools
 import math
 from dataclasses import dataclass, field
@@ -52,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import cache
+from . import cache, native
 from .convert import stencil_from_numpy
 from .mesh import Mesh, _row_searchsorted
 from .ops.quadrature import simplex_rule
@@ -668,60 +667,6 @@ class CellGeometry:
     inv_edges: np.ndarray  # [nc, tdim, gdim] rows = grad of ref coord xi_i
 
 
-def _batched_det_inv(E: np.ndarray):
-    """Determinant and inverse of [nc, d, d] batches via cofactors (the
-    closed form is pure vectorized arithmetic; ``np.linalg`` would send
-    each tiny matrix through LAPACK)."""
-
-    def _check(det):
-        if np.any(det == 0):
-            raise np.linalg.LinAlgError(
-                "singular cell Jacobian: mesh contains degenerate "
-                "(zero-volume) cells"
-            )
-
-    d = E.shape[-1]
-    if d == 1:
-        det = E[:, 0, 0]
-        _check(det)
-        inv = (1.0 / det)[:, None, None]
-        return det, inv
-    if d == 2:
-        a, b = E[:, 0, 0], E[:, 0, 1]
-        c, dd = E[:, 1, 0], E[:, 1, 1]
-        det = a * dd - b * c
-        _check(det)
-        inv = np.empty_like(E)
-        r = 1.0 / det
-        inv[:, 0, 0] = dd * r
-        inv[:, 0, 1] = -b * r
-        inv[:, 1, 0] = -c * r
-        inv[:, 1, 1] = a * r
-        return det, inv
-    if d == 3:
-        a = E[:, 0, 0]; b = E[:, 0, 1]; c = E[:, 0, 2]  # noqa: E702
-        p = E[:, 1, 0]; q = E[:, 1, 1]; r = E[:, 1, 2]  # noqa: E702
-        u = E[:, 2, 0]; v = E[:, 2, 1]; w = E[:, 2, 2]  # noqa: E702
-        A = q * w - r * v
-        B = r * u - p * w
-        C = p * v - q * u
-        det = a * A + b * B + c * C
-        _check(det)
-        inv = np.empty_like(E)
-        s = 1.0 / det
-        inv[:, 0, 0] = A * s
-        inv[:, 1, 0] = B * s
-        inv[:, 2, 0] = C * s
-        inv[:, 0, 1] = (c * v - b * w) * s
-        inv[:, 1, 1] = (a * w - c * u) * s
-        inv[:, 2, 1] = (b * u - a * v) * s
-        inv[:, 0, 2] = (b * r - c * q) * s
-        inv[:, 1, 2] = (c * p - a * r) * s
-        inv[:, 2, 2] = (a * q - b * p) * s
-        return det, inv
-    return np.linalg.det(E), np.linalg.inv(E)
-
-
 def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
     """Per-cell affine geometry (edges, volume, basis gradients).  The
     full-mesh result is cached on the mesh; with ``cells`` only that subset
@@ -742,20 +687,20 @@ def cell_geometry(mesh: Mesh, cells: np.ndarray | None = None) -> CellGeometry:
         )
     tdim, gdim = mesh.tdim, mesh.gdim
     cell_verts = mesh.cells if cells is None else mesh.cells[np.asarray(cells)]
-    X = mesh.coords[cell_verts]  # [nc, tdim+1, gdim]
-    E = X[:, 1:, :] - X[:, :1, :]  # [nc, tdim, gdim]
     if tdim == gdim:
-        detJ, invE = _batched_det_inv(E)
-        vol = np.abs(detJ) / math.factorial(tdim)
-        # xi = (x - x0) @ invE, so grad xi_i = invE[:, i]
-        Gi = np.transpose(invE, (0, 2, 1))  # [nc, tdim(i), gdim]
+        # one pass over the cells in the kit (the JAX package's fem.py:739-752)
+        E, vol, grads = native.p1_geometry(mesh.coords, cell_verts, tdim)
+        Gi = grads[:, 1:, :]  # [nc, tdim(i), gdim]: grad xi_i
     else:
+        X = mesh.coords[cell_verts]  # [nc, tdim+1, gdim]
+        E = X[:, 1:, :] - X[:, :1, :]  # [nc, tdim, gdim]
         G = np.einsum("cik,cjk->cij", E, E)
-        detG, invG = _batched_det_inv(G)
+        detG, invG = native.det_inv(G)
+        if np.any(detG == 0):
+            raise native.degenerate()
         vol = np.sqrt(np.abs(detG)) / math.factorial(tdim)
         Gi = np.einsum("cij,cjk->cik", invG, E)
-    g0 = -Gi.sum(axis=1, keepdims=True)
-    grads = np.concatenate([g0, Gi], axis=1)  # [nc, tdim+1, gdim]
+        grads = np.concatenate([-Gi.sum(axis=1, keepdims=True), Gi], axis=1)  # [nc, tdim+1, gdim]
     geom = CellGeometry(edges=E, volume=vol, grads=grads, inv_edges=Gi)
     if cells is None:
         mesh._cell_geometry = geom
@@ -865,10 +810,11 @@ def assemble_mass_stiffness_stencil(
     the operator disk cache (``max_offsets`` keys the slot too, so a warm
     slot never hands back a wider stencil than the bound allows).
 
-    Each of the 16 element-matrix (i, j) slots scatters straight into the
-    ``[n, K]`` stencil table with ``np.bincount``: no COO sort and no
-    ``[nc, 4, 4]`` element tensor (the numpy branch of the JAX package's
-    ``fem.py:1042-1066``)."""
+    The tables are assembled in one pass over the cells in the kit
+    (:func:`.native.p1_stencil_tables_direct` where tdim == gdim in {2, 3},
+    else :func:`.native.p1_stencil_tables` on the cell geometry; the JAX
+    package's ``fem.py:1014-1040``): no COO sort and no ``[nc, 4, 4]``
+    element tensor."""
     if not _is_p1(V):
         return None
     slot = None
@@ -878,46 +824,21 @@ def assemble_mass_stiffness_stencil(
         if cached is not None:
             return cached
     mesh = V.mesh
-    nd = V.ndofs_per_cell
     n = V.ndofs
     d, g = mesh.tdim, mesh.gdim
     Mc = _broadcast_cell_tensor(M_cells, mesh.num_cells, g)
-    base = _p1_mass_base(d)
-    geom = cell_geometry(mesh)
-    vol = geom.volume
-    cd = V.cell_dofs.astype(np.int64)
-
-    # global offset set from per-pair unique diffs; the size check runs
-    # before any Python-set materialization so unstructured meshes decline
-    # after one vectorized unique
-    offsets: set[int] = set()
-    for i in range(nd):
-        for j in range(nd):
-            u = np.unique(cd[:, j] - cd[:, i])
-            if u.size > max_offsets:
-                return None
-            offsets.update(int(v) for v in u)
-            if len(offsets) > max_offsets:
-                return None
-    offs = np.array(sorted(offsets), dtype=np.int64)
-    K = offs.size
-
-    mst = np.zeros(n * K)
-    kst = np.zeros(n * K)
-    for j in range(nd):
-        # M . grad(phi_j), one [nc, g] vector at a time
-        MGj = np.einsum("cgh,ch->cg", Mc, geom.grads[:, j, :])
-        for i in range(nd):
-            dij = cd[:, j] - cd[:, i]
-            kk = np.searchsorted(offs, dij)
-            lin = cd[:, i] * K + kk
-            mst += np.bincount(lin, weights=vol * base[i, j], minlength=n * K)
-            ke_ij = vol * np.einsum("cg,cg->c", geom.grads[:, i, :], MGj)
-            kst += np.bincount(lin, weights=ke_ij, minlength=n * K)
+    if d == g and d in (2, 3):
+        tables = native.p1_stencil_tables_direct(mesh.coords, V.cell_dofs, Mc, max_offsets, n)
+    else:
+        geom = cell_geometry(mesh)
+        tables = native.p1_stencil_tables(V.cell_dofs, geom.volume, geom.grads, Mc, _p1_mass_base(d), max_offsets, n)
+    if isinstance(tables, str):  # "too_wide": an unstructured mesh
+        return None
+    offs, mtab, ktab = tables[:3]
 
     offsets_t = tuple(int(v) for v in offs)
-    mass = stencil_from_numpy(offsets_t, mst.reshape(n, K), dtype=_torch_dtype(dtype))
-    stiff = stencil_from_numpy(offsets_t, kst.reshape(n, K), dtype=_torch_dtype(dtype))
+    mass = stencil_from_numpy(offsets_t, mtab, dtype=_torch_dtype(dtype))
+    stiff = stencil_from_numpy(offsets_t, ktab, dtype=_torch_dtype(dtype))
     if slot is not None:
         _operator_cache_store(slot, mass, stiff)
     return mass, stiff
@@ -1033,15 +954,35 @@ def _csr_to_ell_group(indptr, cols, vals_list, shape, dtype=None) -> tuple[ELLMa
     return tuple(out)
 
 
+def _p1_ell_pair(V: FunctionSpace, M_cells, dtype) -> tuple[ELLMatrix, ELLMatrix]:
+    """The P1 pair from :func:`.native.p1_ell_tables_direct`: one layout,
+    the tail shared."""
+    mesh = V.mesh
+    Mc = _broadcast_cell_tensor(M_cells, mesh.num_cells, mesh.gdim)
+    cols, mvals, kvals, _, tail = native.p1_ell_tables_direct(mesh.coords, V.cell_dofs, Mc, V.ndofs)
+    tr, tc, tm, tk = tail if tail is not None else (None,) * 4
+    npdt = np.dtype(dtype or np.float64)
+    shape = (V.ndofs, V.ndofs)
+    return tuple(
+        ELLMatrix(cols=cols, vals=vals.astype(npdt), shape=shape, tail_rows=tr, tail_cols=tc,
+                  tail_vals=None if tv is None else tv.astype(npdt))
+        for vals, tv in ((mvals, tm), (kvals, tk))
+    )
+
+
 def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float, *, dtype=None,
                             cache_key: str | None = None):
     """Consistent mass and anisotropic stiffness as two host
     :class:`~.ops.sparse.ELLMatrix` of one shared layout, so
     ``a*Mass + b*Stiff`` is a value-level combination, with values of the
     numpy ``dtype`` (float64 when None).  ``M_cells``: scalar,
-    [gdim, gdim] or per-cell [nc, gdim, gdim].  P1 goes through the COO
-    pipeline (one sort of the shared pattern for both value sets); any
-    other Lagrange space through its reference tensors and
+    [gdim, gdim] or per-cell [nc, gdim, gdim].  P1 on a tdim == gdim mesh
+    goes through the kit in one pass over the cells (rows of at most 32
+    entries in 3-D and 12 in 2-D, the rest of a longer row in a COO tail:
+    the JAX package's ``_assemble_mass_stiffness_ell_direct``), P1 on an
+    embedded mesh through the COO pipeline (one sort of the shared pattern
+    for both value sets); any other Lagrange space through its reference
+    tensors and
     :func:`_cell_blocks_to_csr`.  Quadrature and blocked spaces raise.
     ``cache_key`` opts into the operator disk cache."""
     _check_pde_space(V)
@@ -1051,7 +992,10 @@ def assemble_mass_stiffness(V: FunctionSpace, M_cells: np.ndarray | float, *, dt
         cached = _operator_cache_load(slot, dtype)
         if cached is not None:
             return cached
-    if _is_p1(V):
+    mesh = V.mesh
+    if _is_p1(V) and mesh.tdim == mesh.gdim and mesh.tdim in (2, 3):
+        pair = _p1_ell_pair(V, M_cells, dtype)
+    elif _is_p1(V):
         rows, cols, mvals, kvals, shape = assemble_mass_stiffness_coo(V, M_cells)
         pair = coo_to_ell_group(rows, cols, [mvals, kvals], shape, dtype)
     else:
@@ -1367,40 +1311,27 @@ def dirichletbc(value: float, dofs: np.ndarray, V: FunctionSpace | None = None) 
 
 
 def _locate_cells(mesh: Mesh, points: np.ndarray, tol: float = 1e-10) -> np.ndarray:
-    """Lowest-index cell containing each point (vectorized barycentric
-    test, one point at a time, over the cells whose bounding box holds
-    it); -1 when outside.  Barycentric coordinates all >= -tol put a point
-    at most (tdim + 1) * tol of the cell's extent outside its box on each
-    axis, so boxes padded by more than that drop no cell the test accepts,
-    and only the cells left need their geometry (the JAX package's native
-    sweep prefilters the same way, and so only where tdim == gdim: an
+    """Lowest-index cell containing each point (barycentric coordinates
+    all >= -tol); -1 when outside.  Where tdim == gdim in {2, 3} the kit
+    sweeps the cells once for every point (:func:`.native.locate_points`,
+    its numpy twin beside it); on intervals and embedded cells, which the
+    kit refuses, a vectorized test of every cell, one point at a time (an
     embedded cell's test reads the point's projection onto it)."""
     pts = np.asarray(points, dtype=np.float64)
     if pts.ndim == 1:
         pts = pts[None, :]
     pts = pts[:, : mesh.gdim]
-    boxed = mesh.tdim == mesh.gdim
-    boxes = []  # per axis: the cells' padded (lo, hi)
-    for a in range(mesh.gdim if boxed else 0):
-        c = [mesh.coords[mesh.cells[:, k], a] for k in range(mesh.cells.shape[1])]
-        lo, hi = functools.reduce(np.minimum, c), functools.reduce(np.maximum, c)
-        pad = (hi - lo) * max(4 * (mesh.tdim + 1) * tol, 1e-8)
-        boxes.append((lo - pad, hi + pad))
+    if mesh.tdim == mesh.gdim and mesh.tdim in (2, 3):
+        # one pass over the cells for every point in the kit (JAX fem.py:1490-1498)
+        return native.locate_points(mesh.coords, mesh.cells, pts, tol=tol)
+    geom = cell_geometry(mesh)
+    x0 = mesh.coords[mesh.cells[:, 0]]
     out = np.full(pts.shape[0], -1, dtype=np.int64)
     for pi, p in enumerate(pts):
-        cand = np.arange(mesh.num_cells)
-        for (lo, hi), x in zip(boxes, p):
-            cand = cand[(lo[cand] <= x) & (hi[cand] >= x)]
-        if not cand.size:
-            continue
-        geom = cell_geometry(mesh, cand)
-        d = p[None, :] - mesh.coords[mesh.cells[cand, 0]]  # [nk, gdim]
-        xi = np.einsum("cg,cig->ci", d, geom.inv_edges)  # [nk, tdim]
-        lam0 = 1.0 - xi.sum(axis=1)
-        ok = (xi >= -tol).all(axis=1) & (lam0 >= -tol)
-        hits = np.nonzero(ok)[0]
+        xi = np.einsum("cg,cig->ci", p[None, :] - x0, geom.inv_edges)  # [nc, tdim]
+        hits = np.nonzero((xi >= -tol).all(axis=1) & (1.0 - xi.sum(axis=1) >= -tol))[0]
         if hits.size:
-            out[pi] = cand[hits[0]]
+            out[pi] = hits[0]
     return out
 
 

@@ -6,9 +6,12 @@ topology (edges, facets, boundary), built once on host.  Node ordering of
 the structured generators is lexicographic with the x-index slowest, which
 gives the P1 operator a single global stencil offset set.
 
-The one difference from the JAX package: entity enumeration uses numpy's
-``unique(axis=0)`` (the numpy branch of its native ``unique_rows``); the
-port has no native host kit yet.
+The one difference from the JAX package: entity enumeration sorts one
+int64 key per row with numpy where the JAX package calls its native
+``unique_rows``.  The port's copy of the kit (:mod:`.native`) has that
+function too, but the keys are faster: 0.52 s against the kit's 1.05 s
+for the edges of the psize 0.1 LV (7.9M rows) on the host of an NVIDIA
+H100 80GB HBM3 at 700 W (``benchmarks/setup_kit.py``).
 """
 
 from __future__ import annotations
@@ -130,12 +133,7 @@ class Mesh:
         combos = list(itertools.combinations(range(nv), dim + 1))
         sub = np.concatenate([self.cells[:, list(c)] for c in combos], axis=0)
         sub = np.sort(sub, axis=1).astype(np.int32)
-        keys = _row_keys(sub, self.num_vertices)
-        if keys is None:
-            ents = np.unique(sub, axis=0)
-        else:
-            _, first = np.unique(keys, return_index=True)
-            ents = sub[first]
+        ents = _unique_rows(sub, self.num_vertices)
         self._topology.entities[dim] = ents
         return ents
 
@@ -244,6 +242,17 @@ def _row_keys(rows: np.ndarray, base: int) -> np.ndarray | None:
     for k in range(rows.shape[1]):
         keys = keys * base + rows[:, k]
     return keys
+
+
+def _unique_rows(rows: np.ndarray, base: int) -> np.ndarray:
+    """Lexicographically sorted unique rows of nonnegative ints below
+    ``base``: one sort of int64 row keys (``np.unique(axis=0)`` when the
+    keys would overflow)."""
+    keys = _row_keys(rows, base)
+    if keys is None:
+        return np.unique(rows, axis=0)
+    _, first = np.unique(keys, return_index=True)
+    return rows[first]
 
 
 def _row_searchsorted(sorted_rows: np.ndarray, query: np.ndarray) -> np.ndarray:

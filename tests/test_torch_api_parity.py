@@ -12,10 +12,8 @@ import pytest
 from test_api_parity import REFERENCE_ALL, REFERENCE_SURFACE
 
 # module -> symbols the port does not have yet, and the ROADMAP item that ports them
-UNPORTED = {
-    "cli": ("A14", REFERENCE_SURFACE["cli"]),
-}
-UNPORTED_MODULES = {"cli"}
+UNPORTED = {}
+UNPORTED_MODULES = set()
 
 
 @pytest.mark.parametrize("module", sorted(REFERENCE_SURFACE))

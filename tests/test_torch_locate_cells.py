@@ -1,6 +1,6 @@
-"""Point location (``fem._locate_cells``): the cells whose padded bounding
-box holds a point are the only ones it tests, and it returns what a
-barycentric sweep over every cell returns (the lowest-index cell that holds
+"""Point location (``fem._locate_cells``: the native kit's sweep on
+triangles and tetrahedra, a numpy test of every cell on intervals) returns
+what a barycentric sweep over every cell returns (the lowest-index cell that holds
 the point, -1 outside) on points in cells, on shared vertices and edges, at
 the tolerance's edge and outside; and ``evaluate_function`` on it equals
 the JAX package's at interior points."""
@@ -43,7 +43,8 @@ def meshes():
     rng = np.random.default_rng(3)
     inner = np.all((skew.coords > 1e-9) & (skew.coords < np.array([2.0, 1.5, 1.0]) - 1e-9), axis=1)
     skew.coords[inner] += rng.uniform(-0.05, 0.05, (int(inner.sum()), 3))
-    return {"box": box, "skewed box": skew, "unit square": tmesh.create_unit_square(None, 7, 5)}
+    return {"box": box, "skewed box": skew, "unit square": tmesh.create_unit_square(None, 7, 5),
+            "unit interval": tmesh.create_unit_interval(None, 9)}
 
 
 def probe_points(m, rng):
@@ -62,7 +63,7 @@ def probe_points(m, rng):
 
 
 @pytest.mark.parametrize("tol", [1e-10, 1e-8])
-@pytest.mark.parametrize("name", ["box", "skewed box", "unit square"])
+@pytest.mark.parametrize("name", ["box", "skewed box", "unit square", "unit interval"])
 def test_locate_cells_equals_the_sweep_over_every_cell(name, tol):
     m = meshes()[name]
     pts = probe_points(m, np.random.default_rng(11))
