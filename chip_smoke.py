@@ -316,11 +316,41 @@ Run from the root of a checkout.  Phases, each printed as it finishes:
    frame of the LV through ``io.VTUWriter`` read back to the same values;
    the seconds of each part.
 
+23. (run after 20) the sharded solvers (``fenicsx_beat_tpu_torch/parallel/``,
+   SPMD over ``torch.distributed``), each world one spawn of ranks on the
+   card through ``benchmarks/multichip.py:phase_rank``: world 2 on gloo
+   (NCCL refuses two ranks on one device; the transfers staged through
+   pinned host memory: a check, not a speed figure) beside the references
+   on the card, then world 1 on NCCL alone.  (a) The dx=0.1 main path
+   through ``ShardedMonodomainSolver`` (TP06 GRL, Strang, 40 ms): P1-P9
+   within one dt of phase 6's and of JAX's Strang row, its ms/s, CG a step,
+   exchanges and all-reduces a CG iteration beside phase 6's, B1 twice a
+   step, B3 once a CG iteration, B4 and B5 launched, and no B2, B2·B4 or
+   B8; (b) the psize 0.1 LV from ``init_state_values()`` (RCM, the
+   tail-aware partition, B8), 10 ms: its probes within one dt of the fused
+   LV's from the same start, the activated share within 0.5 points, the
+   largest gap at nodes both fired printed; (c) the psize 0.3 bidomain LV
+   on AMG (sharded level 0), 5 ms: v and u_e within 3x the gap to phase 20
+   (c)'s float64 run of the CPU's float32 AMG runs (from the same states
+   and one ulp away), the single-device card run printed beside; (d) the
+   sharded adjoint on the slab of JAX's ``test_adjoint.py:1037`` at dx=0.1
+   (14,091 nodes, FHN forward Euler, 16 steps, CG to rtol 1e-7),
+   stimulated in the corner x <= 1, y <= 1 so that float32 resolves both
+   components of dL/dg: the value and each component of dL/dg within 3x the largest gap
+   in it to the single-device float64 run on the CPU of the single-device
+   float32 runs on the card (from the initial states, from states one ulp
+   away, and on the nodes numbered backwards, every sum in the other
+   order), those gaps each under a third of the component; and one census
+   row a world
+   (``multichip.census_rank``).
+
 ``python3 chip_smoke.py --phase 20`` runs phase 20 alone (after the build
 and phase 7's pacing) and prints no result line: a shorter run for work on
 that phase, not the smoke run; ``--phase 21`` runs phase 21 alone (after
 the build, phase 6's main path and Path M's setup), the same way;
-``--phase 22`` runs phase 22 alone (after the build).
+``--phase 22`` runs phase 22 alone (after the build); ``--phase 23`` runs
+phase 23 alone (after the build, with its own fused main path and phase 20
+(c)'s CPU reference beside it).
 
 After the build, three host processes of the run's own run beside it,
 each on one or two of the host's cores at a lower priority with the card
@@ -347,6 +377,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4549,6 +4580,215 @@ def phase_amg_biv(steady: dict, ref_proc) -> None:
     end = time.perf_counter()
     print(f"[biv] phase 20 took {end - tic:.1f} s: (a) and (b) {mid - tic:.1f} s, (c) {end - mid:.1f} s")
 
+# Phase 23, the sharded solvers (fenicsx_beat_tpu_torch/parallel/): each
+# world a spawn of ranks on the one card, world 1 on NCCL and world 2 on gloo
+# (NCCL refuses two ranks on one device: gloo stages the transfers through
+# pinned host memory and the compute stays on the card)
+SHARD_WORLDS = ((1, "nccl"), (2, "gloo"))
+SHARD_LV_T = 10.0  # (b)'s horizon (ms)
+SHARD_TIMEOUT = 300.0  # one spawn's limit (s)
+SHARD_WITNESS_SEEDS = (1, 2)  # (d)'s float32 witnesses from states one ulp away
+
+
+def _lv_probes(V, act):
+    import numpy as np
+
+    from fenicsx_beat_tpu_torch import fem
+    from fenicsx_beat_tpu_torch.benchmarks.lv import lv_probe_points
+
+    pts = lv_probe_points(LV_PSIZE)
+    dofs, w = fem.point_evaluation_tables(V, np.array(list(pts.values())))
+    return dict(zip(pts, (act[dofs] * w).sum(axis=1)))
+
+
+def _spawn_world(world: int, backend: str, target, out: dict) -> None:
+    """Phase 23's spawn of one world into ``out[world]`` (its exception there)."""
+    from fenicsx_beat_tpu_torch.benchmarks import multichip as mc
+    from fenicsx_beat_tpu_torch.parallel import spawn_ranks
+
+    tic = time.perf_counter()
+    try:
+        out[world] = spawn_ranks(mc.phase_rank, world, backend=backend, args=("cuda", target, CACHE_KEY),
+                                 timeout=SHARD_TIMEOUT)[0]
+        out[world]["spawn_s"] = time.perf_counter() - tic
+    except Exception as exc:  # raised by the caller after the join
+        out[world] = exc
+
+
+def phase_sharded(main: dict | None, ref_proc=None) -> None:
+    """Phase 23 (module docstring): the world-2 spawn (gloo, a check, not a
+    speed figure) beside the references on the card, then the world-1 spawn
+    (NCCL) alone, then the checks.  (c) is held to phase 20 (c)'s float64
+    reference (``ref_proc`` when it is still to come, as with ``--phase 23``)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fenicsx_beat_tpu_torch.adjoint import build_diff_simulator
+    from fenicsx_beat_tpu_torch.benchmarks import bidomain_scale as bs
+    from fenicsx_beat_tpu_torch.benchmarks import multichip as mc
+    from fenicsx_beat_tpu_torch.bidomain import BidomainSolver
+    from fenicsx_beat_tpu_torch.fused import FusedMonodomainSolver
+
+    tag = f"[sharded] ({card()})"
+    laps = Laps("[time] 23")
+    if main is None:  # --phase 23 alone: the fused main path to compare with
+        from fenicsx_beat_tpu_torch.benchmarks.niederer import run_niederer_benchmark
+
+        res = run_niederer_benchmark(dx=0.1, dt=DT, T=40.0, theta=0.5, device=DEVICE, operator_cache_key=CACHE_KEY)
+        main = {"at": [res.activation_times[f"P{i}"] for i in range(1, 10)], "ms_per_s": res.ms_per_second,
+                "cg_mean": res.cg_iters_mean}
+        laps("fused main path")
+    # (d)'s target: the single-device simulator's traces on the card, times 0.9
+    m3, kw = mc.adjoint_problem()
+    sim = build_diff_simulator(m3, device=DEVICE, **kw)
+    with torch.no_grad():
+        target = sim({k: v.detach() for k, v in mc.adjoint_params(DEVICE, torch.float32).items()}) * 0.9
+    # world 2 (gloo) beside the references; its ranks read the LV's geometry from the cache
+    lv = mc.lv_setup(LV_PSIZE)
+    runs = {}
+    world2 = threading.Thread(target=_spawn_world, args=(2, "gloo", target.cpu().numpy(), runs))
+    world2.start()
+    # (b)'s reference: the fused LV from the same start
+    fused = FusedMonodomainSolver(device=DEVICE, operator_cache_key=CACHE_KEY, **lv)
+    fused.solve((0.0, SHARD_LV_T), dt=DT)
+    lv_act, lv_V = fused.activation_times(), fused.V
+    del fused
+    laps("(b) fused LV")
+    # (c): the single-device bidomain LV on AMG on the card (printed beside)
+    b = BidomainSolver(device=DEVICE, u_precond="auto", **bs.lv_kwargs(LV_CHECK_PSIZE))
+    b.solve((0.0, bs.REFERENCE_T), dt=DT, save_freq=bs.CHUNK_STEPS)
+    bi = {"v": b.v.double().cpu().numpy(), "u_e": b.u_e.double().cpu().numpy()}
+    del b
+    laps("(c) single-device bidomain")
+    # (d)'s references: the single-device simulator in float64 on the CPU
+    # (the same tolerances), and its float32 witnesses on the card: from the
+    # initial states, from states one ulp away, and with every node sum
+    # taken in reverse (the nodes numbered backwards)
+    adj = {}
+
+    def value_grad(sim_, device, dtype, s0=None):
+        params = mc.adjoint_params(device, dtype)
+        loss = torch.mean((sim_(params, states0_in=s0) - target.to(device=device, dtype=dtype)) ** 2)
+        (g,) = torch.autograd.grad(loss, [params["g"]])
+        return float(loss.detach()), g.double().cpu().numpy()
+
+    adj["f64"] = value_grad(build_diff_simulator(m3, device="cpu", dtype=torch.float64, **kw), "cpu", torch.float64)
+    adj["f32"] = value_grad(sim, DEVICE, torch.float32)
+    for seed in SHARD_WITNESS_SEEDS:
+        init = np.tile(np.asarray(kw["init_states"], dtype=np.float32)[:, None], (1, m3.num_vertices))
+        holder = types.SimpleNamespace(states=torch.as_tensor(init, device=DEVICE))
+        bs.perturb_states(holder, seed)
+        adj[f"f32_ulp{seed}"] = value_grad(sim, DEVICE, torch.float32, holder.states)
+    m3r, kwr = mc.adjoint_problem(reverse=True)
+    adj["f32_reversed"] = value_grad(build_diff_simulator(m3r, device=DEVICE, **kwr), DEVICE, torch.float32)
+    laps("(d) adjoint references")
+
+    world2.join()
+    laps("world 2 (gloo) joined")
+    _spawn_world(1, "nccl", target.cpu().numpy(), runs)  # alone on the card: its ms/s is a reading
+    laps("world 1 (nccl)")
+    for world, backend in SHARD_WORLDS:
+        if isinstance(runs[world], Exception):
+            raise runs[world]
+        r = runs[world]
+        print(f"{tag} world {world} ({backend}): spawn {r.pop('spawn_s'):.1f} s; parts (s) "
+              + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in r.items()), flush=True)
+    # (c)'s reference: phase 20 (c)'s float64 run and float32 witnesses on the CPU
+    if ref_proc is not None:
+        _, err = ref_proc.communicate(timeout=900)
+        require(ref_proc.returncode == 0, f"the bidomain reference ran on the CPU: {err[-2000:]}")
+    with np.load(BIDOMAIN_REF_NPZ) as f:
+        ref = {k: f[k] for k in f.files}
+
+    for world, backend in SHARD_WORLDS:
+        r = runs[world]
+        w = f"{tag} world {world} ({backend})"
+        # (a) the main path
+        a = r["main"]
+        la = a["launches"]
+        dev_jax = max(abs(x - y) for x, y in zip(a["at"], JAX_STRANG_DX01))
+        dev_fused = max(abs(x - y) for x, y in zip(a["at"], main["at"]))
+        if world > 1:
+            w += " [beside the references: a check, not a speed figure]"
+        print(f"{w} (a) dx=0.1 main path, n={a['n']} (n_local {a['n_local']}, halo {a['halo']}): P1-P9 "
+              + " ".join(f"{x:.2f}" for x in a["at"]) + f"; max|P - P_jax| {dev_jax:.3f}, max|P - P_fused| "
+              f"{dev_fused:.3f}; ms_per_s={a['ms_per_s']:.3f} (fused {main['ms_per_s']:.3f}), CG a step "
+              f"{a['cg_per_step']:.3f} (fused {main['cg_mean']:.3f}), a CG iteration {a['exchanges_per_cg']:.3f} "
+              f"exchanges and {a['all_reduces_per_cg']:.3f} all-reduces, halo {a['halo_bytes_per_step']:.0f} B a "
+              f"step, host syncs a step {a['host_syncs_per_step']:.3f}, setup {a['setup_s']:.1f} s; launches "
+              + json.dumps(la))
+        require(a["finite"], f"every state finite (world {world})")
+        require(dev_jax <= DT + 1e-6 and dev_fused <= DT + 1e-6,
+                f"sharded P1-P9 within one dt of JAX's Strang row and phase 6's (world {world})")
+        cg_total = round(a["cg_per_step"] * a["steps"])
+        require(la["tp06_grl_step_v"] == 2 * a["steps"], "B1 twice a Strang step")
+        require(la["cg_update"] == cg_total, "B3 once a CG iteration")
+        require(la["axpy"] > 0 and la["stencil_spmv"] > 0, "B4 and B5 launched")
+        require(la["stencil_spmv_sym"] == la["stencil_spmv_sym_dir_dot"] == la["csr_spmv"] == 0,
+                "the sharded slab runs B5, not B2, B2·B4 or B8")
+        # (b) the LV
+        b = r["lv"]
+        lb = b["launches"]
+        p_s, p_f = _lv_probes(lv_V, b["act"]), _lv_probes(lv_V, lv_act)
+        both = (b["act"] >= 0) & (lv_act >= 0)
+        share_s, share_f = float((b["act"] >= 0).mean()), float((lv_act >= 0).mean())
+        gap = float(np.abs(b["act"][both] - lv_act[both]).max()) if both.any() else 0.0
+        print(f"{w} (b) psize {LV_PSIZE} LV, n={b['n']} (n_local {b['n_local']}, halo {b['halo']}, apex tail "
+              f"{b['tail']}), {SHARD_LV_T:g} ms: probes " + ", ".join(
+                  f"{k}={p_s[k]:.2f} (fused {p_f[k]:.2f})" for k in p_s) + f"; activated share {share_s:.4f} "
+              f"(fused {share_f:.4f}); largest gap at nodes both fired {gap:.3f} ms; ms_per_s={b['ms_per_s']:.3f}, "
+              f"CG a step {b['cg_per_step']:.3f}, a CG iteration {b['exchanges_per_cg']:.3f} exchanges and "
+              f"{b['all_reduces_per_cg']:.3f} all-reduces, setup {b['setup_s']:.1f} s; launches " + json.dumps(lb))
+        require(b["finite"] and b["tail"], f"the sharded LV finite, its apex tail partitioned (world {world})")
+        for k in p_s:
+            fired = p_s[k] >= 0, p_f[k] >= 0
+            require(fired[0] == fired[1] and (not fired[0] or abs(p_s[k] - p_f[k]) <= DT + 1e-6),
+                    f"LV probe {k} within one dt of the fused run (world {world})")
+        require(abs(share_s - share_f) <= 0.005, "the LV's activated share within 0.5 points")
+        require(lb["tp06_grl_step_v"] > 0 and lb["csr_spmv"] > 0 and lb["cg_update"] > 0 and lb["axpy"] > 0,
+                "the sharded LV launches B1, B8, B3 and B4")
+        # (c) the bidomain, held as phase 20 (c) holds the single-device AMG run
+        c = r["bidomain"]
+        for f in ("v", "u_e"):
+            f64 = ref[f"monolithic/f64/{f}"]
+            noise = max(float(np.abs(ref[f"monolithic/{k}/{f}"] - f64).max()) for k in ("f32_amg", "f32_amg_ulp"))
+            d = float(np.abs(c[f] - f64).max())
+            d_card, d_pair = float(np.abs(bi[f] - f64).max()), float(np.abs(c[f] - bi[f]).max())
+            print(f"{w} (c) bidomain LV psize {LV_CHECK_PSIZE} on {c['amg']} AMG, {bs.REFERENCE_T:g} ms: {f} "
+                  f"{d:.3e} from the CPU's float64 run ({d / noise:.2f}x the gap of the CPU's float32 AMG runs, "
+                  f"from the same states and one ulp away, {noise:.3e}); the single-device card run {d_card:.3e} "
+                  f"({d_card / noise:.2f}x), the two runs {d_pair:.3e} apart")
+            require(d <= 3 * noise, f"the sharded bidomain's {f} within 3x float32's AMG gap to float64 "
+                                    f"(world {world})")
+        print(f"{w} (c) ms_per_s={c['ms_per_s']:.3f}, CG a step {c['cg_per_step']:.3f}, {c['exchanges']} exchanges "
+              f"and {c['all_reduces']} all-reduces; launches " + json.dumps(c["launches"]))
+        require(c["launches"]["csr_spmv"] > 0 and c["launches"]["tp06_grl_step_v"] > 0,
+                "the sharded bidomain launches B8 and B1")
+        # (d) the adjoint, against the float64 run: the value and each component of dL/dg
+        # within 3x the float32 witnesses' largest gap in it
+        d = r["adjoint"]
+        v0, g0 = adj["f64"]
+        wit = [k for k in adj if k != "f64"]
+        nv = max(abs(adj[k][0] - v0) for k in wit)
+        ng = np.max([np.abs(adj[k][1] - g0) for k in wit], axis=0)
+        dv, dg = abs(d["value"] - v0), np.abs(d["dg"] - g0)
+        print(f"{w} (d) adjoint slab n={d['n']}, FHN FE, 16 steps: value {d['value']:.6e} (float64 {v0:.6e}: "
+              f"{dv:.3e}, {dv / nv:.2f}x the float32 witnesses' {nv:.3e}); dL/dg " + "; ".join(
+                  f"[{i}] {d['dg'][i]:.6e} (float64 {g0[i]:.6e}: {dg[i]:.3e}, {dg[i] / ng[i]:.2f}x their "
+                  f"{ng[i]:.3e})" for i in range(len(g0))) + "; witnesses " + ", ".join(
+                  f"{k} {adj[k][0]:.6e} / " + " ".join(f"{x:.6e}" for x in adj[k][1]) for k in wit)
+              + f"; forward {d['forward_s']:.2f} s, backward {d['backward_s']:.2f} s, {d['exchanges']} exchanges, "
+              f"{d['all_reduces']} all-reduces")
+        require(bool(np.all(3 * ng < np.abs(g0))), "float32 resolves each component of dL/dg (its witnesses' "
+                                                   "gap under a third of it)")
+        require(dv <= 3 * nv and bool(np.all(dg <= 3 * ng)),
+                f"the sharded adjoint's value and each component of dL/dg within 3x the float32 witnesses' gap "
+                f"to float64 (world {world})")
+        print(f"{w} census row (dx=0.5 slab, 10 mm a rank, 100 steps): " + json.dumps(r["census"]))
+
+
 # Phase 22, the command line: ``python -m fenicsx_beat_tpu_torch`` in
 # processes of its own on the psize 0.1 LV written as a binary Gmsh 4.1 file
 # with its endocardial cells tagged, and on the Niederer slab at the command
@@ -4866,6 +5106,10 @@ def main() -> int:
         phase_cli()
         print(f"[done] {time.perf_counter() - tic:.1f} s (phase 22 alone)")
         return 0
+    if sys.argv[1:] == ["--phase", "23"]:  # phase 23 alone (with its own fused main path), no result line
+        phase_sharded(None, bidomain_reference())
+        print(f"[done] {time.perf_counter() - tic:.1f} s (phase 23 alone)")
+        return 0
     if sys.argv[1:] == ["--phase", "21"]:  # phase 21 alone (with the main path and Path M's setup), no result line
         _, main = phase_main_path()
         mixed, _ = phase_mixed_setup()
@@ -4995,6 +5239,9 @@ def main() -> int:
     # block) and the BiV demo at full width, through B8 and ToR-ORd's B1
     phase_amg_biv(steady, bidomain_ref_proc)
     lap("20 AMG, BiV")
+    # phase 23: the sharded solvers at world 1 (NCCL) and 2 (gloo on the one card)
+    phase_sharded(main)
+    lap("23 sharded")
     # phase 22: the command line (run --mesh on the LV from a Gmsh file, ecg, post, run on the slab, a VTU frame)
     phase_cli()
     lap("22 command line")

@@ -148,18 +148,24 @@ def slab_solver(dx: float, device=None, monodomain: bool = False, **kw):
     return BidomainSolver(M_i=M_i, M_e=M_e, **common)
 
 
-def lv_solver(psize: float, device=None, **kw) -> BidomainSolver:
-    """The bidomain LV at ``psize``: the apex region (x < apex + 2 mm)
-    stimulated, the separate tensors along the fibres, TP06, Jacobi
-    unless ``u_precond`` says otherwise (``"auto"`` or ``"amg"``: SA-AMG)."""
+def lv_kwargs(psize: float) -> dict:
+    """The bidomain LV's problem at ``psize`` (mesh, tensors, stimulus,
+    C_m and TP06), the arguments :func:`lv_solver` and the sharded
+    bidomain solver share: the apex region (x < apex + 2 mm) stimulated,
+    the separate tensors along the fibres."""
     geo = get_lv_ellipsoid_geometry(psize_ref=psize, cache=False)
     mesh = geo.mesh
     apex_x = mesh.coords[:, 0].min()
     cells = meshmod.locate_entities(mesh, 3, lambda x: x[0] < apex_x + 2.0)
     M_i, M_e = bidomain_tensors(geo.f0)
+    return dict(mesh=mesh, M_i=M_i, M_e=M_e, I_s=_niederer_stimulus(mesh, cells), C_m=_c_m(), **_tp06_kwargs())
+
+
+def lv_solver(psize: float, device=None, **kw) -> BidomainSolver:
+    """The bidomain LV at ``psize`` (:func:`lv_kwargs`), Jacobi unless
+    ``u_precond`` says otherwise (``"auto"`` or ``"amg"``: SA-AMG)."""
     kw.setdefault("u_precond", "jacobi")
-    return BidomainSolver(mesh=mesh, M_i=M_i, M_e=M_e, I_s=_niederer_stimulus(mesh, cells), C_m=_c_m(),
-                          device=device, **{**_tp06_kwargs(), **kw})
+    return BidomainSolver(device=device, **{**lv_kwargs(psize), **kw})
 
 
 def demo_solver(nx: int = 48, device=None, **kw) -> BidomainSolver:

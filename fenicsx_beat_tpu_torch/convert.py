@@ -6,6 +6,10 @@ JAX package's Pallas SpMVs) and the ``(num_states, n)`` state array, all
 as numpy arrays (the JAX package keeps its assembly numpy-backed, so
 ``np.asarray(stencil.vals)`` is the table itself).  Checkpoints cross as
 the npz that both fused solvers' ``save_state``/``load_state`` share.
+The JAX package's sharded solvers stack their per-device operands along a
+leading ``[n_devices]`` axis (and their padded states along the node axis);
+:func:`rank_blocks` cuts one rank's block out of them, the layout of the
+port's SPMD ranks (:mod:`.parallel`).
 """
 
 from __future__ import annotations
@@ -15,9 +19,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .ops.sparse import StencilMatrix
+from .ops.sparse import ELLMatrix, StencilMatrix
 
-__all__ = ["stencil_from_numpy", "values_from_packed", "states_from_numpy"]
+__all__ = ["stencil_from_numpy", "ell_from_numpy", "values_from_packed", "states_from_numpy", "rank_blocks"]
 
 
 def stencil_from_numpy(
@@ -36,6 +40,41 @@ def stencil_from_numpy(
     n = vals.shape[0]
     t = torch.tensor(vals, dtype=dtype, device=device)  # a copy: never aliases the caller's array
     return StencilMatrix(offsets=tuple(int(d) for d in offsets), vals=t, shape=(n, n))
+
+
+def ell_from_numpy(cols, vals, shape, tail_rows=None, tail_cols=None, tail_vals=None) -> ELLMatrix:
+    """The port's host :class:`ELLMatrix` from an ELL operator's arrays
+    (``[n, W]`` columns and values, the COO tail's three arrays or None),
+    copied."""
+    tail = None if tail_rows is None or np.asarray(tail_rows).size == 0 else (
+        np.array(tail_rows, dtype=np.int32), np.array(tail_cols, dtype=np.int32), np.array(tail_vals))
+    return ELLMatrix(cols=np.array(cols, dtype=np.int32), vals=np.array(vals), shape=tuple(int(d) for d in shape),
+                     tail_rows=None if tail is None else tail[0], tail_cols=None if tail is None else tail[1],
+                     tail_vals=None if tail is None else tail[2])
+
+
+def rank_blocks(arrays: dict, rank: int, n_devices: int, node_axis: dict | None = None,
+                device: torch.device | str = "cpu", dtype: torch.dtype | None = None) -> dict:
+    """``rank``'s blocks of stacked per-device arrays (numpy): each array of
+    ``arrays`` is cut along its device axis, the leading one (``[nd,
+    n_local, W]`` values, columns, tails and masks), or for the names in
+    ``node_axis`` along that axis split into ``n_devices`` equal blocks
+    (``{"states": -1}`` for ``[S, n_pad]`` padded states).  Returns torch
+    tensors on ``device``, floating ones in ``dtype`` when given, integer
+    and boolean ones as they are."""
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        ax = (node_axis or {}).get(name)
+        if ax is None:
+            if a.shape[0] != n_devices:
+                raise ValueError(f"{name}: leading axis {a.shape[0]} is not the {n_devices} devices")
+            blk = a[rank]
+        else:
+            blk = np.split(a, n_devices, axis=ax)[rank]
+        t = torch.tensor(np.ascontiguousarray(blk), device=device)
+        out[name] = t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    return out
 
 
 def values_from_packed(
